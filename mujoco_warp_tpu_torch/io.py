@@ -1,0 +1,423 @@
+"""Model compiler and state allocation for the PyTorch port.
+
+`put_model` turns a C-compiled `mujoco.MjModel` into the port's Model
+(mirrors `mujoco_warp_tpu/io.py:794`). It only reads the compiled
+model's arrays and never imports the `mujoco` bindings itself: a machine
+without `mujoco` loads a model saved with `save_model` (`load_model`).
+`model_from_numpy` / `data_from_numpy` build Model and Data from plain
+numpy arrays, which is also how the parity tests carry state over from
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from . import types
+from .types import (BiasType, ConeType, Contact, Data, DisableBit, DynType,
+                    GainType, GeomType, IntegratorType, JointType, Model,
+                    Option, SolverType, Statistic, TrnType)
+
+# candidate contacts per supported geom-type pair (keys sorted by type)
+MAX_CONTACTS = {
+    (GeomType.PLANE, GeomType.SPHERE): 1,
+    (GeomType.PLANE, GeomType.CAPSULE): 2,
+    (GeomType.SPHERE, GeomType.SPHERE): 1,
+    (GeomType.SPHERE, GeomType.CAPSULE): 1,
+    (GeomType.CAPSULE, GeomType.CAPSULE): 1,
+}
+
+
+def _tup(x) -> tuple:
+  """numpy int array -> nested tuple of python ints."""
+  a = np.asarray(x)
+  if a.ndim == 1:
+    return tuple(int(v) for v in a)
+  return tuple(_tup(r) for r in a)
+
+
+def _validate(mjm):
+  """Raise NotImplementedError for anything outside the port's gate."""
+  def need(ok, what):
+    if not ok:
+      raise NotImplementedError(f'{what} is not ported yet')
+  need(mjm.nsensor == 0, 'sensors')
+  need(mjm.ntendon == 0, 'tendons')
+  need(mjm.neq == 0, 'equality constraints')
+  need(mjm.na == 0, 'actuator activation states')
+  need(mjm.nflex == 0, 'flex')
+  need(mjm.nmocap == 0, 'mocap bodies')
+  need(mjm.ncam == 0 and mjm.nlight == 0, 'cameras and lights')
+  need(mjm.ngravcomp == 0, 'gravity compensation')
+  need(mjm.nplugin == 0, 'plugins')
+  need(mjm.opt.density == 0 and mjm.opt.viscosity == 0 and
+       not np.any(mjm.opt.wind != 0), 'fluid forces')
+  need(mjm.opt.cone == ConeType.PYRAMIDAL, 'the elliptic cone')
+  need(mjm.opt.integrator == IntegratorType.EULER,
+       f'integrator {mjm.opt.integrator}')
+  need(mjm.opt.solver == SolverType.NEWTON, f'solver {mjm.opt.solver}')
+  need(mjm.opt.enableflags == 0, 'enable flags')
+  for bit in (DisableBit.CONSTRAINT, DisableBit.CONTACT):
+    need(not mjm.opt.disableflags & bit, f'disable flag {bit.name}')
+  for j in range(mjm.njnt):
+    jt = int(mjm.jnt_type[j])
+    scalar = jt in (JointType.SLIDE, JointType.HINGE)
+    need(scalar or not mjm.jnt_limited[j], f'limits on joint type {jt}')
+    need(scalar or mjm.jnt_stiffness[j] == 0, f'springs on joint type {jt}')
+  for u in range(mjm.nu):
+    need(mjm.actuator_trntype[u] == TrnType.JOINT and
+         mjm.jnt_type[mjm.actuator_trnid[u, 0]] in (JointType.SLIDE,
+                                                    JointType.HINGE),
+         'actuators other than on slide/hinge joints')
+    need(mjm.actuator_gaintype[u] in (GainType.FIXED, GainType.AFFINE),
+         f'gain type {mjm.actuator_gaintype[u]}')
+    need(mjm.actuator_biastype[u] in (BiasType.NONE, BiasType.AFFINE),
+         f'bias type {mjm.actuator_biastype[u]}')
+    need(mjm.actuator_dyntype[u] == DynType.NONE,
+         f'dynamics type {mjm.actuator_dyntype[u]}')
+
+
+def _body_levels(parentid) -> tuple:
+  """Bodies 1..nbody-1 grouped by tree depth."""
+  nbody = len(parentid)
+  depth = np.zeros(nbody, dtype=int)
+  for b in range(1, nbody):
+    depth[b] = depth[parentid[b]] + 1
+  levels = []
+  for lvl in range(1, depth.max() + 1 if nbody > 1 else 1):
+    ids = tuple(int(b) for b in np.nonzero(depth == lvl)[0])
+    if ids:
+      levels.append(ids)
+  return tuple(levels)
+
+
+def _dof_vpre_mask(mjm) -> np.ndarray:
+  """V[j, k] = 1 iff dof k adds to the partial velocity that dof j sees
+  in cdof_dot[j] (strict ancestors, except same-joint dofs; a free
+  joint's rotational dofs see its linear dofs)."""
+  nv = mjm.nv
+  V = np.zeros((nv, nv), dtype=np.float32)
+  for j in range(nv):
+    jnt_j = int(mjm.dof_jntid[j])
+    k = int(mjm.dof_parentid[j])
+    while k >= 0:
+      if int(mjm.dof_jntid[k]) != jnt_j:
+        V[j, k] = 1.0
+      else:
+        dadr = int(mjm.jnt_dofadr[jnt_j])
+        if (int(mjm.jnt_type[jnt_j]) == JointType.FREE and j - dadr >= 3 and
+            k - dadr < 3):
+          V[j, k] = 1.0
+      k = int(mjm.dof_parentid[k])
+  return V
+
+
+def _dof_ancestry(dof_parentid) -> tuple:
+  """Per-dof ancestor chains (incl. self) and the (nv, nv) mask."""
+  nv = len(dof_parentid)
+  rows = []
+  mask = np.zeros((nv, nv), dtype=np.float32)
+  for i in range(nv):
+    chain = []
+    j = i
+    while j >= 0:
+      chain.append(int(j))
+      mask[i, j] = 1.0
+      j = int(dof_parentid[j])
+    rows.append(tuple(reversed(chain)))
+  return tuple(rows), mask
+
+
+def _pair_condim(mjm, g1: int, g2: int) -> int:
+  p1, p2 = int(mjm.geom_priority[g1]), int(mjm.geom_priority[g2])
+  if p1 > p2:
+    return int(mjm.geom_condim[g1])
+  if p2 > p1:
+    return int(mjm.geom_condim[g2])
+  return max(int(mjm.geom_condim[g1]), int(mjm.geom_condim[g2]))
+
+
+def _collision_pairs(mjm):
+  """Filtered geom pairs grouped by (type1, type2): contype/conaffinity,
+  same-weld, parent-child and <exclude> filters, then explicit <pair>s
+  (mirrors `mujoco_warp_tpu/io.py:344`)."""
+  filterparent = not mjm.opt.disableflags & DisableBit.FILTERPARENT
+  exclude_sigs = set(int(s) for s in mjm.exclude_signature)
+  explicit = {}
+  for p in range(mjm.npair):
+    g1, g2 = int(mjm.pair_geom1[p]), int(mjm.pair_geom2[p])
+    if mjm.geom_type[g1] > mjm.geom_type[g2]:
+      g1, g2 = g2, g1
+    explicit[(g1, g2)] = p
+  weld = mjm.body_weldid
+  weld_parent = mjm.body_weldid[mjm.body_parentid[weld]]
+  groups: dict = {}
+
+  def add(g1, g2, pid):
+    key = (int(mjm.geom_type[g1]), int(mjm.geom_type[g2]))
+    if key not in MAX_CONTACTS:
+      raise NotImplementedError(f'collision pair type {key} is not ported')
+    groups.setdefault(key, []).append((g1, g2, pid))
+
+  for g1 in range(mjm.ngeom):
+    for g2 in range(g1 + 1, mjm.ngeom):
+      t1, t2 = int(mjm.geom_type[g1]), int(mjm.geom_type[g2])
+      gg1, gg2 = (g1, g2) if t1 <= t2 else (g2, g1)
+      if (gg1, gg2) in explicit:
+        continue
+      b1, b2 = int(mjm.geom_bodyid[g1]), int(mjm.geom_bodyid[g2])
+      w1, w2 = int(weld[b1]), int(weld[b2])
+      if w1 == w2:
+        continue
+      if filterparent and w1 != 0 and w2 != 0 and (
+          int(weld_parent[b1]) == w2 or int(weld_parent[b2]) == w1):
+        continue
+      sig = ((b1 << 16) + b2) if b1 < b2 else ((b2 << 16) + b1)
+      if sig in exclude_sigs:
+        continue
+      if not ((mjm.geom_contype[g1] & mjm.geom_conaffinity[g2]) or
+              (mjm.geom_contype[g2] & mjm.geom_conaffinity[g1])):
+        continue
+      add(gg1, gg2, -1)
+  for (g1, g2), p in sorted(explicit.items()):
+    add(g1, g2, p)
+  pairs = tuple((k[0], k[1], tuple(v)) for k, v in sorted(groups.items()))
+  ncand = sum(MAX_CONTACTS[(t1, t2)] * len(v) for t1, t2, v in pairs)
+  return pairs, ncand
+
+
+_MJ_FLOAT_LEAVES = (
+    'qpos0', 'qpos_spring', 'body_pos', 'body_quat', 'body_ipos',
+    'body_iquat', 'body_mass', 'body_subtreemass', 'body_inertia',
+    'body_invweight0', 'jnt_solref', 'jnt_solimp', 'jnt_pos', 'jnt_axis',
+    'jnt_stiffness', 'jnt_range', 'jnt_actfrcrange', 'jnt_margin',
+    'dof_solref', 'dof_solimp', 'dof_frictionloss', 'dof_armature',
+    'dof_damping', 'dof_invweight0', 'geom_pos', 'geom_quat', 'geom_size',
+    'geom_friction', 'geom_solref', 'geom_solimp', 'geom_solmix',
+    'geom_margin', 'geom_gap', 'site_pos', 'site_quat',
+    'actuator_gainprm', 'actuator_biasprm', 'actuator_ctrlrange',
+    'actuator_forcerange', 'actuator_gear', 'pair_solref',
+    'pair_solreffriction', 'pair_solimp', 'pair_margin', 'pair_gap',
+    'pair_friction')
+
+
+def put_model(mjm, device='cuda') -> Model:
+  """mujoco.MjModel -> Model on `device`. Reads the compiled model's
+  arrays only, so the `mujoco` module itself is never imported here."""
+  _validate(mjm)
+  f32 = lambda x: np.asarray(x, np.float32)
+  leaves = {k: f32(getattr(mjm, k)) for k in _MJ_FLOAT_LEAVES}
+  leaves['opt.timestep'] = f32(mjm.opt.timestep)
+  leaves['opt.tolerance'] = f32(max(mjm.opt.tolerance, 1e-6))  # f32 floor
+  leaves['opt.ls_tolerance'] = f32(mjm.opt.ls_tolerance)
+  leaves['opt.gravity'] = f32(mjm.opt.gravity)
+  leaves['opt.impratio'] = f32(mjm.opt.impratio)
+  leaves['stat.meaninertia'] = f32(mjm.stat.meaninertia)
+
+  dof_ancestor_rows, ancestor_mask = _dof_ancestry(mjm.dof_parentid)
+  nbody = mjm.nbody
+  subtree_mask = np.zeros((nbody, nbody), dtype=np.float32)
+  for c in range(nbody):
+    b = c
+    while b >= 0:
+      subtree_mask[b, c] = 1.0
+      if b == 0:
+        break
+      b = int(mjm.body_parentid[b])
+  body_dof_mask = np.zeros((nbody, mjm.nv), dtype=np.float32)
+  for b in range(nbody):
+    bb = b
+    while bb > 0:
+      adr, num = int(mjm.body_dofadr[bb]), int(mjm.body_dofnum[bb])
+      body_dof_mask[b, adr:adr + num] = 1.0
+      bb = int(mjm.body_parentid[bb])
+  leaves.update(dof_ancestor_mask=ancestor_mask,
+                body_subtree_mask=subtree_mask,
+                body_dof_ancestor_mask=body_dof_mask,
+                dof_vpre_mask=_dof_vpre_mask(mjm))
+
+  collision_pairs, nxn_candidates = _collision_pairs(mjm)
+  condims = [1] + [int(mjm.pair_dim[pid]) if pid >= 0 else
+                   _pair_condim(mjm, g1, g2)
+                   for _, _, gl in collision_pairs for g1, g2, pid in gl]
+  statics = dict(
+      nq=mjm.nq, nv=mjm.nv, nu=mjm.nu, na=mjm.na, nbody=mjm.nbody,
+      njnt=mjm.njnt, ngeom=mjm.ngeom, nsite=mjm.nsite, ncam=mjm.ncam,
+      nlight=mjm.nlight, neq=mjm.neq, nmocap=mjm.nmocap,
+      ngravcomp=mjm.ngravcomp, nsensor=mjm.nsensor, npair=mjm.npair,
+      nexclude=mjm.nexclude, ntendon=mjm.ntendon,
+      body_parentid=_tup(mjm.body_parentid),
+      body_rootid=_tup(mjm.body_rootid),
+      body_weldid=_tup(mjm.body_weldid),
+      body_mocapid=_tup(mjm.body_mocapid),
+      body_jntadr=_tup(mjm.body_jntadr),
+      body_jntnum=_tup(mjm.body_jntnum),
+      body_dofadr=_tup(mjm.body_dofadr),
+      body_dofnum=_tup(mjm.body_dofnum),
+      body_levels=_body_levels(mjm.body_parentid),
+      jnt_type=_tup(mjm.jnt_type),
+      jnt_qposadr=_tup(mjm.jnt_qposadr),
+      jnt_dofadr=_tup(mjm.jnt_dofadr),
+      jnt_bodyid=_tup(mjm.jnt_bodyid),
+      jnt_limited=_tup(mjm.jnt_limited),
+      jnt_actfrclimited=_tup(mjm.jnt_actfrclimited),
+      dof_bodyid=_tup(mjm.dof_bodyid),
+      dof_jntid=_tup(mjm.dof_jntid),
+      dof_parentid=_tup(mjm.dof_parentid),
+      dof_ancestor_rows=dof_ancestor_rows,
+      dof_hasfrictionloss=_tup(mjm.dof_frictionloss > 0),
+      geom_type=_tup(mjm.geom_type),
+      geom_bodyid=_tup(mjm.geom_bodyid),
+      geom_condim=_tup(mjm.geom_condim),
+      geom_priority=_tup(mjm.geom_priority),
+      site_bodyid=_tup(mjm.site_bodyid),
+      actuator_trntype=_tup(mjm.actuator_trntype),
+      actuator_dyntype=_tup(mjm.actuator_dyntype),
+      actuator_gaintype=_tup(mjm.actuator_gaintype),
+      actuator_biastype=_tup(mjm.actuator_biastype),
+      actuator_trnid=_tup(mjm.actuator_trnid),
+      actuator_ctrllimited=_tup(mjm.actuator_ctrllimited),
+      actuator_forcelimited=_tup(mjm.actuator_forcelimited),
+      collision_pairs=collision_pairs,
+      nxn_candidates=nxn_candidates,
+      condim_max=max(condims),
+      pair_dim=_tup(mjm.pair_dim),
+      has_damping=bool(np.any(mjm.dof_damping > 0)),
+      opt=dict(integrator=int(mjm.opt.integrator), cone=int(mjm.opt.cone),
+               solver=int(mjm.opt.solver),
+               iterations=int(mjm.opt.iterations),
+               ls_iterations=int(mjm.opt.ls_iterations),
+               disableflags=int(mjm.opt.disableflags),
+               enableflags=int(mjm.opt.enableflags)))
+  return model_from_numpy(leaves, statics, device=device)
+
+
+def _as_tuple(x):
+  if isinstance(x, (list, tuple)):
+    return tuple(_as_tuple(v) for v in x)
+  return x
+
+
+def model_from_numpy(leaves: dict, statics: dict, device='cuda') -> Model:
+  """Model from numpy leaves (names as in the JAX Model; Option and
+  Statistic leaves as 'opt.<name>' / 'stat.<name>') and static fields
+  (the JAX Model's meta fields; Option statics under statics['opt'])."""
+  t = lambda name: torch.tensor(np.asarray(leaves[name], np.float32),
+                                device=device)
+  ostat = statics['opt']
+  opt = Option(**{k: t('opt.' + k) for k in types.OPTION_TENSORS},
+               **{k: int(ostat[k]) for k in types.OPTION_STATICS})
+  stat = Statistic(meaninertia=t('stat.meaninertia'))
+  kw = {k: t(k) for k in types.MODEL_TENSORS}
+  kw.update({k: _as_tuple(statics[k]) for k in types.MODEL_STATICS})
+  kw['has_damping'] = bool(kw['has_damping'])
+  return Model(opt=opt, stat=stat, **kw)
+
+
+def model_to_numpy(m: Model) -> tuple[dict, dict]:
+  """Inverse of model_from_numpy."""
+  leaves = {k: getattr(m, k).cpu().numpy() for k in types.MODEL_TENSORS}
+  leaves.update({'opt.' + k: getattr(m.opt, k).cpu().numpy()
+                 for k in types.OPTION_TENSORS})
+  leaves['stat.meaninertia'] = m.stat.meaninertia.cpu().numpy()
+  statics = {k: getattr(m, k) for k in types.MODEL_STATICS}
+  statics['opt'] = {k: getattr(m.opt, k) for k in types.OPTION_STATICS}
+  return leaves, statics
+
+
+def save_model(m: Model, path: str):
+  """Write one .npz holding the model's leaves and its statics (JSON)."""
+  leaves, statics = model_to_numpy(m)
+  np.savez_compressed(path, __statics__=np.asarray(json.dumps(statics)),
+                      **leaves)
+
+
+def load_model(path: str, device='cuda') -> Model:
+  with np.load(path) as z:
+    statics = json.loads(str(z['__statics__']))
+    leaves = {k: z[k] for k in z.files if k != '__statics__'}
+  return model_from_numpy(leaves, statics, device=device)
+
+
+def efc_layout(m: Model, nconmax: int):
+  """Static efc row layout (ne, nf, nl, contact row stride, njmax):
+  rows live at fixed addresses, equality | friction | limit | contact."""
+  ne = 0  # equality constraints are outside the gate
+  nf = sum(m.dof_hasfrictionloss)
+  nl = sum(m.jnt_limited)
+  if m.opt.cone == ConeType.PYRAMIDAL:
+    stride = max(2 * (m.condim_max - 1), 1)
+  else:
+    stride = m.condim_max
+  return ne, nf, nl, stride, ne + nf + nl + nconmax * stride
+
+
+def _moment0(m: Model) -> torch.Tensor:
+  """actuator_moment: constant one-hot x gear for the scalar-joint
+  transmission of every ported actuator."""
+  moment = torch.zeros((m.nu, m.nv), dtype=torch.float32, device=m.device)
+  for u in range(m.nu):
+    moment[u, m.jnt_dofadr[m.actuator_trnid[u][0]]] = m.actuator_gear[u, 0]
+  return moment
+
+
+def make_data(m: Model, nconmax: int | None = None, nworld: int = 1) -> Data:
+  """Data for `nworld` worlds at qpos0 on the model's device."""
+  ncand = m.nxn_candidates
+  if nconmax is None:
+    nconmax = max(min(ncand, 64), 1)
+  nconmax = max(nconmax, 1)
+  if m.ngeom == 0 or ncand == 0:
+    nconmax = 0
+  _, _, _, _, njmax = efc_layout(m, nconmax)
+  W, nv, nbody = nworld, m.nv, m.nbody
+  dev = m.device
+  z = lambda *s: torch.zeros((W,) + s, dtype=torch.float32, device=dev)
+  zi = lambda *s: torch.zeros((W,) + s, dtype=torch.int32, device=dev)
+  mi = lambda *s: torch.full((W,) + s, -1, dtype=torch.int32, device=dev)
+  contact = Contact(
+      dist=z(nconmax), pos=z(nconmax, 3), frame=z(nconmax, 3, 3),
+      includemargin=z(nconmax), friction=z(nconmax, 5),
+      solref=z(nconmax, 2), solreffriction=z(nconmax, 2),
+      solimp=z(nconmax, 5), dim=zi(nconmax), geom=mi(nconmax, 2),
+      efc_address=mi(nconmax))
+  return Data(
+      time=z(), ncon=zi(), ne=zi(), nf=zi(), nl=zi(), nefc=zi(),
+      ncollision=zi(), solver_niter=zi(),
+      qpos=m.qpos0[None].repeat(W, 1), qvel=z(nv), act=z(m.na), ctrl=z(m.nu),
+      qacc_warmstart=z(nv), qfrc_applied=z(nv), xfrc_applied=z(nbody, 6),
+      xpos=z(nbody, 3), xquat=z(nbody, 4), xmat=z(nbody, 3, 3),
+      xipos=z(nbody, 3), ximat=z(nbody, 3, 3), xanchor=z(m.njnt, 3),
+      xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),
+      geom_xmat=z(m.ngeom, 3, 3), site_xpos=z(m.nsite, 3),
+      site_xmat=z(m.nsite, 3, 3), subtree_com=z(nbody, 3),
+      cinert=z(nbody, 10), cdof=z(nv, 6), crb=z(nbody, 10),
+      cvel=z(nbody, 6), cdof_dot=z(nv, 6), cacc=z(nbody, 6),
+      qM=z(nv, nv), qLD=z(nv, nv), actuator_length=z(m.nu),
+      actuator_moment=_moment0(m)[None].repeat(W, 1, 1),
+      actuator_velocity=z(m.nu), actuator_force=z(m.nu), act_dot=z(m.na),
+      qfrc_spring=z(nv), qfrc_damper=z(nv), qfrc_passive=z(nv),
+      qfrc_bias=z(nv), qfrc_actuator=z(nv), qfrc_smooth=z(nv),
+      qacc_smooth=z(nv), qacc_euler=z(nv), qfrc_constraint=z(nv),
+      qacc=z(nv), contact=contact, efc_type=zi(njmax), efc_id=zi(njmax),
+      efc_J=z(njmax, nv), efc_pos=z(njmax), efc_margin=z(njmax),
+      efc_D=z(njmax), efc_vel=z(njmax), efc_aref=z(njmax),
+      efc_frictionloss=z(njmax), efc_force=z(njmax),
+      efc_active=torch.zeros((W, njmax), dtype=torch.bool, device=dev))
+
+
+def data_from_numpy(m: Model, fields: dict, nconmax: int | None = None
+                    ) -> Data:
+  """Data whose state fields (qpos, qvel, ctrl, qacc_warmstart, ...) come
+  from (nworld, ...) numpy arrays; the rest as make_data."""
+  nworld = next(iter(fields.values())).shape[0]
+  d = make_data(m, nconmax=nconmax, nworld=nworld)
+  kw = {}
+  for k, v in fields.items():
+    ref = getattr(d, k)
+    kw[k] = torch.as_tensor(np.asarray(v), dtype=ref.dtype,
+                            device=ref.device).reshape(ref.shape)
+  return d.replace(**kw)

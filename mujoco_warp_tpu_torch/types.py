@@ -1,0 +1,466 @@
+"""Data model of the PyTorch port: enums, Option, Statistic, Model,
+Contact and Data as dataclasses of tensors.
+
+Field names follow the JAX package (`mujoco_warp_tpu/types.py`) so the
+parity tests compare like with like. Only the fields the humanoid
+`step_batched` path reads or writes are present. Two differences:
+
+* Structural metadata (tree topology, joint types, collision pair lists)
+  stays in static Python ints and tuples, as in the JAX Model; numeric
+  parameters are float32 tensors.
+* Data is batch-native: every tensor leads with `nworld`, like the JAX
+  batch after `parallel.make_batch`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Tuple
+
+import torch
+
+
+class DisableBit(enum.IntFlag):
+  """mjtDisableBit."""
+  CONSTRAINT = 1 << 0
+  EQUALITY = 1 << 1
+  FRICTIONLOSS = 1 << 2
+  LIMIT = 1 << 3
+  CONTACT = 1 << 4
+  SPRING = 1 << 5
+  DAMPER = 1 << 6
+  GRAVITY = 1 << 7
+  CLAMPCTRL = 1 << 8
+  WARMSTART = 1 << 9
+  FILTERPARENT = 1 << 10
+  ACTUATION = 1 << 11
+  REFSAFE = 1 << 12
+  SENSOR = 1 << 13
+  MIDPHASE = 1 << 14
+  EULERDAMP = 1 << 15
+  AUTORESET = 1 << 16
+  NATIVECCD = 1 << 17
+  ISLAND = 1 << 18
+  MULTICCD = 1 << 19
+
+
+class EnableBit(enum.IntFlag):
+  OVERRIDE = 1 << 0
+  ENERGY = 1 << 1
+  FWDINV = 1 << 2
+  INVDISCRETE = 1 << 3
+
+
+class JointType(enum.IntEnum):
+  FREE = 0
+  BALL = 1
+  SLIDE = 2
+  HINGE = 3
+
+  def dof_width(self) -> int:
+    return {0: 6, 1: 3, 2: 1, 3: 1}[self.value]
+
+  def qpos_width(self) -> int:
+    return {0: 7, 1: 4, 2: 1, 3: 1}[self.value]
+
+
+class GeomType(enum.IntEnum):
+  PLANE = 0
+  HFIELD = 1
+  SPHERE = 2
+  CAPSULE = 3
+  ELLIPSOID = 4
+  CYLINDER = 5
+  BOX = 6
+  MESH = 7
+  SDF = 8
+
+
+class SolverType(enum.IntEnum):
+  PGS = 0
+  CG = 1
+  NEWTON = 2
+
+
+class IntegratorType(enum.IntEnum):
+  EULER = 0
+  RK4 = 1
+  IMPLICIT = 2
+  IMPLICITFAST = 3
+
+
+class ConeType(enum.IntEnum):
+  PYRAMIDAL = 0
+  ELLIPTIC = 1
+
+
+class EqType(enum.IntEnum):
+  CONNECT = 0
+  WELD = 1
+  JOINT = 2
+  TENDON = 3
+  FLEX = 4
+
+
+class TrnType(enum.IntEnum):
+  JOINT = 0
+  JOINTINPARENT = 1
+  SLIDERCRANK = 2
+  TENDON = 3
+  SITE = 4
+  BODY = 5
+
+
+class DynType(enum.IntEnum):
+  NONE = 0
+  INTEGRATOR = 1
+  FILTER = 2
+  FILTEREXACT = 3
+  MUSCLE = 4
+
+
+class GainType(enum.IntEnum):
+  FIXED = 0
+  AFFINE = 1
+  MUSCLE = 2
+
+
+class BiasType(enum.IntEnum):
+  NONE = 0
+  AFFINE = 1
+  MUSCLE = 2
+
+
+class WrapType(enum.IntEnum):
+  JOINT = 1
+  PULLEY = 2
+  SITE = 3
+  SPHERE = 4
+  CYLINDER = 5
+
+
+class ConstraintType(enum.IntEnum):
+  """efc row types (mjtConstraint)."""
+  EQUALITY = 0
+  FRICTION_DOF = 1
+  FRICTION_TENDON = 2
+  LIMIT_JOINT = 3
+  LIMIT_TENDON = 4
+  CONTACT_FRICTIONLESS = 5
+  CONTACT_PYRAMIDAL = 6
+  CONTACT_ELLIPTIC = 7
+
+
+SensorType = enum.IntEnum('SensorType', [
+    'TOUCH', 'ACCELEROMETER', 'VELOCIMETER', 'GYRO', 'FORCE', 'TORQUE',
+    'MAGNETOMETER', 'RANGEFINDER', 'CAMPROJECTION', 'JOINTPOS', 'JOINTVEL',
+    'TENDONPOS', 'TENDONVEL', 'ACTUATORPOS', 'ACTUATORVEL', 'ACTUATORFRC',
+    'JOINTACTFRC', 'TENDONACTFRC', 'BALLQUAT', 'BALLANGVEL',
+    'JOINTLIMITPOS', 'JOINTLIMITVEL', 'JOINTLIMITFRC', 'TENDONLIMITPOS',
+    'TENDONLIMITVEL', 'TENDONLIMITFRC', 'FRAMEPOS', 'FRAMEQUAT',
+    'FRAMEXAXIS', 'FRAMEYAXIS', 'FRAMEZAXIS', 'FRAMELINVEL', 'FRAMEANGVEL',
+    'FRAMELINACC', 'FRAMEANGACC', 'SUBTREECOM', 'SUBTREELINVEL',
+    'SUBTREEANGMOM', 'INSIDESITE', 'GEOMDIST', 'GEOMNORMAL', 'GEOMFROMTO',
+    'CONTACT', 'E_POTENTIAL', 'E_KINETIC', 'CLOCK', 'TACTILE', 'PLUGIN',
+    'USER'], start=0)
+SensorType.__doc__ = 'mjtSensor.'
+
+
+class State(enum.IntFlag):
+  """mjtState component bitflags."""
+  TIME = 1 << 0
+  QPOS = 1 << 1
+  QVEL = 1 << 2
+  ACT = 1 << 3
+  WARMSTART = 1 << 4
+  CTRL = 1 << 5
+  QFRC_APPLIED = 1 << 6
+  XFRC_APPLIED = 1 << 7
+  EQ_ACTIVE = 1 << 8
+  MOCAP_POS = 1 << 9
+  MOCAP_QUAT = 1 << 10
+  PHYSICS = QPOS | QVEL | ACT
+  FULLPHYSICS = TIME | PHYSICS
+  USER = (CTRL | QFRC_APPLIED | XFRC_APPLIED | EQ_ACTIVE | MOCAP_POS |
+          MOCAP_QUAT)
+  INTEGRATION = FULLPHYSICS | USER | WARMSTART
+
+
+class ObjType(enum.IntEnum):
+  UNKNOWN = 0
+  BODY = 1
+  XBODY = 2
+  JOINT = 3
+  GEOM = 5
+  SITE = 6
+  CAMERA = 7
+
+
+IntTuple = Tuple[int, ...]
+
+
+def _tensor_fields(cls) -> tuple[str, ...]:
+  return tuple(f.name for f in dataclasses.fields(cls)
+               if f.type in ('torch.Tensor', 'Option', 'Statistic',
+                             'Contact'))
+
+
+class _Tensors:
+  """`.to(device)` and `.replace(**kw)` for dataclasses of tensors."""
+
+  def replace(self, **kw):
+    return dataclasses.replace(self, **kw)
+
+  def to(self, device):
+    return dataclasses.replace(self, **{
+        k: getattr(self, k).to(device) for k in _tensor_fields(type(self))})
+
+
+@dataclasses.dataclass(frozen=True)
+class Option(_Tensors):
+  """Physics options: continuous values are tensors, enums and counts
+  are static."""
+  timestep: torch.Tensor
+  tolerance: torch.Tensor
+  ls_tolerance: torch.Tensor
+  gravity: torch.Tensor
+  impratio: torch.Tensor
+  integrator: int
+  cone: int
+  solver: int
+  iterations: int
+  ls_iterations: int
+  disableflags: int
+  enableflags: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Statistic(_Tensors):
+  meaninertia: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Model(_Tensors):
+  """Static model (humanoid-path subset of the JAX Model)."""
+  # sizes
+  nq: int
+  nv: int
+  nu: int
+  na: int
+  nbody: int
+  njnt: int
+  ngeom: int
+  nsite: int
+  ncam: int
+  nlight: int
+  neq: int
+  nmocap: int
+  ngravcomp: int
+  nsensor: int
+  npair: int
+  nexclude: int
+  ntendon: int
+  # structure
+  body_parentid: IntTuple
+  body_rootid: IntTuple
+  body_weldid: IntTuple
+  body_mocapid: IntTuple
+  body_jntadr: IntTuple
+  body_jntnum: IntTuple
+  body_dofadr: IntTuple
+  body_dofnum: IntTuple
+  body_levels: Tuple[IntTuple, ...]
+  jnt_type: IntTuple
+  jnt_qposadr: IntTuple
+  jnt_dofadr: IntTuple
+  jnt_bodyid: IntTuple
+  jnt_limited: IntTuple
+  jnt_actfrclimited: IntTuple
+  dof_bodyid: IntTuple
+  dof_jntid: IntTuple
+  dof_parentid: IntTuple
+  dof_ancestor_rows: Tuple[IntTuple, ...]
+  dof_hasfrictionloss: IntTuple
+  geom_type: IntTuple
+  geom_bodyid: IntTuple
+  geom_condim: IntTuple
+  geom_priority: IntTuple
+  site_bodyid: IntTuple
+  actuator_trntype: IntTuple
+  actuator_dyntype: IntTuple
+  actuator_gaintype: IntTuple
+  actuator_biastype: IntTuple
+  actuator_trnid: Tuple[IntTuple, ...]
+  actuator_ctrllimited: IntTuple
+  actuator_forcelimited: IntTuple
+  # collision structure: ((type1, type2, ((g1, g2, pairid), ...)), ...)
+  collision_pairs: Tuple[Any, ...]
+  nxn_candidates: int
+  condim_max: int
+  pair_dim: IntTuple
+  has_damping: bool
+  # numeric parameters
+  opt: Option
+  stat: Statistic
+  qpos0: torch.Tensor
+  qpos_spring: torch.Tensor
+  body_pos: torch.Tensor
+  body_quat: torch.Tensor
+  body_ipos: torch.Tensor
+  body_iquat: torch.Tensor
+  body_mass: torch.Tensor
+  body_subtreemass: torch.Tensor
+  body_inertia: torch.Tensor
+  body_invweight0: torch.Tensor
+  jnt_solref: torch.Tensor
+  jnt_solimp: torch.Tensor
+  jnt_pos: torch.Tensor
+  jnt_axis: torch.Tensor
+  jnt_stiffness: torch.Tensor
+  jnt_range: torch.Tensor
+  jnt_actfrcrange: torch.Tensor
+  jnt_margin: torch.Tensor
+  dof_solref: torch.Tensor
+  dof_solimp: torch.Tensor
+  dof_frictionloss: torch.Tensor
+  dof_armature: torch.Tensor
+  dof_damping: torch.Tensor
+  dof_invweight0: torch.Tensor
+  geom_pos: torch.Tensor
+  geom_quat: torch.Tensor
+  geom_size: torch.Tensor
+  geom_friction: torch.Tensor
+  geom_solref: torch.Tensor
+  geom_solimp: torch.Tensor
+  geom_solmix: torch.Tensor
+  geom_margin: torch.Tensor
+  geom_gap: torch.Tensor
+  site_pos: torch.Tensor
+  site_quat: torch.Tensor
+  actuator_gainprm: torch.Tensor
+  actuator_biasprm: torch.Tensor
+  actuator_ctrlrange: torch.Tensor
+  actuator_forcerange: torch.Tensor
+  actuator_gear: torch.Tensor
+  pair_solref: torch.Tensor
+  pair_solreffriction: torch.Tensor
+  pair_solimp: torch.Tensor
+  pair_margin: torch.Tensor
+  pair_gap: torch.Tensor
+  pair_friction: torch.Tensor
+  # (nv, nv) 0/1: dof j is an ancestor (or self) of dof i
+  dof_ancestor_mask: torch.Tensor
+  # (nbody, nbody) 0/1: body c is in the subtree of body b
+  body_subtree_mask: torch.Tensor
+  # (nbody, nv) 0/1: dof j moves body b
+  body_dof_ancestor_mask: torch.Tensor
+  # (nv, nv) strict-ancestor mask of the cdof_dot partial velocities
+  dof_vpre_mask: torch.Tensor
+
+  @property
+  def device(self) -> torch.device:
+    return self.qpos0.device
+
+
+MODEL_TENSORS = tuple(f for f in _tensor_fields(Model)
+                      if f not in ('opt', 'stat'))
+MODEL_STATICS = tuple(f.name for f in dataclasses.fields(Model)
+                      if f.name not in MODEL_TENSORS + ('opt', 'stat'))
+OPTION_TENSORS = _tensor_fields(Option)
+OPTION_STATICS = tuple(f.name for f in dataclasses.fields(Option)
+                       if f.name not in OPTION_TENSORS)
+
+
+@dataclasses.dataclass(frozen=True)
+class Contact(_Tensors):
+  """Per-world contact pool of fixed capacity nconmax; (nworld, nconmax,
+  ...) tensors, empty slots have geom == -1."""
+  dist: torch.Tensor
+  pos: torch.Tensor
+  frame: torch.Tensor          # (W, C, 3, 3) rows: normal, tangent1, tangent2
+  includemargin: torch.Tensor
+  friction: torch.Tensor
+  solref: torch.Tensor
+  solreffriction: torch.Tensor
+  solimp: torch.Tensor
+  dim: torch.Tensor            # int32
+  geom: torch.Tensor           # (W, C, 2) int32
+  efc_address: torch.Tensor    # int32
+
+
+@dataclasses.dataclass(frozen=True)
+class Data(_Tensors):
+  """Batched dynamic state; every tensor leads with nworld."""
+  time: torch.Tensor
+  ncon: torch.Tensor
+  ne: torch.Tensor
+  nf: torch.Tensor
+  nl: torch.Tensor
+  nefc: torch.Tensor
+  ncollision: torch.Tensor
+  solver_niter: torch.Tensor
+  qpos: torch.Tensor
+  qvel: torch.Tensor
+  act: torch.Tensor
+  ctrl: torch.Tensor
+  qacc_warmstart: torch.Tensor
+  qfrc_applied: torch.Tensor
+  xfrc_applied: torch.Tensor
+  xpos: torch.Tensor
+  xquat: torch.Tensor
+  xmat: torch.Tensor
+  xipos: torch.Tensor
+  ximat: torch.Tensor
+  xanchor: torch.Tensor
+  xaxis: torch.Tensor
+  geom_xpos: torch.Tensor
+  geom_xmat: torch.Tensor
+  site_xpos: torch.Tensor
+  site_xmat: torch.Tensor
+  subtree_com: torch.Tensor
+  cinert: torch.Tensor
+  cdof: torch.Tensor
+  crb: torch.Tensor
+  cvel: torch.Tensor
+  cdof_dot: torch.Tensor
+  cacc: torch.Tensor
+  qM: torch.Tensor
+  qLD: torch.Tensor
+  actuator_length: torch.Tensor
+  actuator_moment: torch.Tensor
+  actuator_velocity: torch.Tensor
+  actuator_force: torch.Tensor
+  act_dot: torch.Tensor
+  qfrc_spring: torch.Tensor
+  qfrc_damper: torch.Tensor
+  qfrc_passive: torch.Tensor
+  qfrc_bias: torch.Tensor
+  qfrc_actuator: torch.Tensor
+  qfrc_smooth: torch.Tensor
+  qacc_smooth: torch.Tensor
+  qacc_euler: torch.Tensor
+  qfrc_constraint: torch.Tensor
+  qacc: torch.Tensor
+  contact: Contact
+  efc_type: torch.Tensor
+  efc_id: torch.Tensor
+  efc_J: torch.Tensor
+  efc_pos: torch.Tensor
+  efc_margin: torch.Tensor
+  efc_D: torch.Tensor
+  efc_vel: torch.Tensor
+  efc_aref: torch.Tensor
+  efc_frictionloss: torch.Tensor
+  efc_force: torch.Tensor
+  efc_active: torch.Tensor
+
+  @property
+  def nworld(self) -> int:
+    return self.qpos.shape[0]
+
+
+DATA_TENSORS = tuple(f for f in _tensor_fields(Data) if f != 'contact')
+CONTACT_TENSORS = _tensor_fields(Contact)
+
+del Any

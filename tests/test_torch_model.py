@@ -1,0 +1,130 @@
+"""The port's model compiler and state allocation against the JAX
+package: put_model, model_from_numpy and the committed humanoid.npz give
+the JAX Model's shared leaves, and make_data the JAX make_data (exact:
+integers equal, float copies equal)."""
+
+import dataclasses
+
+import mujoco
+import numpy as np
+import pytest
+import torch
+
+import mujoco_warp_tpu as mjwt
+import mujoco_warp_tpu_torch as mt
+from mujoco_warp_tpu_torch import io, models, types
+
+from torch_parity import SCENES, build
+
+
+def _assert_model_equal(m, jm):
+  for name in types.MODEL_STATICS:
+    assert getattr(m, name) == getattr(jm, name), name
+  for name in types.OPTION_STATICS:
+    assert getattr(m.opt, name) == getattr(jm.opt, name), name
+  for name in types.MODEL_TENSORS:
+    np.testing.assert_array_equal(getattr(m, name).numpy(),
+                                  np.asarray(getattr(jm, name)), name)
+  for name in types.OPTION_TENSORS:
+    np.testing.assert_array_equal(getattr(m.opt, name).numpy(),
+                                  np.asarray(getattr(jm.opt, name)), name)
+  np.testing.assert_array_equal(m.stat.meaninertia.numpy(),
+                                np.asarray(jm.stat.meaninertia))
+
+
+@pytest.mark.parametrize('scene', sorted(SCENES))
+def test_put_model_matches_jax(scene):
+  _, jm, m = build(scene)
+  _assert_model_equal(m, jm)
+
+
+def test_model_from_numpy_takes_jax_leaves():
+  _, jm, m = build('humanoid')
+  leaves = {k: np.asarray(getattr(jm, k)) for k in types.MODEL_TENSORS}
+  leaves.update({'opt.' + k: np.asarray(getattr(jm.opt, k))
+                 for k in types.OPTION_TENSORS})
+  leaves['stat.meaninertia'] = np.asarray(jm.stat.meaninertia)
+  statics = {k: getattr(jm, k) for k in types.MODEL_STATICS}
+  statics['opt'] = {k: getattr(jm.opt, k) for k in types.OPTION_STATICS}
+  _assert_model_equal(io.model_from_numpy(leaves, statics, device='cpu'),
+                      jm)
+
+
+def test_committed_npz_matches_jax(tmp_path):
+  _, jm, m = build('humanoid')
+  _assert_model_equal(io.load_model(models.HUMANOID_NPZ, device='cpu'), jm)
+  path = str(tmp_path / 'm.npz')
+  io.save_model(m, path)
+  _assert_model_equal(io.load_model(path, device='cpu'), jm)
+
+
+@pytest.mark.parametrize('scene', sorted(SCENES))
+def test_make_data_matches_jax(scene):
+  _, jm, m = build(scene)
+  jd = mjwt.make_data(jm, nconmax=8)
+  d = mt.make_data(m, nconmax=8)
+  for f in dataclasses.fields(d):
+    if f.name == 'contact':
+      continue
+    a = getattr(d, f.name)
+    assert a.shape[0] == 1, f.name
+    np.testing.assert_array_equal(a[0].numpy(),
+                                  np.asarray(getattr(jd, f.name)), f.name)
+  for f in dataclasses.fields(d.contact):
+    np.testing.assert_array_equal(
+        getattr(d.contact, f.name)[0].numpy(),
+        np.asarray(getattr(jd.contact, f.name)), f.name)
+
+
+def test_efc_layout_matches_jax():
+  _, jm, m = build('humanoid')
+  for nconmax in (1, 24, 40):
+    assert mt.efc_layout(m, nconmax) == mjwt.io.efc_layout(jm, nconmax)
+  assert mt.efc_layout(m, 24) == (0, 0, 21, 4, 117)
+
+
+def test_data_from_numpy_and_make_batch():
+  _, _, m = build('humanoid')
+  qpos = np.random.default_rng(0).standard_normal((3, m.nq))
+  d = io.data_from_numpy(m, dict(qpos=qpos), nconmax=24)
+  assert d.qpos.dtype == torch.float32 and d.nworld == 3
+  np.testing.assert_allclose(d.qpos.numpy(), qpos.astype(np.float32))
+  assert d.efc_J.shape == (3, 117, 27)
+  one = mt.make_data(m, nconmax=24)
+  gen = lambda: torch.Generator().manual_seed(7)
+  a = mt.make_batch(m, one, 5, qpos_noise=0.01, generator=gen())
+  b = mt.make_batch(m, one, 5, qpos_noise=0.01, generator=gen())
+  assert a.qpos.shape == (5, m.nq) and a.contact.geom.shape == (5, 24, 2)
+  np.testing.assert_array_equal(a.qpos.numpy(), b.qpos.numpy())
+  assert float((a.qpos - one.qpos).abs().max()) > 0
+  with pytest.raises(ValueError):
+    mt.make_batch(m, one, 5, qpos_noise=0.01)
+
+
+_OUTSIDE = {
+    'tendon': """<mujoco><worldbody><body><joint type="slide"/>
+      <geom size=".1" contype="0" conaffinity="0"/><site name="a"/></body>
+      <site name="b" pos="0 0 1"/></worldbody><tendon><spatial>
+      <site site="a"/><site site="b"/></spatial></tendon></mujoco>""",
+    'elliptic': """<mujoco><option cone="elliptic"/><worldbody><body>
+      <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
+    'rk4': """<mujoco><option integrator="RK4"/><worldbody><body>
+      <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
+    'box_pair': """<mujoco><worldbody><geom type="plane" size="1 1 1"/>
+      <body><freejoint/><geom type="box" size=".1 .1 .1"/></body>
+      </worldbody></mujoco>""",
+    'sensor': """<mujoco><worldbody><body><joint name="j"/>
+      <geom size=".1"/></body></worldbody><sensor><jointpos joint="j"/>
+      </sensor></mujoco>""",
+    'equality': """<mujoco><worldbody><body><joint name="a"/>
+      <geom size=".1"/><body><joint name="b"/><geom size=".1"/></body>
+      </body></worldbody><equality><joint joint1="a" joint2="b"/>
+      </equality></mujoco>""",
+}
+
+
+@pytest.mark.parametrize('case', sorted(_OUTSIDE))
+def test_put_model_rejects_models_outside_the_gate(case):
+  mjm = mujoco.MjModel.from_xml_string(_OUTSIDE[case])
+  with pytest.raises(NotImplementedError):
+    mt.put_model(mjm, device='cpu')
