@@ -3,10 +3,12 @@
 // (quaternions w, x, y, z; motion vectors angular | linear; 10-vector
 // inertias Ixx Iyy Izz Ixy Ixz Iyz mcx mcy mcz m).
 //
-// Every kernel of the port runs one thread per world and has a plain C
-// interface for ctypes: launch(const Params*, cudaStream_t) returns a
-// cudaError_t, params_size() the size of its Params struct, and
-// error_string(int) the message of an error code.
+// Every kernel of the port has a plain C interface for ctypes:
+// launch(const Params*, cudaStream_t) returns a cudaError_t,
+// params_size() the size of its Params struct, and error_string(int) the
+// message of an error code. A source with several kernels prefixes each
+// kernel's launch and params_size with its name. B1-B3 run one thread per
+// world; B5 and B7 (batch_linalg.cu) one block per world.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,15 +16,26 @@
 
 #define DEV __device__ __forceinline__
 
-#define PORT_C_INTERFACE(Params, kernel, block)                          \
-  extern "C" int params_size() { return (int)sizeof(Params); }           \
+// kernel<<<grid, block, shared bytes, stream>>>(params). A build that
+// runs the kernels on the host (g++ with stub CUDA headers, threads for
+// a block's threads) defines PORT_LAUNCH before including this header.
+#ifndef PORT_LAUNCH
+#define PORT_LAUNCH(kernel, grid, block, smem, stream, params)           \
+  kernel<<<(grid), (block), (smem), (cudaStream_t)(stream)>>>(params)
+#endif
+
+#define PORT_C_ERROR_STRING                                              \
   extern "C" const char* error_string(int err) {                         \
     return cudaGetErrorString((cudaError_t)err);                         \
-  }                                                                      \
+  }
+
+#define PORT_C_INTERFACE(Params, kernel, block)                          \
+  extern "C" int params_size() { return (int)sizeof(Params); }           \
+  PORT_C_ERROR_STRING                                                    \
   extern "C" int launch(const Params* p, void* stream) {                 \
     if (p->nworld <= 0) return (int)cudaSuccess;                         \
     int grid = (p->nworld + (block) - 1) / (block);                      \
-    kernel<<<grid, (block), 0, (cudaStream_t)stream>>>(*p);              \
+    PORT_LAUNCH(kernel, grid, (block), 0, stream, *p);                   \
     return (int)cudaGetLastError();                                      \
   }
 

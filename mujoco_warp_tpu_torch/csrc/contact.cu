@@ -27,7 +27,7 @@
 
 #include "common.cuh"
 
-#define MAXCON 64
+#define MAXCON 128
 #define MAXSTRIDE 10
 
 struct Params {

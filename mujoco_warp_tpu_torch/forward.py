@@ -1,19 +1,42 @@
-"""Step orchestration: the glue-folded batched step.
+"""Step orchestration: the glue-folded and the unfused batched step.
 
-`step_batched` runs the stage list of the JAX package's glue-folded step
-(`mujoco_warp_tpu/forward.py:577-676`, `_glue_stages`) under the same
-stage names, with the Pallas kernels replaced by the CUDA kernels of
-`kernels/`:
+`step_batched` picks a stage list as the JAX package's `_step_batched`
+(`mujoco_warp_tpu/forward.py:867`) does and runs it under the same stage
+names, with the Pallas kernels replaced by the CUDA kernels of
+`kernels/`. For 0 < nv <= 32 it runs the glue-folded list (`_glue_stages`
+:577):
 
   smooth_mega[cuda]       kernel B1: kinematics .. rne
+  camlight                camera and light frames (tensor ops)
   contact_efc_mega[cuda]  kernel B2: narrowphase, compaction, efc rows
   act_len_vel             actuator lengths and velocities (tensor ops)
   solve_glue[cuda]        kernel B3: actuation, passive, Newton, advance
 
-This module also holds the plain version of B3 (`glue`): actuation
-(:83), passive forces, qfrc_smooth, the Newton solve and the Euler
-advance (`_advance` :331, `_integrate_pos` :274), in the glue kernel's
-formulation.
+Otherwise the unfused list, the `use_mega` branch of `batched_stages`
+(:698-758) and `_euler_batched` (:787-800):
+
+  smooth_mega[cuda], camlight, contact_efc_mega[cuda]   as above
+  transmission            actuator lengths
+  velocity_glue           actuator velocities
+  passive                 joint springs and dampers
+  fwd_actuation           actuator forces
+  fwd_acceleration        qfrc_smooth; kernel B7 for qacc_smooth and qLD
+  solve                   Newton solve; kernel B5 per Newton direction
+  euler                   kernel B7 with diag h·damping (eulerdamp), advance
+
+One deliberate difference: the JAX package runs the smooth and contact
+stages of models past nv 64 (three_humanoids) as XLA, for the TPU
+compiler's sake (`MJWT_MEGA_NV_CAP`, :453; the contact kernel's unroll
+budget). B1 and B2 loop over the model's tables at run time and have no
+such limit, so the port runs them for every model; their results equal
+the XLA stages'.
+
+camlight is skipped for models without cameras and lights, as in the
+JAX lists. qLD holds B3's dense Cholesky factor on the glue list and
+B7's packed tree factor LD on the unfused list. This module also holds the plain version of B3 (`glue`):
+actuation (:83), passive forces, qfrc_smooth, the Newton solve and the
+Euler advance (`_advance` :331, `_integrate_pos` :274), in the glue
+kernel's formulation.
 """
 
 from __future__ import annotations
@@ -22,6 +45,7 @@ import torch
 
 from . import math
 from . import passive as passive_mod
+from . import smooth as smooth_mod
 from . import solver
 from . import support
 from .io import efc_layout
@@ -157,15 +181,18 @@ def glue(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
   return out
 
 
-def glue_stages(m: Model, d: Data) -> list:
-  """[(name, fn)] of the batched step, fn: Data -> Data."""
+def _common_stages(m: Model, d: Data) -> list:
+  """The stages both lists share: B1, camlight and B2."""
   from .kernels import contact as contact_k
-  from .kernels import glue as glue_k
   from .kernels import smooth as smooth_k
   nconmax = d.contact.dist.shape[1]
 
   def smooth_stage(dd):
     return dd.replace(**smooth_k.smooth(m, dd.qpos, dd.qvel))
+
+  def camlight_stage(dd):
+    return dd.replace(**smooth_mod.camlight(m, dd.xpos, dd.xquat,
+                                            dd.subtree_com))
 
   def contact_stage(dd):
     out = contact_k.contact(m, dd.qpos, dd.qvel, dd.geom_xpos, dd.geom_xmat,
@@ -176,6 +203,17 @@ def glue_stages(m: Model, d: Data) -> list:
         ncollision=out['ncollision'], ne=out['ne'], nf=out['nf'],
         nl=out['nl'], nefc=out['nefc'],
         **{k: out[k] for k in contact_k.EFC_FIELDS})
+
+  stages = [('smooth_mega[cuda]', smooth_stage)]
+  if m.ncam or m.nlight:
+    stages.append(('camlight', camlight_stage))
+  stages.append(('contact_efc_mega[cuda]', contact_stage))
+  return stages
+
+
+def glue_stages(m: Model, d: Data) -> list:
+  """[(name, fn)] of the glue-folded step, fn: Data -> Data."""
+  from .kernels import glue as glue_k
 
   def act_stage(dd):
     length, velocity = act_len_vel(m, dd.qpos, dd.qvel)
@@ -190,14 +228,82 @@ def glue_stages(m: Model, d: Data) -> list:
     return dd.replace(time=dd.time + m.opt.timestep,
                       qacc_warmstart=out['qacc'], **out)
 
-  return [('smooth_mega[cuda]', smooth_stage),
-          ('contact_efc_mega[cuda]', contact_stage),
-          ('act_len_vel', act_stage),
-          ('solve_glue[cuda]', solve_stage)]
+  return _common_stages(m, d) + [('act_len_vel', act_stage),
+                                 ('solve_glue[cuda]', solve_stage)]
+
+
+def unfused_stages(m: Model, d: Data) -> list:
+  """[(name, fn)] of the unfused step, fn: Data -> Data."""
+  from .kernels import batch_linalg as linalg_k
+  h = m.opt.timestep
+
+  def transmission(dd):
+    qadr, _ = actuator_addrs(m)
+    return dd.replace(actuator_length=dd.qpos[:, qadr] *
+                      m.actuator_gear[:, 0])
+
+  def velocity_glue(dd):
+    _, dadr = actuator_addrs(m)
+    return dd.replace(actuator_velocity=dd.qvel[:, dadr] *
+                      m.actuator_gear[:, 0])
+
+  def passive(dd):
+    spring, damper, total = passive_mod.passive(m, dd.qpos, dd.qvel)
+    return dd.replace(qfrc_spring=spring, qfrc_damper=damper,
+                      qfrc_passive=total)
+
+  def actuation(dd):
+    force, qfrc = fwd_actuation(m, dd.qpos, dd.qvel, dd.ctrl)
+    return dd.replace(actuator_force=force, qfrc_actuator=qfrc)
+
+  def acceleration(dd):
+    qfrc_smooth = (dd.qfrc_passive - dd.qfrc_bias + dd.qfrc_applied +
+                   dd.qfrc_actuator + support.xfrc_accumulate(
+                       m, dd.xfrc_applied, dd.xipos, dd.subtree_com,
+                       dd.cdof))
+    qacc_smooth, qld = linalg_k.tree_ldl(dd.qM, qfrc_smooth,
+                                         m.dof_parentid, return_factor=True)
+    return dd.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth,
+                      qLD=qld)
+
+  def solve(dd):
+    return dd.replace(**solver.solve(
+        m, dd.qM, dd.efc_J, dd.efc_D, dd.efc_aref, dd.efc_frictionloss,
+        dd.efc_type, dd.qfrc_smooth, dd.qacc_smooth, dd.qacc_warmstart))
+
+  def euler(dd):
+    qacc = dd.qacc
+    if m.has_damping and not m.opt.disableflags & DisableBit.EULERDAMP:
+      qacc = linalg_k.tree_ldl(dd.qM, dd.qfrc_smooth + dd.qfrc_constraint,
+                               m.dof_parentid, diag=h * m.dof_damping)
+    qvel = dd.qvel + qacc * h
+    return dd.replace(qvel=qvel, qpos=integrate_pos(m, dd.qpos, qvel, h),
+                      time=dd.time + h, qacc_warmstart=dd.qacc)
+
+  return _common_stages(m, d) + [
+      ('transmission', transmission), ('velocity_glue', velocity_glue),
+      ('passive', passive), ('fwd_actuation', actuation),
+      ('fwd_acceleration', acceleration), ('solve', solve),
+      ('euler', euler)]
+
+
+def uses_glue_kernel(m: Model, d: Data) -> bool:
+  """True when the step folds its back half into kernel B3, as the JAX
+  package's gate does for the models the port supports
+  (`solver.uses_fused_kernel` :678-682): 0 < nv <= 32, efc rows and
+  iterations to run."""
+  return 0 < m.nv <= 32 and d.efc_J.shape[1] > 0 and m.opt.iterations > 0
+
+
+def batched_stages(m: Model, d: Data) -> list:
+  """[(name, fn)] of the stage list step_batched runs for (m, d)."""
+  if uses_glue_kernel(m, d):
+    return glue_stages(m, d)
+  return unfused_stages(m, d)
 
 
 def step_batched(m: Model, d: Data) -> Data:
   """One physics step of every world in d (nworld leading)."""
-  for _, fn in glue_stages(m, d):
+  for _, fn in batched_stages(m, d):
     d = fn(d)
   return d

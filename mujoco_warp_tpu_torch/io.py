@@ -50,7 +50,6 @@ def _validate(mjm):
   need(mjm.na == 0, 'actuator activation states')
   need(mjm.nflex == 0, 'flex')
   need(mjm.nmocap == 0, 'mocap bodies')
-  need(mjm.ncam == 0 and mjm.nlight == 0, 'cameras and lights')
   need(mjm.ngravcomp == 0, 'gravity compensation')
   need(mjm.nplugin == 0, 'plugins')
   need(mjm.opt.density == 0 and mjm.opt.viscosity == 0 and
@@ -197,7 +196,9 @@ _MJ_FLOAT_LEAVES = (
     'dof_solref', 'dof_solimp', 'dof_frictionloss', 'dof_armature',
     'dof_damping', 'dof_invweight0', 'geom_pos', 'geom_quat', 'geom_size',
     'geom_friction', 'geom_solref', 'geom_solimp', 'geom_solmix',
-    'geom_margin', 'geom_gap', 'site_pos', 'site_quat',
+    'geom_margin', 'geom_gap', 'site_pos', 'site_quat', 'cam_pos',
+    'cam_quat', 'cam_poscom0', 'cam_pos0', 'light_pos', 'light_dir',
+    'light_poscom0', 'light_pos0', 'light_dir0',
     'actuator_gainprm', 'actuator_biasprm', 'actuator_ctrlrange',
     'actuator_forcerange', 'actuator_gear', 'pair_solref',
     'pair_solreffriction', 'pair_solimp', 'pair_margin', 'pair_gap',
@@ -210,6 +211,7 @@ def put_model(mjm, device='cuda') -> Model:
   _validate(mjm)
   f32 = lambda x: np.asarray(x, np.float32)
   leaves = {k: f32(getattr(mjm, k)) for k in _MJ_FLOAT_LEAVES}
+  leaves['cam_mat0'] = f32(mjm.cam_mat0).reshape(mjm.ncam, 3, 3)
   leaves['opt.timestep'] = f32(mjm.opt.timestep)
   leaves['opt.tolerance'] = f32(max(mjm.opt.tolerance, 1e-6))  # f32 floor
   leaves['opt.ls_tolerance'] = f32(mjm.opt.ls_tolerance)
@@ -274,6 +276,12 @@ def put_model(mjm, device='cuda') -> Model:
       geom_condim=_tup(mjm.geom_condim),
       geom_priority=_tup(mjm.geom_priority),
       site_bodyid=_tup(mjm.site_bodyid),
+      cam_mode=_tup(mjm.cam_mode),
+      cam_bodyid=_tup(mjm.cam_bodyid),
+      cam_targetbodyid=_tup(mjm.cam_targetbodyid),
+      light_mode=_tup(mjm.light_mode),
+      light_bodyid=_tup(mjm.light_bodyid),
+      light_targetbodyid=_tup(mjm.light_targetbodyid),
       actuator_trntype=_tup(mjm.actuator_trntype),
       actuator_dyntype=_tup(mjm.actuator_dyntype),
       actuator_gaintype=_tup(mjm.actuator_gaintype),
@@ -290,6 +298,7 @@ def put_model(mjm, device='cuda') -> Model:
                solver=int(mjm.opt.solver),
                iterations=int(mjm.opt.iterations),
                ls_iterations=int(mjm.opt.ls_iterations),
+               ls_parallel=int(mjm.opt.cone != ConeType.ELLIPTIC),
                disableflags=int(mjm.opt.disableflags),
                enableflags=int(mjm.opt.enableflags)))
   return model_from_numpy(leaves, statics, device=device)
@@ -393,7 +402,9 @@ def make_data(m: Model, nconmax: int | None = None, nworld: int = 1) -> Data:
       xipos=z(nbody, 3), ximat=z(nbody, 3, 3), xanchor=z(m.njnt, 3),
       xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),
       geom_xmat=z(m.ngeom, 3, 3), site_xpos=z(m.nsite, 3),
-      site_xmat=z(m.nsite, 3, 3), subtree_com=z(nbody, 3),
+      site_xmat=z(m.nsite, 3, 3), cam_xpos=z(m.ncam, 3),
+      cam_xmat=z(m.ncam, 3, 3), light_xpos=z(m.nlight, 3),
+      light_xdir=z(m.nlight, 3), subtree_com=z(nbody, 3),
       cinert=z(nbody, 10), cdof=z(nv, 6), crb=z(nbody, 10),
       cvel=z(nbody, 6), cdof_dot=z(nv, 6), cacc=z(nbody, 6),
       qM=z(nv, nv), qLD=z(nv, nv), actuator_length=z(m.nu),

@@ -24,7 +24,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
-SOURCES = ('smooth', 'contact', 'glue')
+SOURCES = ('smooth', 'contact', 'glue', 'batch_linalg')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
@@ -97,10 +97,6 @@ def library(name: str) -> ctypes.CDLL:
   if lib is None:
     build_all()
     lib = ctypes.CDLL(_target(name))
-    lib.launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.launch.restype = ctypes.c_int
-    lib.params_size.argtypes = []
-    lib.params_size.restype = ctypes.c_int
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     _loaded[name] = lib
@@ -116,21 +112,29 @@ def struct(name: str, ptrs, floats, ints):
       [(i, ctypes.c_int) for i in ints])})
 
 
-def launch(name: str, params_type, values: dict, device) -> None:
+def launch(name: str, params_type, values: dict, device,
+           entry: str = '') -> None:
   """Fill the parameter struct from `values` (tensors become device
-  pointers) and launch the kernel on the current stream of `device`;
-  raise on a launch error."""
+  pointers, None a null pointer) and launch the kernel on the current
+  stream of `device`; raise on a launch error. A source with several
+  kernels names each one's C functions `<entry>launch` and
+  `<entry>params_size`."""
   lib = library(name)
-  if lib.params_size() != ctypes.sizeof(params_type):
+  size_fn = getattr(lib, entry + 'params_size')
+  size_fn.argtypes, size_fn.restype = [], ctypes.c_int
+  launch_fn = getattr(lib, entry + 'launch')
+  launch_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+  launch_fn.restype = ctypes.c_int
+  if size_fn() != ctypes.sizeof(params_type):
     raise RuntimeError(f'{name}: parameter struct mismatch '
-                       f'({lib.params_size()} vs '
-                       f'{ctypes.sizeof(params_type)} bytes)')
+                       f'({size_fn()} vs {ctypes.sizeof(params_type)} '
+                       f'bytes)')
   params = params_type()
   for field, _ in params_type._fields_:
     v = values[field]
     setattr(params, field, v.data_ptr() if hasattr(v, 'data_ptr') else v)
   stream = torch.cuda.current_stream(device).cuda_stream
-  err = lib.launch(ctypes.byref(params), ctypes.c_void_p(stream))
+  err = launch_fn(ctypes.byref(params), ctypes.c_void_p(stream))
   if err:
     raise RuntimeError(f'{name} kernel launch failed: '
                        f'{lib.error_string(err).decode()}')

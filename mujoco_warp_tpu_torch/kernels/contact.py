@@ -19,7 +19,7 @@ from ..io import efc_layout
 from ..types import DisableBit, Model
 from . import _build
 
-MAXCON = 64      # compile-time cap of csrc/contact.cu
+MAXCON = 128     # compile-time cap of csrc/contact.cu
 
 launches = 0     # kernel launches since the count was last reset
 

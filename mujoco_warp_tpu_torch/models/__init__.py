@@ -1,8 +1,11 @@
 """Benchmark scene assets: MJCF sources and their compiled `.npz` form.
 
-`humanoid.npz` is `io.save_model(io.put_model(MjModel(humanoid.xml)))`,
-committed so that a machine without the `mujoco` bindings can load the
-model (`io.load_model`). Regenerate it after a change to the compiler:
+`humanoid.npz` is `io.save_model(io.put_model(MjModel(humanoid.xml)))`
+and `three_humanoids.npz` the same of the benchmark suite's scene
+`benchmarks/scenes/humanoid/three_humanoids.xml` (three humanoids
+attached to one world, nv 81). Both are committed so that a machine
+without the `mujoco` bindings can load the models (`io.load_model`).
+Regenerate them after a change to the compiler:
 
     python -m mujoco_warp_tpu_torch.models.regenerate
 """
@@ -10,6 +13,7 @@ model (`io.load_model`). Regenerate it after a change to the compiler:
 import os
 
 _DIR = os.path.dirname(__file__)
+_ROOT = os.path.dirname(os.path.dirname(_DIR))
 
 
 def path(name: str) -> str:
@@ -18,3 +22,7 @@ def path(name: str) -> str:
 
 HUMANOID = path('humanoid')
 HUMANOID_NPZ = os.path.join(_DIR, 'humanoid.npz')
+# the suite's scene lives in the checkout, beside the package
+THREE_HUMANOIDS = os.path.join(_ROOT, 'benchmarks', 'scenes', 'humanoid',
+                               'three_humanoids.xml')
+THREE_HUMANOIDS_NPZ = os.path.join(_DIR, 'three_humanoids.npz')

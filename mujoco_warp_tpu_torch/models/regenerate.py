@@ -8,11 +8,16 @@ import mujoco
 from mujoco_warp_tpu_torch import io
 from mujoco_warp_tpu_torch import models
 
+# (MJCF source, committed .npz)
+SOURCES = ((models.HUMANOID, models.HUMANOID_NPZ),
+           (models.THREE_HUMANOIDS, models.THREE_HUMANOIDS_NPZ))
+
 
 def main():
-  mjm = mujoco.MjModel.from_xml_path(models.HUMANOID)
-  io.save_model(io.put_model(mjm, device='cpu'), models.HUMANOID_NPZ)
-  print('wrote', models.HUMANOID_NPZ)
+  for xml, npz in SOURCES:
+    mjm = mujoco.MjModel.from_xml_path(xml)
+    io.save_model(io.put_model(mjm, device='cpu'), npz)
+    print('wrote', npz)
 
 
 if __name__ == '__main__':

@@ -213,6 +213,67 @@ def rne(m: Model, qvel, cdof, cinert, cvel, cdof_dot):
   return cacc, qfrc_bias
 
 
+def _lookat(pos, target):
+  """Camera matrix (W, 3, 3) whose -z axis points from pos to target."""
+  z = math.normalize(pos - target)
+  up = torch.zeros_like(z)
+  up[:, 2] = 1.0
+  x = math.cross(up, z)
+  xn = math.norm(x)[:, None]
+  small = xn < 1e-8
+  unit_x = torch.zeros_like(x)
+  unit_x[:, 0] = 1.0
+  x = torch.where(small, unit_x, x / torch.where(small, 1.0, xn))
+  return torch.stack([x, math.cross(z, x), z], -1)
+
+
+def camlight(m: Model, xpos, xquat, subtree_com) -> dict:
+  """Camera and light frames (W, ...) with the FIXED, TRACK, TRACKCOM,
+  TARGETBODY and TARGETBODYCOM modes (mirrors `smooth.camlight` :253)."""
+  out = {}
+  if m.ncam:
+    bq = xquat[:, list(m.cam_bodyid)]
+    pos = xpos[:, list(m.cam_bodyid)] + math.rot_vec_quat(m.cam_pos, bq)
+    mat = math.quat_to_mat(math.mul_quat(bq, m.cam_quat))
+    poss, mats = [], []
+    for c in range(m.ncam):
+      mode, b, tb = m.cam_mode[c], m.cam_bodyid[c], m.cam_targetbodyid[c]
+      p, R = pos[:, c], mat[:, c]
+      if mode == 1:      # TRACK: world-fixed orientation
+        p = xpos[:, b] + m.cam_pos0[c]
+        R = m.cam_mat0[c].expand_as(R)
+      elif mode == 2:    # TRACKCOM
+        p = subtree_com[:, b] + m.cam_poscom0[c]
+        R = m.cam_mat0[c].expand_as(R)
+      if mode in (3, 4) and tb >= 0:
+        R = _lookat(p, subtree_com[:, tb] if mode == 4 else xpos[:, tb])
+      poss.append(p)
+      mats.append(R)
+    out.update(cam_xpos=torch.stack(poss, 1), cam_xmat=torch.stack(mats, 1))
+  if m.nlight:
+    bq = xquat[:, list(m.light_bodyid)]
+    lpos = xpos[:, list(m.light_bodyid)] + math.rot_vec_quat(m.light_pos, bq)
+    ldir = math.rot_vec_quat(m.light_dir, bq)
+    poss, dirs = [], []
+    for c in range(m.nlight):
+      mode, b = m.light_mode[c], m.light_bodyid[c]
+      tb = m.light_targetbodyid[c]
+      p, dr = lpos[:, c], ldir[:, c]
+      if mode == 1:
+        p = xpos[:, b] + m.light_pos0[c]
+        dr = m.light_dir0[c].expand_as(dr)
+      elif mode == 2:
+        p = subtree_com[:, b] + m.light_poscom0[c]
+        dr = m.light_dir0[c].expand_as(dr)
+      if mode in (3, 4) and tb >= 0:
+        dr = (subtree_com[:, tb] if mode == 4 else xpos[:, tb]) - p
+      poss.append(p)
+      dirs.append(math.normalize(dr))
+    out.update(light_xpos=torch.stack(poss, 1),
+               light_xdir=torch.stack(dirs, 1))
+  return out
+
+
 def smooth(m: Model, qpos: torch.Tensor, qvel: torch.Tensor) -> dict:
   """The whole smooth stage for (W, nq) qpos and (W, nv) qvel; returns
   the tensors named in OUTPUTS (qpos comes back normalized)."""

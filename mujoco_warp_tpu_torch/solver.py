@@ -1,13 +1,20 @@
-"""Newton constraint solver for the pyramidal cone, batched over worlds.
+"""Newton constraint solvers for the pyramidal cone, batched over worlds.
 
-Plain PyTorch version of the solve inside kernel B3. It follows the
-algorithm of the TPU kernel `_newton_core`
-(`mujoco_warp_tpu/pallas/solver_kernels.py:103`), not the XLA solver's:
-init (:446-466), the loop (:468-504), and its linesearch (:398-444) — a
-fixed bracket of LS_K log-spaced alphas, a secant, and 4 safeguarded
-Newton/bisection polish steps. A world that has converged is frozen
-(alpha = 0, :480) while the others iterate, so each world's answer is
-the one a per-world loop gives.
+`newton` is the plain PyTorch version of the solve inside kernel B3. It
+follows the algorithm of the TPU kernel `_newton_core`
+(`mujoco_warp_tpu/pallas/solver_kernels.py:103`): init (:446-466), the
+loop (:468-504), and its linesearch (:398-444) — a fixed bracket of LS_K
+log-spaced alphas, a secant, and 4 safeguarded Newton/bisection polish
+steps.
+
+`solve` is the solve of the unfused step, which the JAX package runs as
+XLA (`mujoco_warp_tpu/solver.py`: `solve` :732 on its unfused branch,
+`_solve_xla` :761, `_iteration` :551, the Newton `_update_gradient`
+:350 and the `ls_parallel` `_linesearch` :481-525). Each Newton
+direction solves H = qM + Jᵀ diag(D·quad) J with kernel B5.
+
+In both, a world that has converged is frozen while the others iterate,
+so each world's answer is the one a per-world loop gives.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .types import Model
+from .kernels import batch_linalg as kb
+from .types import ConstraintType, DisableBit, Model
 
 MINVAL = 1e-15
 LS_K = 10
@@ -202,3 +210,153 @@ def newton(m: Model, qM, J, D, aref, fl, qfrc_smooth, warmstart, ne: int,
   return dict(qacc=qacc, qfrc_constraint=qfrc_constraint, efc_force=force,
               solver_niter=niter[:, 0], qacc_smooth=qacc_smooth, qLD=qld,
               qacc_euler=qacc_euler)
+
+
+# calls of `solve` and the Newton passes of their loops since the counts
+# were last reset; B5 launches once per call and once per pass
+counts = {'solve': 0, 'passes': 0}
+
+
+def _row_masks(efc_type):
+  """Equality, friction and one-sided rows from the efc types
+  (solver._row_masks :216)."""
+  is_eq = efc_type == ConstraintType.EQUALITY
+  is_fr = ((efc_type == ConstraintType.FRICTION_DOF) |
+           (efc_type == ConstraintType.FRICTION_TENDON))
+  is_one = ~is_eq & ~is_fr & (efc_type != ConstraintType.CONTACT_ELLIPTIC)
+  return is_eq, is_fr, is_one
+
+
+def _linesearch_parallel(jaref, search, ma, qfrc_smooth, mv, jv, D, fl, rf,
+                         is_eq, is_fr, is_one):
+  """alpha (W,) of the exact piecewise-quadratic linesearch along search:
+  LS_K log-spaced candidates around the unconstrained Newton step, a
+  secant in the bracket (or a Newton step past the last candidate) and
+  3 capped Newton polish steps (solver._linesearch :481-525)."""
+  g0 = torch.sum(search * (ma - qfrc_smooth), -1)
+  h0 = torch.sum(search * mv, -1)
+  rows = lambda t: t[:, None]                 # (W, nj) -> (W, 1, nj)
+
+  def phi_d(alpha):
+    """(phi', phi'') at alpha (W, k) -> (W, k) each."""
+    x = rows(jaref) + alpha[..., None] * rows(jv)
+    lin_neg = rows(is_fr) & (x <= -rows(rf))
+    lin_pos = rows(is_fr) & (x >= rows(rf))
+    quad = rows(is_eq) | (rows(is_fr) & ~lin_neg & ~lin_pos) | (
+        rows(is_one) & (x < 0.0))
+    d1 = torch.where(quad, rows(D) * x * rows(jv), 0.0)
+    d1 = d1 + torch.where(lin_neg, -rows(fl) * rows(jv), 0.0)
+    d1 = d1 + torch.where(lin_pos, rows(fl) * rows(jv), 0.0)
+    d2 = torch.where(quad, rows(D) * rows(jv) * rows(jv), 0.0)
+    return (g0[:, None] + alpha * h0[:, None] + torch.sum(d1, -1),
+            h0[:, None] + torch.sum(d2, -1))
+
+  p1_0, p2_0 = phi_d(torch.zeros_like(g0)[:, None])
+  alpha0 = torch.clamp(-p1_0 / torch.clamp(p2_0, min=MINVAL), min=0.0)
+  scales = torch.tensor(LS_SCALES, dtype=jaref.dtype, device=jaref.device)
+  alphas = alpha0 * scales                    # (W, K)
+  p1_k, _ = phi_d(alphas)
+  neg = p1_k < 0
+  any_neg = neg.any(-1, keepdim=True)
+  inf = torch.full_like(alphas, float('inf'))
+  lo = torch.where(any_neg, torch.where(neg, alphas, 0.0).amax(
+      -1, keepdim=True), 0.0)
+  p1_lo = torch.where(any_neg, torch.where(neg, p1_k, -inf).amax(
+      -1, keepdim=True), p1_0)
+  hi = torch.where(neg, inf, alphas).amin(-1, keepdim=True)
+  p1_hi = torch.where(neg, inf, p1_k).amin(-1, keepdim=True)
+  diff = p1_hi - p1_lo
+  secant = lo - p1_lo * (hi - lo) / torch.where(diff.abs() < MINVAL, 1.0,
+                                                diff)
+  a_max = alphas[:, -1:]
+  p1_m, p2_m = phi_d(a_max)
+  newton_tail = a_max - p1_m / torch.clamp(p2_m, min=MINVAL)
+  alpha = torch.where(torch.isfinite(hi), secant,
+                      torch.clamp(newton_tail, min=0.0))
+  alpha_cap = 10.0 * a_max
+  for _ in range(3):
+    p1_a, p2_a = phi_d(alpha)
+    alpha = alpha - p1_a / torch.clamp(p2_a, min=MINVAL)
+    alpha = torch.minimum(torch.clamp(alpha, min=0.0), alpha_cap)
+  return torch.where(p1_0 >= 0, 0.0, alpha)[:, 0]
+
+
+def solve(m: Model, qM, J, D, aref, fl, efc_type, qfrc_smooth, qacc_smooth,
+          qacc_warmstart) -> dict:
+  """Newton solve of the unfused step for J (W, nj, nv), its rows typed
+  by efc_type. Loops until every world is done, so the loop's passes
+  (added to counts['passes']) are the slowest world's solver_niter;
+  returns qacc, qfrc_constraint, efc_force and solver_niter (W,)."""
+  W, nj, nv = J.shape
+  counts['solve'] += 1
+  if (nj == 0 or nv == 0 or m.opt.iterations == 0 or
+      m.opt.disableflags & DisableBit.CONSTRAINT):
+    return dict(qacc=qacc_smooth, qfrc_constraint=torch.zeros_like(
+        qacc_smooth), efc_force=torch.zeros_like(D),
+                solver_niter=torch.zeros(W, dtype=torch.int32,
+                                         device=J.device))
+  if not m.opt.ls_parallel:
+    raise NotImplementedError('the iterative linesearch (ls_parallel=False)'
+                              ' is not ported yet')
+  tol = m.opt.tolerance
+  rescale = lambda v: v / (torch.clamp(m.stat.meaninertia, min=MINVAL) *
+                           max(1, nv))
+  is_eq, is_fr, is_one = _row_masks(efc_type)
+  rf = fl / torch.clamp(D, min=MINVAL)
+  mv_qm = lambda x: torch.einsum('wij,wj->wi', qM, x)
+  mv_j = lambda x: torch.einsum('wrn,wn->wr', J, x)
+  mv_jt = lambda y: torch.einsum('wrn,wr->wn', J, y)
+
+  def constraint(jaref):
+    force, cost, quad = _update_constraint(jaref, D, fl, rf, is_eq, is_fr,
+                                           is_one)
+    return force, mv_jt(force), cost[:, 0], quad
+
+  def gradient(ma, qfrc_constraint, quad):
+    grad = ma - qfrc_smooth - qfrc_constraint
+    jd = J * (D * quad.to(D.dtype))[..., None]
+    H = qM + torch.bmm(jd.transpose(1, 2), J)
+    return grad, kb.spd_solve(H, grad)
+
+  def gauss(qacc, ma):
+    return 0.5 * torch.sum((ma - qfrc_smooth) * (qacc - qacc_smooth), -1)
+
+  use_ws = not m.opt.disableflags & DisableBit.WARMSTART
+  qacc = qacc_warmstart if use_ws else qacc_smooth
+  ma = mv_qm(qacc)
+  jaref = mv_j(qacc) - aref
+  force, qfrc_constraint, cost_c, quad = constraint(jaref)
+  cost = cost_c + gauss(qacc, ma)
+  grad, mgrad = gradient(ma, qfrc_constraint, quad)
+  search = -mgrad
+  niter = torch.zeros(W, dtype=torch.int32, device=J.device)
+  done = rescale(torch.sqrt(torch.sum(grad * grad, -1))) < tol
+  while not bool(done.all()):
+    mv, jv = mv_qm(search), mv_j(search)
+    alpha = _linesearch_parallel(jaref, search, ma, qfrc_smooth, mv, jv, D,
+                                 fl, rf, is_eq, is_fr, is_one)[:, None]
+    n_qacc = qacc + alpha * search
+    n_ma = ma + alpha * mv
+    n_jaref = jaref + alpha * jv
+    n_force, n_qfc, cost_c, quad = constraint(n_jaref)
+    n_cost = cost_c + gauss(n_qacc, n_ma)
+    n_grad, mgrad = gradient(n_ma, n_qfc, quad)
+    improvement = rescale(cost - n_cost)
+    gradnorm = rescale(torch.sqrt(torch.sum(n_grad * n_grad, -1)))
+    n_niter = niter + 1
+    n_done = (done | (improvement < tol) | (gradnorm < tol) |
+              (n_niter >= m.opt.iterations))
+    # masked commit: converged worlds keep their state
+    keep = done[:, None]
+    qacc = torch.where(keep, qacc, n_qacc)
+    ma = torch.where(keep, ma, n_ma)
+    jaref = torch.where(keep, jaref, n_jaref)
+    force = torch.where(keep, force, n_force)
+    qfrc_constraint = torch.where(keep, qfrc_constraint, n_qfc)
+    search = torch.where(keep, search, -mgrad)
+    cost = torch.where(done, cost, n_cost)
+    niter = torch.where(done, niter, n_niter)
+    done = n_done
+    counts['passes'] += 1
+  return dict(qacc=qacc, qfrc_constraint=qfrc_constraint, efc_force=force,
+              solver_niter=niter)

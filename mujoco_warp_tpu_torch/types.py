@@ -2,8 +2,9 @@
 Contact and Data as dataclasses of tensors.
 
 Field names follow the JAX package (`mujoco_warp_tpu/types.py`) so the
-parity tests compare like with like. Only the fields the humanoid
-`step_batched` path reads or writes are present. Two differences:
+parity tests compare like with like. Only the fields the ported
+`step_batched` paths (humanoid, three_humanoids) read or write are
+present. Two differences:
 
 * Structural metadata (tree topology, joint types, collision pair lists)
   stays in static Python ints and tuples, as in the JAX Model; numeric
@@ -231,6 +232,7 @@ class Option(_Tensors):
   solver: int
   iterations: int
   ls_iterations: int
+  ls_parallel: int
   disableflags: int
   enableflags: int
 
@@ -287,6 +289,12 @@ class Model(_Tensors):
   geom_condim: IntTuple
   geom_priority: IntTuple
   site_bodyid: IntTuple
+  cam_mode: IntTuple
+  cam_bodyid: IntTuple
+  cam_targetbodyid: IntTuple
+  light_mode: IntTuple
+  light_bodyid: IntTuple
+  light_targetbodyid: IntTuple
   actuator_trntype: IntTuple
   actuator_dyntype: IntTuple
   actuator_gaintype: IntTuple
@@ -338,6 +346,16 @@ class Model(_Tensors):
   geom_gap: torch.Tensor
   site_pos: torch.Tensor
   site_quat: torch.Tensor
+  cam_pos: torch.Tensor
+  cam_quat: torch.Tensor
+  cam_poscom0: torch.Tensor
+  cam_pos0: torch.Tensor
+  cam_mat0: torch.Tensor
+  light_pos: torch.Tensor
+  light_dir: torch.Tensor
+  light_poscom0: torch.Tensor
+  light_pos0: torch.Tensor
+  light_dir0: torch.Tensor
   actuator_gainprm: torch.Tensor
   actuator_biasprm: torch.Tensor
   actuator_ctrlrange: torch.Tensor
@@ -418,6 +436,10 @@ class Data(_Tensors):
   geom_xmat: torch.Tensor
   site_xpos: torch.Tensor
   site_xmat: torch.Tensor
+  cam_xpos: torch.Tensor
+  cam_xmat: torch.Tensor
+  light_xpos: torch.Tensor
+  light_xdir: torch.Tensor
   subtree_com: torch.Tensor
   cinert: torch.Tensor
   cdof: torch.Tensor

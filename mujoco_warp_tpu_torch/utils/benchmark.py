@@ -90,4 +90,5 @@ def benchmark(m: Model, d: Data, nstep: int, warmup: int = 0,
       steps_per_sec=nworld * nstep / elapsed if elapsed > 0 else math.nan,
       step_time_us=1e6 * elapsed / nstep if nstep else math.nan,
       ncon_mean=mean(ncon), solver_niter_mean=mean(niter),
+      solver_niter_max=int(torch.stack(niter).max()) if niter else 0,
       converged_worlds=int((d.solver_niter < m.opt.iterations).sum()))

@@ -15,7 +15,9 @@ FILES = sorted(
      if f.endswith('.py')] + [os.path.join(ROOT, 'chip_smoke.py')])
 MUJOCO_OK = {os.path.join(PKG, 'models', 'regenerate.py')}
 LAUNCHERS = {'launch', '_launch', 'smooth', 'contact', 'glue',
-             'step_batched', 'glue_stages', 'benchmark'}
+             'step_batched', 'glue_stages', 'benchmark', 'tree_ldl',
+             'spd_solve', '_launch_tree_ldl', '_launch_spd_solve',
+             'unfused_stages', 'batched_stages', 'solve'}
 
 
 def _imports(tree):
@@ -61,5 +63,6 @@ def test_no_try_around_a_kernel_launch(path):
 def test_the_scan_sees_the_package():
   names = {_name(p) for p in FILES}
   for must in ('chip_smoke.py', 'mujoco_warp_tpu_torch/io.py',
-               'mujoco_warp_tpu_torch/kernels/glue.py'):
+               'mujoco_warp_tpu_torch/kernels/glue.py',
+               'mujoco_warp_tpu_torch/kernels/batch_linalg.py'):
     assert must in names

@@ -1,4 +1,5 @@
-"""The port's kernel wrappers (B1 smooth, B2 contact, B3 glue).
+"""The port's kernel wrappers (B1 smooth, B2 contact, B3 glue, B7 tree_ldl
+and B5 spd_solve).
 
 On the CPU a wrapper runs its plain version and launches nothing. On the
 card each kernel is held against its plain version (tests marked `cuda`,
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 import mujoco_warp_tpu_torch as mt
-from mujoco_warp_tpu_torch import forward, models, smooth, solver, support
+from mujoco_warp_tpu_torch import (batch_linalg, forward, models, smooth,
+                                   solver, support)
+from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
 from mujoco_warp_tpu_torch.kernels import contact as kc
 from mujoco_warp_tpu_torch.kernels import glue as kg
 from mujoco_warp_tpu_torch.kernels import smooth as ks
@@ -30,11 +33,12 @@ def cuda():
   return torch.device('cuda')
 
 
-def _state(device, nworld, nstep):
-  """Humanoid worlds stepped into contact through the port itself."""
-  m = mt.load_model(models.HUMANOID_NPZ, device=device)
+def _state(device, nworld, nstep, npz=models.HUMANOID_NPZ,
+           nconmax=NCONMAX):
+  """Worlds stepped into contact through the port itself."""
+  m = mt.load_model(npz, device=device)
   gen = torch.Generator(device=device).manual_seed(0)
-  d = mt.make_batch(m, mt.make_data(m, nconmax=NCONMAX), nworld,
+  d = mt.make_batch(m, mt.make_data(m, nconmax=nconmax), nworld,
                     qpos_noise=0.02, generator=gen)
   d, _ = benchmark.benchmark(m, d, nstep=nstep)
   return m, d
@@ -171,4 +175,66 @@ def test_step_batched_launches_each_kernel_once(cuda):
   d = mt.step_batched(m, d)
   torch.cuda.synchronize()
   assert (ks.launches, kc.launches, kg.launches) == (1, 1, 1)
+  assert bool(torch.isfinite(d.qpos).all())
+
+
+def _residual(a, x, b):
+  """Per-world |a x - b|inf / (|a|inf |x|inf + |b|inf), in float64."""
+  a, x, b = a.double(), x.double(), b.double()
+  r = (torch.einsum('wij,wj->wi', a, x) - b).abs().amax(1)
+  return r / (a.abs().sum(2).amax(1) * x.abs().amax(1) + b.abs().amax(1))
+
+
+@pytest.mark.cuda
+def test_three_humanoids_kernels_match_plain(cuda):
+  """B1, B2, B7 and B5 at three_humanoids shapes (nv 81, nconmax 100)."""
+  m, d = _state(cuda, 256, 20, models.THREE_HUMANOIDS_NPZ, 100)
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  for name, ref in smooth.smooth(m, d.qpos, d.qvel).items():
+    _close(sm[name], ref, name, 2e-5)
+  c_in = (m, sm['qpos'], d.qvel, sm['geom_xpos'], sm['geom_xmat'],
+          sm['subtree_com'], sm['cdof'], 100)
+  con, ref = kc.contact(*c_in), kc.plain(*c_in)
+  assert int(ref['ncon'].sum()) > 0
+  for name in ref:
+    _close(con[name], ref[name], name, 2e-3 if name == 'efc_aref' else 2e-5)
+  qM, b = sm['qM'], d.qfrc_applied - sm['qfrc_bias']
+  diag = m.opt.timestep * m.dof_damping
+  kb.launches.update(tree_ldl=0, spd_solve=0)
+  for dg in (None, diag):
+    x, ld = kb.tree_ldl(qM, b, m.dof_parentid, diag=dg, return_factor=True)
+    xr, ldr = batch_linalg.tree_ldl_solve_batched(
+        qM, b, m.dof_parentid, diag=dg, return_factor=True)
+    _close(x, xr, 'tree_ldl x', 2e-5)
+    _close(ld, ldr, 'tree_ldl LD', 2e-5)
+    a = qM + (torch.diag(dg) if dg is not None else 0)
+    assert float(_residual(a, x, b).max()) <= 1e-5
+  # a Newton Hessian: qM + Jᵀ D J over the rows that act
+  J, D = con['efc_J'], con['efc_D']
+  H = qM + torch.bmm((J * D[..., None]).transpose(1, 2), J)
+  x = kb.spd_solve(H, b)
+  xr = batch_linalg.spd_solve_batched(H, b)
+  torch.cuda.synchronize()
+  assert kb.launches == {'tree_ldl': 2, 'spd_solve': 1}
+  assert float(_residual(H, x, b).max()) <= 1e-5
+  x64 = batch_linalg.spd_solve_batched(H.double(), b.double())
+  scale = float(x64.abs().max())
+  err = float((x.double() - x64).abs().max()) / scale
+  err_plain = float((xr.double() - x64).abs().max()) / scale
+  assert err <= 4 * err_plain + 1e-6, (err, err_plain)
+
+
+@pytest.mark.cuda
+def test_three_humanoids_step_launches(cuda):
+  m, d = _state(cuda, 256, 5, models.THREE_HUMANOIDS_NPZ, 100)
+  for mod in (ks, kc, kg):
+    mod.launches = 0
+  kb.launches.update(tree_ldl=0, spd_solve=0)
+  solver.counts.update(solve=0, passes=0)
+  d = mt.step_batched(m, d)
+  torch.cuda.synchronize()
+  assert (ks.launches, kc.launches, kg.launches) == (1, 1, 0)
+  assert kb.launches == {'tree_ldl': 2,
+                         'spd_solve': 1 + solver.counts['passes']}
+  assert solver.counts['passes'] == int(d.solver_niter.max())
   assert bool(torch.isfinite(d.qpos).all())

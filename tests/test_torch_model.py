@@ -14,7 +14,7 @@ import mujoco_warp_tpu as mjwt
 import mujoco_warp_tpu_torch as mt
 from mujoco_warp_tpu_torch import io, models, types
 
-from torch_parity import SCENES, build
+from torch_parity import ALL_SCENES, build
 
 
 def _assert_model_equal(m, jm):
@@ -32,7 +32,7 @@ def _assert_model_equal(m, jm):
                                 np.asarray(jm.stat.meaninertia))
 
 
-@pytest.mark.parametrize('scene', sorted(SCENES))
+@pytest.mark.parametrize('scene', ALL_SCENES)
 def test_put_model_matches_jax(scene):
   _, jm, m = build(scene)
   _assert_model_equal(m, jm)
@@ -50,15 +50,34 @@ def test_model_from_numpy_takes_jax_leaves():
                       jm)
 
 
-def test_committed_npz_matches_jax(tmp_path):
-  _, jm, m = build('humanoid')
-  _assert_model_equal(io.load_model(models.HUMANOID_NPZ, device='cpu'), jm)
+@pytest.mark.parametrize('scene', ['humanoid', 'three_humanoids'])
+def test_committed_npz_matches_jax(tmp_path, scene):
+  """The committed .npz equals a fresh put_model of its MJCF (and so the
+  JAX Model's shared leaves, camera and light fields included)."""
+  _, jm, m = build(scene)
+  npz = {'humanoid': models.HUMANOID_NPZ,
+         'three_humanoids': models.THREE_HUMANOIDS_NPZ}[scene]
+  _assert_model_equal(io.load_model(npz, device='cpu'), jm)
   path = str(tmp_path / 'm.npz')
   io.save_model(m, path)
   _assert_model_equal(io.load_model(path, device='cpu'), jm)
 
 
-@pytest.mark.parametrize('scene', sorted(SCENES))
+def test_three_humanoids_model():
+  """The suite's scene: sizes, cameras and lights, options and the efc
+  layout at nconmax 100."""
+  m = io.load_model(models.THREE_HUMANOIDS_NPZ, device='cpu')
+  assert (m.nq, m.nv, m.nbody, m.ngeom, m.njnt, m.nu) == (84, 81, 49, 58,
+                                                          66, 63)
+  assert (m.ncam, m.nlight) == (9, 10)
+  assert set(m.cam_mode) == {0, 2} and set(m.light_mode) == {0, 2, 4}
+  assert m.cam_mat0.shape == (9, 3, 3) and m.light_dir0.shape == (10, 3)
+  assert m.opt.disableflags == 0 and m.opt.ls_parallel and m.has_damping
+  assert m.nxn_candidates == 1614
+  assert mt.efc_layout(m, 100) == (0, 0, 63, 4, 463)
+
+
+@pytest.mark.parametrize('scene', ALL_SCENES)
 def test_make_data_matches_jax(scene):
   _, jm, m = build(scene)
   jd = mjwt.make_data(jm, nconmax=8)

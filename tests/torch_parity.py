@@ -33,9 +33,17 @@ SCENES = {
 }
 
 
+# scenes read from their files (they include other files)
+FILES = {'three_humanoids': models.THREE_HUMANOIDS}
+ALL_SCENES = sorted(SCENES) + sorted(FILES)
+
+
 def build(scene: str):
   """(mjm, JAX Model, port Model on the CPU)."""
-  mjm = mujoco.MjModel.from_xml_string(SCENES[scene])
+  if scene in FILES:
+    mjm = mujoco.MjModel.from_xml_path(FILES[scene])
+  else:
+    mjm = mujoco.MjModel.from_xml_string(SCENES[scene])
   return mjm, mjwt.put_model(mjm), mt.put_model(mjm, device='cpu')
 
 
