@@ -31,6 +31,23 @@ Phases:
       all-plain step on the same state (qacc and the solve's objective);
   (h) time each kernel, its plain version and, for B5, torch.linalg.solve
       on the same inputs, with its bound; profile 2 steps.
+  Then the paths of forward_batched, the RK4 integrator and the CG solver,
+  selected on the loaded models (m.replace(opt=m.opt.replace(...))):
+  (i) on the humanoid state of (c): hold B4 (newton) against its plain
+      version with B3's criteria, without and with an integration
+      diagonal hb, and its qLD against solver.cholesky; hold B6
+      (cho_solve) on B5's factor of qM by residual and forward error
+      against the float64 plain version, and against B5's own x;
+  (j) on the three_humanoids state of (f): hold B8 (tree_solve) on B7's
+      packed LD the same way, and against B7's own x;
+  (k) from counts at 0, run one forward_batched (B4 once, B3 never), RK4
+      steps (B4 four times a step), CG steps of the humanoid (B5 once a
+      step, B6 once per solve and per CG pass) and of three_humanoids (B7
+      twice a step, B8 once per solve and per pass, B5 never); hold one
+      RK4 step and one three_humanoids CG step against the all-plain step
+      on the same state; print steps/s and CG passes per step;
+  (l) time B4, B6 and B8 with their plain versions and bounds, B6 beside
+      torch.cholesky_solve.
 One JSON line lists every kernel's record.
 
 The last line is {"ok": true, "device": {...}}; any failure raises and
@@ -88,6 +105,24 @@ FWD_FLOOR = 1e-6
 # one whole step, kernels against plain versions: qacc as B3's (5e-5 of
 # max(1, max |qacc|)) over the worlds whose contact and row sets agree
 TOL_STEP_QACC = 5e-5
+# forward_batched, RK4 and CG paths (phases i-l): timed steps after warm-up
+RK4_WARMUP, RK4_STEPS = 1, 4
+CG_WARMUP, CG_STEPS = 1, 4
+CG3_WARMUP, CG3_STEPS = 1, 2
+# One CG step, kernels against plain versions: CG is compared at its
+# converged answer, not per iteration. A change of one ulp in qfrc_smooth
+# moves the plain version's own qacc by 1.9e-4 of scale at 4 worlds
+# (tests/test_torch_cg.py), so an FMA contraction moves the kernels' path
+# as far; qacc is held at ten times that.
+TOL_STEP_QACC_CG = 2e-3
+# A world that misses a step tolerance must not have a higher objective
+# than the plain solve reaches on the same inputs, unless its solve
+# stopped in fewer iterations (_check_excused): by TOL_OBJ units after
+# Newton; by TOL_OBJ_CG after CG, which stops when a pass gains less than
+# one unit and, converging slowly, leaves several (the plain CG solve of
+# one three_humanoids world alone and inside a batch of 16 ended 2.1
+# units apart on the CPU). A qacc wrong by 1e-2 costs hundreds of units.
+TOL_OBJ_CG = 10.0
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -287,16 +322,22 @@ def _plain_kernels():
   """Swap each kernel wrapper of the unfused step for its plain version,
   for the all-plain reference step on the card (which launches and counts
   nothing)."""
-  from mujoco_warp_tpu_torch import batch_linalg, smooth
+  from mujoco_warp_tpu_torch import batch_linalg, smooth, solver
   from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
   from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import newton as kn
   from mujoco_warp_tpu_torch.kernels import smooth as ks
-  saved = ks.smooth, kc.contact, kb.tree_ldl, kb.spd_solve
+  saved = (ks.smooth, kc.contact, kn.newton_solve, kb.tree_ldl,
+           kb.spd_solve, kb.tree_solve, kb.cho_solve)
   ks.smooth, kc.contact = smooth.smooth, kc.plain
+  kn.newton_solve = solver.newton_solve
   kb.tree_ldl = batch_linalg.tree_ldl_solve_batched
   kb.spd_solve = batch_linalg.spd_solve_batched
+  kb.tree_solve = batch_linalg.tree_solve_from_factor_batched
+  kb.cho_solve = batch_linalg.cho_solve_batched
   yield
-  ks.smooth, kc.contact, kb.tree_ldl, kb.spd_solve = saved
+  (ks.smooth, kc.contact, kn.newton_solve, kb.tree_ldl, kb.spd_solve,
+   kb.tree_solve, kb.cho_solve) = saved
 
 
 def _check_solve(name, a, b, x, x_plain, x64) -> float:
@@ -321,6 +362,367 @@ def _check_solve(name, a, b, x, x_plain, x64) -> float:
   return diff
 
 
+def _check_newton(label, m, out, ref, n_in, hb) -> float:
+  """Hold kernel B4's outputs to the criteria B3's solve is held to (see
+  TOL_B3): the step tolerances, the solve's objective and solver_niter;
+  qLD against solver.cholesky. With hb, qacc_euler = (qM + diag(hb))^-1
+  (qfrc_smooth + qfrc_constraint) is a linear image of qfrc_constraint
+  through an ill-conditioned inverse (the hands' inertias are ~1e-3), so
+  it is held at qfrc_constraint's tolerance and, per world, by the
+  residual of that system with the kernel's own qfrc_constraint
+  (TOL_RES). Returns the max abs error."""
+  import torch
+  from mujoco_warp_tpu_torch import solver
+  tol = dict(qacc=TOL_B3_OTHER, qacc_smooth=TOL_B3_OTHER,
+             qacc_euler=TOL_B3_OTHER if hb is None else 5e-4,
+             qfrc_constraint=5e-4, efc_force=5e-4)
+  worst = _compare(label, out, ref, tol, list(tol))
+  if hb is not None:
+    a = n_in[0].double() + torch.diag(hb.double())
+    rhs = n_in[5].double() + out['qfrc_constraint'].double()
+    x = out['qacc_euler'].double()
+    r = (torch.einsum('wij,wj->wi', a, x) - rhs).abs().amax(1)
+    res = float((r / (a.abs().sum(2).amax(1) * x.abs().amax(1) +
+                      rhs.abs().amax(1))).max())
+    print(f'  {label} re-solve residual max {res:.3e} (tol {TOL_RES:g})')
+    if not res <= TOL_RES:
+      raise RuntimeError(f'{label}: qacc_euler misses its system')
+  worst = max(worst, _compare(label, {'qLD': out['qLD']},
+                              {'qLD': solver.cholesky(n_in[0])}, TOL_B1,
+                              ['qLD']))
+  f64 = lambda x: x.double()
+  qfs = f64(n_in[5])
+  qsm = solver.cho_solve(solver.cholesky(f64(n_in[0])), qfs)
+  objective = lambda qacc: solver.objective(
+      *[f64(x) for x in n_in[:5]], qfs, qsm, f64(qacc), 0, 0)
+  unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * max(1, m.nv)
+  gap = ((objective(out['qacc']) - objective(ref['qacc'])) / unit).abs()
+  dn = (out['solver_niter'] - ref['solver_niter']).abs()
+  print(f'  {label} objective gap max {float(gap.max()):.3e} (tol '
+        f'{TOL_OBJ:g}); solver_niter |diff| histogram '
+        f'{dn.bincount().tolist()}')
+  if not float(gap.max()) <= TOL_OBJ:
+    raise RuntimeError(f'{label}: misses the plain version\'s objective')
+  if int(dn.max()) > NITER_MAX:
+    raise RuntimeError(f'{label}: solver_niter differs by {int(dn.max())}')
+  if hb is None and not torch.equal(out['qacc_euler'], out['qacc']):
+    raise RuntimeError(f'{label}: qacc_euler != qacc without hb')
+  return worst
+
+
+def _check_factor_solve(name, a64, b, x, x_plain, x64, x_producer):
+  """Hold a solve from a factor: residual and forward error on the matrix
+  a64 the factor represents exactly (see TOL_RES), and the producing
+  kernel's own x for the same b at TOL_B1."""
+  err = _check_solve(name, a64, b, x, x_plain, x64)
+  _compare(name, {'x vs the factoring kernel': x},
+           {'x vs the factoring kernel': x_producer}, TOL_B1,
+           ['x vs the factoring kernel'])
+  return err
+
+
+def _flops_newton(nv, nact, it, nu=0) -> float:
+  """Operations of the Newton solve (B3, B4): nact acting rows and it
+  iterations per world (tensors over worlds)."""
+  per_iter = (4 * nact * nv + 4 * nv * nv + 16 * 8 * nact + 12 * nact +
+              nact * nv * (nv + 1) + nv ** 3 / 3 + 2 * nv * nv + 20 * nv)
+  return float((nv ** 3 / 3 + 2 * nv * nv + 20 * nu + 10 * nv +
+                4 * nact * nv + it * per_iter).sum())
+
+
+def _reset_counts():
+  from mujoco_warp_tpu_torch import solver
+  from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import newton as kn
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  for mod in (ks, kc, kg, kn):
+    mod.launches = 0
+  kb.launches.update(dict.fromkeys(kb.launches, 0))
+  solver.counts.update(solve=0, passes=0)
+
+
+def _read_counts() -> dict:
+  from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import newton as kn
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  return dict(smooth=ks.launches, contact=kc.launches, glue=kg.launches,
+              newton=kn.launches, **kb.launches)
+
+
+def _expect_counts(label, expect):
+  counts = _read_counts()
+  print(f'  {label}: launches {counts}')
+  if counts != expect:
+    raise RuntimeError(f'{label}: launch counts {counts}, expected {expect}')
+
+
+def _run_path(label, m, d, nstep, warmup, card):
+  """Benchmark a path from counts at 0; returns (Data, metrics, steps)."""
+  import torch
+  from mujoco_warp_tpu_torch import solver
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  _reset_counts()
+  d, res = bench.benchmark(m, d, nstep=nstep, warmup=warmup)
+  steps = warmup + nstep
+  for k in ('qpos', 'qvel', 'qacc', 'efc_force'):
+    if not bool(torch.isfinite(getattr(d, k)).all()):
+      raise RuntimeError(f'{label}: non-finite {k}')
+  passes = solver.counts['passes'] / steps
+  print(f'{label}: {res["steps_per_sec"]:.1f} steps/s, '
+        f'{res["step_time_us"]:.1f} us/step over {nstep} steps at '
+        f'{NWORLD} worlds; solver_niter mean '
+        f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}, '
+        f'converged {res["converged_worlds"]} of {NWORLD}; '
+        f'{passes:.2f} solver passes per step ({card})')
+  print(json.dumps({label: dict(res, passes_per_step=passes, card=card)}))
+  return d, res, steps
+
+
+def _step_recording(m, d):
+  """step_batched(m, d) and, for every evaluation of the dynamics in it,
+  the contact and row sets that kernel B2 (or what stands in for it)
+  returned, and the solve's call: (is it B4's, arguments, keywords,
+  result)."""
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import solver
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import newton as kn
+  sets, solves = [], []
+  inner = kc.contact, kn.newton_solve, solver.solve
+
+  def contact(*args):
+    out = inner[0](*args)
+    sets.append((out['ncon'], out['efc_type'], out['efc_active']))
+    return out
+
+  def recording(fn, is_b4):
+    def solve(*args, **kw):
+      out = fn(*args, **kw)
+      solves.append((is_b4, args, kw, out))
+      return out
+    return solve
+  kc.contact = contact
+  kn.newton_solve = recording(inner[1], True)
+  solver.solve = recording(inner[2], False)
+  d = mt.step_batched(m, d)
+  kc.contact, kn.newton_solve, solver.solve = inner
+  return d, sets, solves
+
+
+def _check_excused(label, m, solves, worlds, tol_obj):
+  """Hold the worlds that a step comparison lets miss its tolerance (a
+  bool mask over worlds). Such a world comes from a solve that stopped
+  early in one version: when the last polish step of the linesearch
+  lands on an end of its bracket in float32, the rule that keeps the
+  step strictly inside bisects the bracket instead (the JAX package's
+  rule too, pallas/solver_kernels.py:439), the cost rises and the
+  stopping rule ends the solve; which version this hits turns on an ulp.
+  So in every solve of the kernel step, on that solve's own inputs, the
+  kernel step's qacc must reach a float64 objective no higher than the
+  plain solve's plus tol_obj units, or the kernel step's solve must have
+  stopped in fewer iterations than the plain solve. A world whose
+  objective is higher after as many iterations fails."""
+  import torch
+  from mujoco_warp_tpu_torch import solver
+  from mujoco_warp_tpu_torch.io import efc_layout
+  idx = worlds.nonzero()[:, 0]
+  if not idx.numel():
+    return
+  cut = lambda x: (x[idx] if torch.is_tensor(x) and x.dim() and
+                   x.shape[0] == NWORLD else x)
+  unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * max(1, m.nv)
+  ne, nf, _, _, _ = efc_layout(m, 0)
+  higher = 0
+  for i, (is_b4, args, kw, out) in enumerate(solves):
+    args, kw = [cut(x) for x in args], {k: cut(v) for k, v in kw.items()}
+    if is_b4:
+      ref = solver.newton_solve(*args, **kw)
+      masks = solver._classes(args[2].shape[1], ne, nf, idx.device)
+    else:
+      with _plain_kernels():
+        ref = solver.solve(*args, **kw)
+      masks = solver._row_masks(args[6])
+    qM, J, D, aref, fl = (x.double() for x in args[1:6])
+    qfs = args[6 if is_b4 else 7].double()
+    qsm = torch.linalg.solve(qM, qfs)
+
+    def objective(x):
+      x = x.double()
+      jaref = torch.einsum('wrn,wn->wr', J, x) - aref
+      _, cost, _ = solver._update_constraint(
+          jaref, D, fl, fl / torch.clamp(D, min=solver.MINVAL), *masks)
+      ma = torch.einsum('wij,wj->wi', qM, x)
+      return 0.5 * torch.sum((ma - qfs) * (x - qsm), 1) + cost[:, 0]
+    gap = (objective(out['qacc'][idx]) - objective(ref['qacc'])) / unit
+    niter, niter_p = out['solver_niter'][idx], ref['solver_niter']
+    over = gap > tol_obj
+    higher += int(over.sum())
+    print(f'  {label} solve {i}, worlds {idx.tolist()}: objective less '
+          f'the plain solve\'s on the same inputs '
+          f'{[float(f"{g:.3g}") for g in gap.tolist()]} units (tol '
+          f'{tol_obj:g}); solver_niter {niter.tolist()}, plain '
+          f'{niter_p.tolist()}')
+    if bool((over & (niter >= niter_p)).any()):
+      raise RuntimeError(f'{label}: a world outside the tolerance has a '
+                         f'higher objective than the plain solve reaches '
+                         f'in as many iterations')
+  early = ', each stopped in fewer iterations than the plain solve'
+  print(f'  {label}: {idx.numel()} worlds over the tolerance, {higher} of '
+        f'their {idx.numel() * len(solves)} solves with a higher objective'
+        f'{early if higher else ""}')
+
+
+def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ):
+  """One step of the kernel path against the all-plain step on the same
+  state: keys over the worlds whose contact and row sets agree in every
+  evaluation of the dynamics (an RK4 step has four, and its qacc
+  averages them). Per evaluation, the sets may differ in max(8, nworld /
+  1000) worlds (a contact or limit at its activation threshold, phase
+  c), and as many worlds may miss the tolerance because a solve stopped
+  early in one version: those are held by `_check_excused`, every other
+  world at tol."""
+  import torch
+  d_k, sets_k, solves = _step_recording(m, d)
+  with _plain_kernels():
+    d_p, sets_p, _ = _step_recording(m, d)
+  if len(sets_k) != len(sets_p) or len(solves) != len(sets_k) or not sets_k:
+    raise RuntimeError(f'{label}: {len(sets_k)} and {len(sets_p)} '
+                       f'evaluations, {len(solves)} solves')
+  same = torch.ones(NWORLD, dtype=torch.bool, device=d.qpos.device)
+  for (ncon_k, type_k, act_k), (ncon_p, type_p, act_p) in zip(sets_k,
+                                                                sets_p):
+    same &= ((ncon_k == ncon_p) & (type_k == type_p).all(1) &
+             (act_k == act_p).all(1))
+  nbad = NWORLD - int(same.sum())
+  print(f'  {label}: {nbad} of {NWORLD} worlds with a different '
+        f'contact/row set in one of {len(sets_k)} evaluations')
+  allowed = len(sets_k) * max(8, NWORLD // 1000)
+  if nbad > allowed:
+    raise RuntimeError(f'{label}: {nbad} worlds differ in their row sets')
+  excused = torch.zeros_like(same)
+  for k in keys:
+    a, b = getattr(d_k, k), getattr(d_p, k)
+    scale = max(1.0, float(b[same].abs().max()))
+    err = (a - b).abs().amax(1) / scale
+    over = same & (err > tol)
+    excused |= over
+    n = int(over.sum())
+    held = same & ~over
+    print(f'  {label} {k}: {n} of {NWORLD - nbad} worlds over {tol:g} of '
+          f'scale {scale:.1f} (allowed {allowed}; their max '
+          f'{float(err[same].max()):.3e}); the rest within '
+          f'{float(err[held].max()):.3e}; median '
+          f'{float(err[same].median()):.3e}')
+    if n > allowed:
+      raise RuntimeError(f'{label}: {k} differs from the all-plain step '
+                         f'in {n} worlds')
+  _check_excused(label, m, solves, excused, tol_obj)
+  dn = (d_k.solver_niter - d_p.solver_niter).abs()
+  print(f'  {label}: solver_niter |diff| histogram {dn.bincount().tolist()}')
+
+
+def _humanoid_paths(card, m, d, errs) -> list:
+  """Phases (k) and (l) on the humanoid: forward_batched, RK4 steps and CG
+  steps from the state the main path left; returns the records of B4
+  and B6."""
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import batch_linalg, forward, solver
+  from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
+  from mujoco_warp_tpu_torch.kernels import newton as kn
+  from mujoco_warp_tpu_torch.types import IntegratorType, SolverType
+  zero = dict.fromkeys(('smooth', 'contact', 'glue', 'newton', *kb.launches),
+                       0)
+  names = lambda mm: [n for n, _ in forward.batched_stages(mm, d)]
+  front = ['smooth_mega[cuda]', 'contact_efc_mega[cuda]', 'transmission',
+           'velocity_glue', 'passive', 'fwd_actuation', 'fwd_acceleration']
+
+  # ---- (k) P3: one forward_batched ----
+  print(f'stages of forward_batched: '
+        f'{" -> ".join(n for n, _ in forward.forward_stages(m, d))}')
+  if [n for n, _ in forward.forward_stages(m, d)] != front + ['solve[cuda]']:
+    raise RuntimeError('forward_batched does not run the Newton kernel')
+  _reset_counts()
+  fwd = mt.forward_batched(m, d)
+  torch.cuda.synchronize()
+  _expect_counts('forward_batched', dict(zero, smooth=1, contact=1,
+                                         newton=1))
+  launches_b4 = kn.launches
+  # no integration: qvel untouched, qpos only with its quaternions
+  # normalized again by B1
+  if not torch.equal(fwd.qvel, d.qvel) or \
+      float((fwd.qpos - d.qpos).abs().max()) > 1e-6:
+    raise RuntimeError('forward_batched moved the state')
+  if not bool(torch.isfinite(fwd.qacc).all()):
+    raise RuntimeError('forward_batched: non-finite qacc')
+
+  # ---- (k) P4: RK4 steps ----
+  rk4 = m.replace(opt=m.opt.replace(integrator=int(IntegratorType.RK4)))
+  print(f'stages of the RK4 step: {" -> ".join(names(rk4))}')
+  if names(rk4) != front + ['solve[cuda]', 'rk4'] or \
+      forward.uses_glue_kernel(rk4, d):
+    raise RuntimeError('the RK4 humanoid does not run the unfused list')
+  d4, _, steps = _run_path('step_rk4', rk4, d, RK4_STEPS, RK4_WARMUP, card)
+  _expect_counts('RK4', dict(zero, smooth=4 * steps, contact=4 * steps,
+                             newton=4 * steps))
+  launches_b4 += kn.launches
+  _compare_step('RK4 step', rk4, d4, TOL_STEP_QACC, ('qacc', 'qvel'))
+
+  # ---- (k) P5: CG steps ----
+  cg = m.replace(opt=m.opt.replace(solver=int(SolverType.CG)))
+  print(f'stages of the CG step: {" -> ".join(names(cg))}')
+  if names(cg) != front + ['solve', 'euler'] or \
+      forward.uses_glue_kernel(cg, d):
+    raise RuntimeError('the CG humanoid does not run the unfused list')
+  d5, _, steps = _run_path('step_cg', cg, d, CG_STEPS, CG_WARMUP, card)
+  solves = solver.counts['solve'] + solver.counts['passes']
+  if solver.counts['solve'] != steps or not solver.counts['passes']:
+    raise RuntimeError(f'CG: solver counts {solver.counts}')
+  # the humanoid disables eulerdamp: B5 only factors qM, once a step
+  _expect_counts('CG', dict(zero, smooth=steps, contact=steps,
+                            spd_solve=steps, cho_solve=solves))
+  launches_b6 = solves
+
+  # ---- (l) B4 and B6: times, plain times, bounds, library ----
+  records = []
+  W, nv = NWORLD, m.nv
+  pre = d
+  stages = forward.forward_stages(m, d)
+  for _, fn in stages[:-1]:
+    pre = fn(pre)
+  n_in = (pre.qM, pre.efc_J, pre.efc_D, pre.efc_aref, pre.efc_frictionloss,
+          pre.qfrc_smooth, pre.qacc_warmstart)
+  n_out = kn.newton_solve(m, *n_in)
+  acting = int(((n_in[2] != 0) | (n_in[4] != 0)).sum())
+  bytes_b4 = (_nbytes(n_in, n_out) - _nbytes(n_in[1:2], n_in[3:4]) +
+              acting * (nv + 1) * 4)
+  print(f'  newton: {acting / W:.2f} acting rows per world, solver_niter '
+        f'mean {float(n_out["solver_niter"].float().mean()):.2f}')
+  _record(records, 'newton', launches_b4, errs['newton'],
+          'mujoco_warp_tpu_torch/csrc/newton.cu',
+          'mujoco_warp_tpu/pallas/solver_kernels.py:534',
+          lambda: kn.newton_solve(m, *n_in),
+          lambda: solver.newton_solve(m, *n_in), bytes_b4,
+          _flops_newton(nv, pre.nefc.double(),
+                        n_out['solver_niter'].double()))
+  # B6 needs only L's lower triangle, b and x
+  _, L = kb.spd_solve(pre.qM, pre.qfrc_smooth, return_factor=True)
+  grad = (torch.einsum('wij,wj->wi', pre.qM, pre.qacc_warmstart) -
+          pre.qfrc_smooth)
+  _record(records, 'cho_solve', launches_b6, errs['cho_solve'],
+          'mujoco_warp_tpu_torch/csrc/batch_linalg.cu',
+          'mujoco_warp_tpu/pallas/batch_linalg.py:177',
+          lambda: kb.cho_solve(L, grad),
+          lambda: batch_linalg.cho_solve_batched(L, grad),
+          W * 4 * (nv * (nv + 1) // 2 + 2 * nv), W * 2 * nv * nv,
+          library=lambda: torch.cholesky_solve(grad[..., None], L))
+  return records
+
+
 def _three_humanoids(card) -> list:
   """Phases (f)-(h) on three_humanoids; returns the kernel records."""
   import torch
@@ -331,7 +733,9 @@ def _three_humanoids(card) -> list:
   from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
   from mujoco_warp_tpu_torch.kernels import contact as kc
   from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import newton as kn
   from mujoco_warp_tpu_torch.kernels import smooth as ks
+  from mujoco_warp_tpu_torch.types import SolverType
   from mujoco_warp_tpu_torch.utils import benchmark as bench
 
   m = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
@@ -391,6 +795,21 @@ def _three_humanoids(card) -> list:
     errs['tree_ldl'] = max(errs['tree_ldl'], _check_solve(
         f'B7 {label}', a, b, x, xr, x64))
 
+  # ---- (j) B8 on B7's packed LD of qM, another right-hand side ----
+  grad = torch.einsum('wij,wj->wi', qM, pre.qacc_warmstart) - qfs
+  x7, ld = kb.tree_ldl(qM, grad, parent, return_factor=True)
+  x8 = kb.tree_solve(ld, grad, parent)
+  ld64 = ld.double()
+  unit_l = torch.tril(ld64, -1) + torch.eye(m.nv, dtype=torch.float64,
+                                            device=ld.device)
+  a64 = unit_l.transpose(1, 2) @ (torch.diagonal(
+      ld64, dim1=1, dim2=2)[..., None] * unit_l)
+  errs['tree_solve'] = _check_factor_solve(
+      'B8', a64, grad, x8,
+      batch_linalg.tree_solve_from_factor_batched(ld, grad, parent),
+      batch_linalg.tree_solve_from_factor_batched(ld64, grad.double(),
+                                                  parent), x7)
+
   # B5 on the Hessian of the solve's first Newton direction
   J, D, fl = pre.efc_J, pre.efc_D, pre.efc_frictionloss
   qacc = pre.qacc_warmstart
@@ -409,12 +828,12 @@ def _three_humanoids(card) -> list:
   errs['spd_solve'] = _check_solve('B5', H, grad, x, xr, x64)
 
   # ---- (g) the main path, counted and timed ----
-  for mod in (ks, kc, kg):
-    mod.launches = 0
-  kb.launches.update(tree_ldl=0, spd_solve=0)
-  solver.counts.update(solve=0, passes=0)
+  _reset_counts()
   d, res = bench.benchmark(m, d, nstep=NSTEP3, warmup=WARMUP3)
   steps = WARMUP3 + NSTEP3
+  if kb.launches['tree_solve'] or kb.launches['cho_solve'] or kn.launches:
+    raise RuntimeError(f'the Newton step launched {kb.launches}, newton '
+                       f'{kn.launches}')
   counts = {'smooth[three_humanoids]': ks.launches,
             'contact[three_humanoids]': kc.launches,
             'tree_ldl': kb.launches['tree_ldl'],
@@ -517,6 +936,34 @@ def _three_humanoids(card) -> list:
   _print_profile('profile_three_humanoids',
                  lambda: bench.benchmark(m, d, nstep=PROFILE3), PROFILE3,
                  res['step_time_us'] / 1e3, card)
+
+  # ---- (k) P6: CG steps ----
+  cg = m.replace(opt=m.opt.replace(solver=int(SolverType.CG)))
+  cg_names = [n for n, _ in forward.batched_stages(cg, d)]
+  print(f'stages of the CG step: {" -> ".join(cg_names)}')
+  if cg_names != names:
+    raise RuntimeError('three_humanoids with CG does not run the unfused '
+                       'list')
+  d6, _, steps = _run_path('step_cg_three_humanoids', cg, d, CG3_STEPS,
+                           CG3_WARMUP, card)
+  solves = solver.counts['solve'] + solver.counts['passes']
+  if solver.counts['solve'] != steps or not solver.counts['passes']:
+    raise RuntimeError(f'CG: solver counts {solver.counts}')
+  _expect_counts('CG three_humanoids', dict(
+      dict.fromkeys(kb.launches, 0), smooth=steps, contact=steps, glue=0,
+      newton=0, tree_ldl=2 * steps, tree_solve=solves))
+  _compare_step('CG step', cg, d6, TOL_STEP_QACC_CG, tol_obj=TOL_OBJ_CG)
+
+  # ---- (l) B8: time, plain time and bound ----
+  _, ld = kb.tree_ldl(qM, qfs, parent, return_factor=True)
+  grad = torch.einsum('wij,wj->wi', qM, d.qacc_warmstart) - qfs
+  _record(records, 'tree_solve', solves, errs['tree_solve'],
+          'mujoco_warp_tpu_torch/csrc/batch_linalg.cu',
+          'mujoco_warp_tpu/pallas/batch_linalg.py:369',
+          lambda: kb.tree_solve(ld, grad, parent),
+          lambda: batch_linalg.tree_solve_from_factor_batched(ld, grad,
+                                                              parent),
+          W * 4 * (nnz + 2 * nv), W * (4 * (nnz - nv) + nv))
   return records
 
 
@@ -526,11 +973,13 @@ def main() -> int:
     print('chip_smoke: no CUDA device', file=sys.stderr)
     return 1
   import mujoco_warp_tpu_torch as mt
-  from mujoco_warp_tpu_torch import (forward, models, smooth, solver,
-                                     support)
+  from mujoco_warp_tpu_torch import (batch_linalg, forward, models, smooth,
+                                     solver, support)
   from mujoco_warp_tpu_torch.kernels import _build
+  from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
   from mujoco_warp_tpu_torch.kernels import contact as kc
   from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import newton as kn
   from mujoco_warp_tpu_torch.kernels import smooth as ks
   from mujoco_warp_tpu_torch.utils import benchmark as bench
 
@@ -622,12 +1071,36 @@ def main() -> int:
     raise RuntimeError(f'B3: solver_niter differs by more than '
                        f'{NITER_SLACK} in too many worlds')
 
+  # ---- (i) B4 and B6 on the same state ----
+  n_in = g_in[:5] + (g_ref['qfrc_smooth'], g_in[9])
+  errs['newton'] = 0.0
+  # hb: the diagonal eulerdamp would add, had the humanoid not disabled it
+  for label, hb in (('B4', None), ('B4 hb', m.opt.timestep * m.dof_damping)):
+    n_out = kn.newton_solve(m, *n_in, hb=hb)
+    n_ref = solver.newton_solve(m, *n_in, hb=hb)
+    errs['newton'] = max(errs['newton'], _check_newton(
+        label, m, n_out, n_ref, n_in, hb))
+  if float((n_out['qacc_euler'] - n_out['qacc']).abs().max()) == 0:
+    raise RuntimeError('B4: hb left qacc_euler at qacc')
+  # B6 on B5's factor of qM, a CG-like right-hand side (the gradient at
+  # the warm start without its constraint part)
+  qM = g_in[0]
+  grad = torch.einsum('wij,wj->wi', qM, g_in[9]) - n_in[5]
+  x5, L = kb.spd_solve(qM, grad, return_factor=True)
+  x6 = kb.cho_solve(L, grad)
+  L64 = L.double()
+  errs['cho_solve'] = _check_factor_solve(
+      'B6', L64 @ L64.transpose(1, 2), grad, x6,
+      batch_linalg.cho_solve_batched(L, grad),
+      batch_linalg.cho_solve_batched(L64, grad.double()), x5)
+
   # ---- (d) the main path, counted and timed ----
-  for mod in (ks, kc, kg):
-    mod.launches = 0
+  _reset_counts()
   d, res = bench.benchmark(m, d, nstep=NSTEP, warmup=WARMUP)
   counts = {'smooth': ks.launches, 'contact': kc.launches,
             'glue': kg.launches}
+  if kn.launches:
+    raise RuntimeError('the glue step launched the Newton kernel')
   print(f'launches in the main path: {counts} for {WARMUP + NSTEP} steps')
   for name, n in counts.items():
     if n != WARMUP + NSTEP:
@@ -663,12 +1136,8 @@ def main() -> int:
   flops_b1 = _flops_b1(m, W)
   flops_b2 = _flops_b2(m, W, c_out, NCONMAX)
   _, _, nl, stride, nj = mt.efc_layout(m, NCONMAX)
-  nact = c_out['nefc'].double()
-  it = g_out['solver_niter'].double()
-  per_iter = (4 * nact * nv + 4 * nv * nv + 16 * 8 * nact + 12 * nact +
-              nact * nv * (nv + 1) + nv ** 3 / 3 + 2 * nv * nv + 20 * nv)
-  flops_b3 = float((nv ** 3 / 3 + 2 * nv * nv + 20 * m.nu + 10 * nv +
-                    4 * nact * nv + it * per_iter).sum())
+  flops_b3 = _flops_newton(nv, c_out['nefc'].double(),
+                           g_out['solver_niter'].double(), m.nu)
   tables = lambda key, make: _build.model_tables(m, key, make)
   record('smooth', 'mujoco_warp_tpu_torch/csrc/smooth.cu',
          'mujoco_warp_tpu/pallas/smooth_kernels.py:557',
@@ -699,6 +1168,7 @@ def main() -> int:
                                                     nstep=PROFILE_STEPS),
                  PROFILE_STEPS, res['step_time_us'] / 1e3, card)
 
+  records += _humanoid_paths(card, m, d, errs)
   records += _three_humanoids(card)
   print(json.dumps({'kernels': records}))
   print(f'card: {card}')

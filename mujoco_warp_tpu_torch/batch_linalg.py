@@ -1,5 +1,6 @@
 """Batched linear solves of the unfused step, plain PyTorch versions of
-kernels B7 and B5 (`kernels/batch_linalg.py`, `csrc/batch_linalg.cu`).
+kernels B7, B8, B5 and B6 (`kernels/batch_linalg.py`,
+`csrc/batch_linalg.cu`).
 
 * `tree_ldl_solve_batched`: qM (+ a diagonal) = Lᵀ D L over the dof tree
   and the solve, following `ldl_factor_rows` / `ldl_solve_rows`
@@ -9,7 +10,12 @@ kernels B7 and B5 (`kernels/batch_linalg.py`, `csrc/batch_linalg.cu`).
 * `spd_solve_batched`: dense Cholesky of an SPD matrix and the solve,
   following `_cholesky_solve_body` (`pallas/batch_linalg.py:62-99`).
 
-Both take (W, n, n) and (W, n) float32 tensors and floor their pivots at
+* `tree_solve_from_factor_batched`: the solve alone from the packed
+  factor LD the first returns (`ldl_solve_rows`, :276-291).
+* `cho_solve_batched`: the solve alone from the lower factor L the second
+  returns, following `_solve_from_factor_body` (:153-173).
+
+All take (W, n, n) and (W, n) float32 tensors and floor their pivots at
 MINVAL where the TPU kernels do.
 """
 
@@ -69,6 +75,17 @@ def tree_ldl_solve_batched(a, b, dof_parentid, diag=None,
       c = rowk[:, i] * inv_dk
       ld[:, i] = ld[:, i] - c[:, None] * rowk
       ld[:, k, i] = c
+  x = _tree_sweeps(ld, b, anc)
+  if not return_factor:
+    return x
+  mask = packed_mask(dof_parentid, a.device)
+  return x, torch.where(mask, ld, torch.zeros_like(ld))
+
+
+def _tree_sweeps(ld, b, anc):
+  """x of (Lᵀ D L) x = b from the packed entries of ld, in the order of
+  `ldl_solve_rows`: Lᵀ z = b, y = z / max(D, MINVAL), L x = y."""
+  nv = len(anc)
   xs = list(b.unbind(1))
   for k in range(nv - 1, -1, -1):           # Lᵀ z = b
     for i in anc[k]:
@@ -78,11 +95,14 @@ def tree_ldl_solve_batched(a, b, dof_parentid, diag=None,
   for k in range(nv):                       # L x = y
     for i in anc[k]:
       xs[k] = xs[k] - ld[:, k, i] * xs[i]
-  x = torch.stack(xs, 1)
-  if not return_factor:
-    return x
-  mask = packed_mask(dof_parentid, a.device)
-  return x, torch.where(mask, ld, torch.zeros_like(ld))
+  return torch.stack(xs, 1)
+
+
+def tree_solve_from_factor_batched(ld, b, dof_parentid):
+  """Solve from the packed factor ld (W, nv, nv) that
+  `tree_ldl_solve_batched(..., return_factor=True)` returns; only its
+  packed entries are read. b (W, nv) -> x (W, nv)."""
+  return _tree_sweeps(ld, b, dof_ancestors(dof_parentid))
 
 
 def spd_solve_batched(a, b, return_factor: bool = False):
@@ -100,11 +120,23 @@ def spd_solve_batched(a, b, return_factor: bool = False):
     col = L[:, j + 1:, j]
     L[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
   L = torch.tril(L)
+  x = cho_solve_batched(L, b)
+  return (x, L) if return_factor else x
+
+
+def cho_solve_batched(l, b):
+  """Solve l[w] l[w]ᵀ x[w] = b[w] from the lower factor l (W, n, n) that
+  `spd_solve_batched(..., return_factor=True)` returns; its lower
+  triangle is read. Both sweeps run by columns: y[j] loses l[j, k] y[k]
+  for k = 0 .. j - 1 in that order, as the TPU kernel's row-oriented
+  forward sweep subtracts them, and the backward sweep is its saxpy with
+  row k of l."""
+  n = l.shape[-1]
   y = b.clone()
-  for k in range(n):                        # L y = b, by columns
-    y[:, k] = y[:, k] / L[:, k, k]
-    y[:, k + 1:] -= L[:, k + 1:, k] * y[:, k:k + 1]
-  for k in range(n - 1, -1, -1):            # Lᵀ x = y, by columns
-    y[:, k] = y[:, k] / L[:, k, k]
-    y[:, :k] -= L[:, k, :k] * y[:, k:k + 1]
-  return (y, L) if return_factor else y
+  for k in range(n):                        # L y = b
+    y[:, k] = y[:, k] / l[:, k, k]
+    y[:, k + 1:] -= l[:, k + 1:, k] * y[:, k:k + 1]
+  for k in range(n - 1, -1, -1):            # Lᵀ x = y
+    y[:, k] = y[:, k] / l[:, k, k]
+    y[:, :k] -= l[:, k, :k] * y[:, k:k + 1]
+  return y

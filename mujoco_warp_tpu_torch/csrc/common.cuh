@@ -7,8 +7,8 @@
 // launch(const Params*, cudaStream_t) returns a cudaError_t,
 // params_size() the size of its Params struct, and error_string(int) the
 // message of an error code. A source with several kernels prefixes each
-// kernel's launch and params_size with its name. B1-B3 run one thread per
-// world; B5 and B7 (batch_linalg.cu) one block per world.
+// kernel's launch and params_size with its name. B1-B4 run one thread per
+// world; B5-B8 (batch_linalg.cu) one block per world.
 #pragma once
 
 #include <cuda_runtime.h>

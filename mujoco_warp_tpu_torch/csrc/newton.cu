@@ -1,0 +1,63 @@
+// Kernel B4: the Newton solve of forward_batched for one world per
+// thread — the Cholesky factor of qM and qacc_smooth, the whole Newton
+// solve for the pyramidal cone from a given qfrc_smooth, the forces and,
+// with euler_damp, the re-solve (qM + diag(hb)) qacc_euler = qfrc_smooth
+// + qfrc_constraint. It is kernel B3 (glue.cu) without the assembly of
+// qfrc_smooth before the solve and without the advance after it; both
+// run newton_solve() of newton.cuh.
+//
+// Replaces: mujoco_warp_tpu/pallas/solver_kernels.py,
+// newton_solve_batched (:534; body _newton_kernel :72, the solve
+// _newton_core :103). Plain version: mujoco_warp_tpu_torch/solver.py,
+// newton_solve() (which is newton()).
+//
+// What bounds it on the H100: as B3, the solve's dependent arithmetic in
+// one serial chain per thread, not the bytes (qM and the acting rows of
+// efc_J once per world). What this first cut does about it: what B3
+// does (newton.cuh).
+
+#include "newton.cuh"
+
+struct Params {
+  const float* qM;
+  const float* efc_J;
+  const float* efc_D;
+  const float* efc_aref;
+  const float* efc_frictionloss;
+  const float* qfrc_smooth;
+  const float* qacc_warmstart;
+  const float* hb;           // (nv) integration diagonal; read if euler_damp
+  const float* ls_scales;    // (ls_k) linesearch bracket scales
+  float* qacc;
+  float* qfrc_constraint;
+  float* efc_force;
+  int* solver_niter;
+  float* qacc_smooth;
+  float* qLD;
+  float* qacc_euler;
+  float tolerance;
+  float meaninertia;
+  int nworld;
+  int nv;
+  int nj;
+  int ne;
+  int nf;
+  int iterations;
+  int ls_k;
+  int ls_polish;
+  int use_ws;
+  int euler_damp;
+};
+
+__global__ void newton_kernel(const Params p) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nworld) return;
+  float qfs[MAXNV], qacce[MAXNV];
+  for (int i = 0; i < p.nv; ++i)
+    qfs[i] = p.qfrc_smooth[(size_t)w * p.nv + i];
+  Solve s = world_solve(p, w);
+  if (p.euler_damp) s.hdiag = p.hb;
+  newton_solve(s, qfs, qacce);
+}
+
+PORT_C_INTERFACE(Params, newton_kernel, 32)

@@ -1,10 +1,11 @@
-"""Step orchestration: the glue-folded and the unfused batched step.
+"""Step orchestration: `forward_batched` and the glue-folded and the
+unfused batched step.
 
 `step_batched` picks a stage list as the JAX package's `_step_batched`
 (`mujoco_warp_tpu/forward.py:867`) does and runs it under the same stage
 names, with the Pallas kernels replaced by the CUDA kernels of
-`kernels/`. For 0 < nv <= 32 it runs the glue-folded list (`_glue_stages`
-:577):
+`kernels/`. With the Newton solver, the Euler integrator and 0 < nv <= 32
+it runs the glue-folded list (`_glue_stages` :577):
 
   smooth_mega[cuda]       kernel B1: kinematics .. rne
   camlight                camera and light frames (tensor ops)
@@ -12,17 +13,26 @@ names, with the Pallas kernels replaced by the CUDA kernels of
   act_len_vel             actuator lengths and velocities (tensor ops)
   solve_glue[cuda]        kernel B3: actuation, passive, Newton, advance
 
-Otherwise the unfused list, the `use_mega` branch of `batched_stages`
-(:698-758) and `_euler_batched` (:787-800):
+Otherwise `forward_batched`'s list (`forward_stages`: the `use_mega`
+branch of `batched_stages` :698-758, which never folds the back half)
+and then the integrator, `_euler_batched` (:787-800) or `_rk4_batched`
+(:815-839):
 
   smooth_mega[cuda], camlight, contact_efc_mega[cuda]   as above
   transmission            actuator lengths
   velocity_glue           actuator velocities
   passive                 joint springs and dampers
   fwd_actuation           actuator forces
-  fwd_acceleration        qfrc_smooth; kernel B7 for qacc_smooth and qLD
-  solve                   Newton solve; kernel B5 per Newton direction
-  euler                   kernel B7 with diag h·damping (eulerdamp), advance
+  fwd_acceleration        qfrc_smooth; qacc_smooth and qLD by kernel B7
+                          (nv > 32) or B5 (nv <= 32), unless B4 follows
+  solve[cuda]             Newton and 0 < nv <= 32: kernel B4 (qacc_smooth
+                          and qLD too), or
+  solve                   Newton: kernel B5 per direction; CG: kernel B8
+                          (nv > 32) or B6 (nv <= 32) on qLD per direction
+  euler                   eulerdamp: kernel B7 or B5 with diag h·damping;
+                          advance, or
+  rk4                     three more `forward_batched` and the Runge-Kutta
+                          combination
 
 One deliberate difference: the JAX package runs the smooth and contact
 stages of models past nv 64 (three_humanoids) as XLA, for the TPU
@@ -32,8 +42,10 @@ such limit, so the port runs them for every model; their results equal
 the XLA stages'.
 
 camlight is skipped for models without cameras and lights, as in the
-JAX lists. qLD holds B3's dense Cholesky factor on the glue list and
-B7's packed tree factor LD on the unfused list. This module also holds the plain version of B3 (`glue`):
+JAX lists. qLD holds a lower Cholesky factor of qM up to nv 32 (from B3,
+B4 or B5) and B7's packed tree factor LD above
+(`kernels.batch_linalg.uses_tree_factor`). This module also holds the
+plain version of B3 (`glue`):
 actuation (:83), passive forces, qfrc_smooth, the Newton solve and the
 Euler advance (`_advance` :331, `_integrate_pos` :274), in the glue
 kernel's formulation.
@@ -48,9 +60,10 @@ from . import passive as passive_mod
 from . import smooth as smooth_mod
 from . import solver
 from . import support
-from .io import efc_layout
-from .types import (CONTACT_TENSORS, BiasType, Contact, Data, DisableBit,
-                    GainType, JointType, Model)
+from .io import check_options, efc_layout
+from .types import (CONTACT_TENSORS, BiasType, ConeType, Contact, Data,
+                    DisableBit, GainType, IntegratorType, JointType, Model,
+                    SolverType)
 
 _BIG = 1e30
 
@@ -232,10 +245,34 @@ def glue_stages(m: Model, d: Data) -> list:
                                  ('solve_glue[cuda]', solve_stage)]
 
 
-def unfused_stages(m: Model, d: Data) -> list:
-  """[(name, fn)] of the unfused step, fn: Data -> Data."""
+def uses_newton_kernel(m: Model, d: Data) -> bool:
+  """True when the solve stage is kernel B4, which also computes
+  qacc_smooth and the qM factor, as the JAX package's gate
+  (`solver.uses_fused_kernel` :678-682): the Newton solver, the pyramidal
+  cone, 0 < nv <= 32, efc rows and iterations to run."""
+  return (m.opt.solver == SolverType.NEWTON and
+          m.opt.cone == ConeType.PYRAMIDAL and 0 < m.nv <= 32 and
+          d.efc_J.shape[1] > 0 and m.opt.iterations > 0 and
+          not m.opt.disableflags & DisableBit.CONSTRAINT)
+
+
+def uses_glue_kernel(m: Model, d: Data) -> bool:
+  """True when the step folds its back half into kernel B3, as the JAX
+  package's gate (`forward._glue_gates` :473): the solve would be the
+  Newton kernel's (`uses_newton_kernel`) and the integrator is one the
+  fold advances with (`solver_kernels.glue_supported` :723-725; of
+  those the port has Euler)."""
+  return (uses_newton_kernel(m, d) and
+          m.opt.integrator == IntegratorType.EULER)
+
+
+def forward_stages(m: Model, d: Data) -> list:
+  """[(name, fn)] of `forward_batched`, fn: Data -> Data: everything up
+  to qacc, the back half never folded."""
   from .kernels import batch_linalg as linalg_k
-  h = m.opt.timestep
+  from .kernels import newton as newton_k
+  check_options(m.opt)
+  fused = uses_newton_kernel(m, d)
 
   def transmission(dd):
     qadr, _ = actuator_addrs(m)
@@ -261,49 +298,105 @@ def unfused_stages(m: Model, d: Data) -> list:
                    dd.qfrc_actuator + support.xfrc_accumulate(
                        m, dd.xfrc_applied, dd.xipos, dd.subtree_com,
                        dd.cdof))
-    qacc_smooth, qld = linalg_k.tree_ldl(dd.qM, qfrc_smooth,
-                                         m.dof_parentid, return_factor=True)
+    if fused:    # B4 computes qacc_smooth and the factor
+      return dd.replace(qfrc_smooth=qfrc_smooth)
+    qacc_smooth, qld = linalg_k.m_solve_factor(dd.qM, qfrc_smooth,
+                                               m.dof_parentid)
     return dd.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth,
                       qLD=qld)
+
+  def solve_newton_kernel(dd):
+    # no hb: a Newton + Euler model that reaches B4 steps through the
+    # glue list, so nothing would read the damped re-solve
+    return dd.replace(**newton_k.newton_solve(
+        m, dd.qM, dd.efc_J, dd.efc_D, dd.efc_aref, dd.efc_frictionloss,
+        dd.qfrc_smooth, dd.qacc_warmstart))
 
   def solve(dd):
     return dd.replace(**solver.solve(
         m, dd.qM, dd.efc_J, dd.efc_D, dd.efc_aref, dd.efc_frictionloss,
-        dd.efc_type, dd.qfrc_smooth, dd.qacc_smooth, dd.qacc_warmstart))
-
-  def euler(dd):
-    qacc = dd.qacc
-    if m.has_damping and not m.opt.disableflags & DisableBit.EULERDAMP:
-      qacc = linalg_k.tree_ldl(dd.qM, dd.qfrc_smooth + dd.qfrc_constraint,
-                               m.dof_parentid, diag=h * m.dof_damping)
-    qvel = dd.qvel + qacc * h
-    return dd.replace(qvel=qvel, qpos=integrate_pos(m, dd.qpos, qvel, h),
-                      time=dd.time + h, qacc_warmstart=dd.qacc)
+        dd.efc_type, dd.qfrc_smooth, dd.qacc_smooth, dd.qacc_warmstart,
+        qLD=dd.qLD))
 
   return _common_stages(m, d) + [
       ('transmission', transmission), ('velocity_glue', velocity_glue),
       ('passive', passive), ('fwd_actuation', actuation),
-      ('fwd_acceleration', acceleration), ('solve', solve),
-      ('euler', euler)]
+      ('fwd_acceleration', acceleration),
+      ('solve[cuda]', solve_newton_kernel) if fused else ('solve', solve)]
 
 
-def uses_glue_kernel(m: Model, d: Data) -> bool:
-  """True when the step folds its back half into kernel B3, as the JAX
-  package's gate does for the models the port supports
-  (`solver.uses_fused_kernel` :678-682): 0 < nv <= 32, efc rows and
-  iterations to run."""
-  return 0 < m.nv <= 32 and d.efc_J.shape[1] > 0 and m.opt.iterations > 0
+def _run(stages: list, d: Data) -> Data:
+  for _, fn in stages:
+    d = fn(d)
+  return d
+
+
+def forward_batched(m: Model, d: Data) -> Data:
+  """Forward dynamics of every world in d (nworld leading): positions
+  through qacc, no integration (`forward_batched` :779)."""
+  return _run(forward_stages(m, d), d)
+
+
+def _euler(m: Model, d: Data) -> Data:
+  """Semi-implicit Euler with implicit joint damping
+  (`_euler_batched` :787)."""
+  from .kernels import batch_linalg as linalg_k
+  h = m.opt.timestep
+  qacc = d.qacc
+  if m.has_damping and not m.opt.disableflags & DisableBit.EULERDAMP:
+    qacc, _ = linalg_k.m_solve_factor(
+        d.qM, d.qfrc_smooth + d.qfrc_constraint, m.dof_parentid,
+        diag=h * m.dof_damping)
+  qvel = d.qvel + qacc * h
+  return d.replace(qvel=qvel, qpos=integrate_pos(m, d.qpos, qvel, h),
+                   time=d.time + h, qacc_warmstart=d.qacc)
+
+
+def _rk4(m: Model, d: Data, forward: list) -> Data:
+  """Runge-Kutta 4 from d = forward_batched of the step's state: three
+  more evaluations through the same stage list `forward`, each from the
+  same qacc_warmstart, then the combination (`_rk4_batched` :815).
+  solver_niter is the last evaluation's."""
+  h = m.opt.timestep
+  a = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
+  b = (1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6)
+  qpos0, qvel0, time0 = d.qpos, d.qvel, d.time
+  fs = [(d.qvel, d.qacc)]
+  d_i = d
+  for i in range(3):
+    dqvel = sum(a[i][j] * fs[j][1] for j in range(i + 1) if a[i][j])
+    dqpos_vel = sum(a[i][j] * fs[j][0] for j in range(i + 1) if a[i][j])
+    d_i = _run(forward, d_i.replace(
+        qpos=integrate_pos(m, qpos0, dqpos_vel, h), qvel=qvel0 + h * dqvel,
+        time=time0))
+    fs.append((d_i.qvel, d_i.qacc))
+  vel_b = sum(b[i] * fs[i][0] for i in range(4))
+  acc_b = sum(b[i] * fs[i][1] for i in range(4))
+  return d_i.replace(qpos=integrate_pos(m, qpos0, vel_b, h),
+                     qvel=qvel0 + h * acc_b, time=time0 + h, qacc=acc_b,
+                     qacc_warmstart=d.qacc)
+
+
+def unfused_stages(m: Model, d: Data) -> list:
+  """[(name, fn)] of the unfused step: `forward_batched`'s list and the
+  integrator."""
+  forward = forward_stages(m, d)
+  if m.opt.integrator == IntegratorType.RK4:
+    last = ('rk4', lambda dd: _rk4(m, dd, forward))
+  else:
+    last = ('euler', lambda dd: _euler(m, dd))
+  return forward + [last]
 
 
 def batched_stages(m: Model, d: Data) -> list:
-  """[(name, fn)] of the stage list step_batched runs for (m, d)."""
+  """[(name, fn)] of the stage list step_batched runs for (m, d). The
+  model's options are checked once, here or in `forward_stages`."""
   if uses_glue_kernel(m, d):
+    check_options(m.opt)
     return glue_stages(m, d)
   return unfused_stages(m, d)
 
 
 def step_batched(m: Model, d: Data) -> Data:
   """One physics step of every world in d (nworld leading)."""
-  for _, fn in batched_stages(m, d):
-    d = fn(d)
-  return d
+  return _run(batched_stages(m, d), d)

@@ -39,11 +39,29 @@ def _tup(x) -> tuple:
   return tuple(_tup(r) for r in a)
 
 
+def _need(ok, what):
+  if not ok:
+    raise NotImplementedError(f'{what} is not ported yet')
+
+
+def check_options(opt):
+  """Raise NotImplementedError for options outside the port's gate: opt
+  is a compiled model's `opt` or a Model's Option (so options changed on
+  a loaded Model, `m.replace(opt=m.opt.replace(...))`, are held to the
+  same gate when the model is stepped)."""
+  _need(opt.cone == ConeType.PYRAMIDAL, 'the elliptic cone')
+  _need(opt.integrator in (IntegratorType.EULER, IntegratorType.RK4),
+        f'integrator {int(opt.integrator)}')
+  _need(opt.solver in (SolverType.NEWTON, SolverType.CG),
+        f'solver {int(opt.solver)}')
+  _need(opt.enableflags == 0, 'enable flags')
+  for bit in (DisableBit.CONSTRAINT, DisableBit.CONTACT):
+    _need(not opt.disableflags & bit, f'disable flag {bit.name}')
+
+
 def _validate(mjm):
   """Raise NotImplementedError for anything outside the port's gate."""
-  def need(ok, what):
-    if not ok:
-      raise NotImplementedError(f'{what} is not ported yet')
+  need = _need
   need(mjm.nsensor == 0, 'sensors')
   need(mjm.ntendon == 0, 'tendons')
   need(mjm.neq == 0, 'equality constraints')
@@ -54,13 +72,7 @@ def _validate(mjm):
   need(mjm.nplugin == 0, 'plugins')
   need(mjm.opt.density == 0 and mjm.opt.viscosity == 0 and
        not np.any(mjm.opt.wind != 0), 'fluid forces')
-  need(mjm.opt.cone == ConeType.PYRAMIDAL, 'the elliptic cone')
-  need(mjm.opt.integrator == IntegratorType.EULER,
-       f'integrator {mjm.opt.integrator}')
-  need(mjm.opt.solver == SolverType.NEWTON, f'solver {mjm.opt.solver}')
-  need(mjm.opt.enableflags == 0, 'enable flags')
-  for bit in (DisableBit.CONSTRAINT, DisableBit.CONTACT):
-    need(not mjm.opt.disableflags & bit, f'disable flag {bit.name}')
+  check_options(mjm.opt)
   for j in range(mjm.njnt):
     jt = int(mjm.jnt_type[j])
     scalar = jt in (JointType.SLIDE, JointType.HINGE)

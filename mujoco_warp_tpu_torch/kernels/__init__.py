@@ -3,10 +3,15 @@
   smooth   B1  csrc/smooth.cu   (pallas/smooth_kernels.smooth_mega_batched)
   contact  B2  csrc/contact.cu  (pallas/contact_kernels.contact_efc)
   glue     B3  csrc/glue.cu     (pallas/solver_kernels.make_glue_kernel)
-  batch_linalg.tree_ldl   B7  csrc/batch_linalg.cu
-                              (pallas/batch_linalg.tree_ldl_solve_batched)
-  batch_linalg.spd_solve  B5  csrc/batch_linalg.cu
-                              (pallas/batch_linalg.spd_solve_batched)
+  newton   B4  csrc/newton.cu   (pallas/solver_kernels.newton_solve_batched)
+  batch_linalg.spd_solve   B5  csrc/batch_linalg.cu
+                               (pallas/batch_linalg.spd_solve_batched)
+  batch_linalg.cho_solve   B6  (pallas/batch_linalg.cho_solve_batched)
+  batch_linalg.tree_ldl    B7  (pallas/batch_linalg.tree_ldl_solve_batched)
+  batch_linalg.tree_solve  B8
+                      (pallas/batch_linalg.tree_solve_from_factor_batched)
+
+B3 and B4 share the solve's device code, csrc/newton.cuh.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, counting launches in its module's

@@ -24,7 +24,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
-SOURCES = ('smooth', 'contact', 'glue', 'batch_linalg')
+SOURCES = ('smooth', 'contact', 'glue', 'newton', 'batch_linalg')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

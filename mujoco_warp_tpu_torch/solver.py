@@ -1,19 +1,23 @@
-"""Newton constraint solvers for the pyramidal cone, batched over worlds.
+"""Constraint solvers for the pyramidal cone, batched over worlds.
 
-`newton` is the plain PyTorch version of the solve inside kernel B3. It
-follows the algorithm of the TPU kernel `_newton_core`
-(`mujoco_warp_tpu/pallas/solver_kernels.py:103`): init (:446-466), the
-loop (:468-504), and its linesearch (:398-444) — a fixed bracket of LS_K
-log-spaced alphas, a secant, and 4 safeguarded Newton/bisection polish
-steps.
+`newton` is the plain PyTorch version of the solve inside kernels B3 and
+B4; `newton_solve` is B4's plain version, `newton` under the signature of
+the TPU kernel `newton_solve_batched`
+(`mujoco_warp_tpu/pallas/solver_kernels.py:534`). It follows the
+algorithm of `_newton_core` (:103): init (:446-466), the loop (:468-504),
+and its linesearch (:398-444) — a fixed bracket of LS_K log-spaced
+alphas, a secant, and 4 safeguarded Newton/bisection polish steps.
 
-`solve` is the solve of the unfused step, which the JAX package runs as
-XLA (`mujoco_warp_tpu/solver.py`: `solve` :732 on its unfused branch,
-`_solve_xla` :761, `_iteration` :551, the Newton `_update_gradient`
+`solve` is the solve of the unfused step, Newton or CG, which the JAX
+package runs as XLA (`mujoco_warp_tpu/solver.py`: `solve` :732 on its
+unfused branch, `_solve_xla` :761, `_iteration` :551, `_update_gradient`
 :350 and the `ls_parallel` `_linesearch` :481-525). Each Newton
-direction solves H = qM + Jᵀ diag(D·quad) J with kernel B5.
+direction solves H = qM + Jᵀ diag(D·quad) J with kernel B5; each CG
+direction preconditions the gradient with the factor of qM in qLD,
+through kernel B6 (a lower Cholesky factor, nv <= 32) or B8 (the packed
+tree LD), and combines it with the last direction by Polak-Ribière.
 
-In both, a world that has converged is frozen while the others iterate,
+In all, a world that has converged is frozen while the others iterate,
 so each world's answer is the one a per-world loop gives.
 """
 
@@ -22,8 +26,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .io import efc_layout
 from .kernels import batch_linalg as kb
-from .types import ConstraintType, DisableBit, Model
+from .types import ConstraintType, DisableBit, Model, SolverType
 
 MINVAL = 1e-15
 LS_K = 10
@@ -212,8 +217,23 @@ def newton(m: Model, qM, J, D, aref, fl, qfrc_smooth, warmstart, ne: int,
               qacc_euler=qacc_euler)
 
 
-# calls of `solve` and the Newton passes of their loops since the counts
-# were last reset; B5 launches once per call and once per pass
+def newton_solve(m: Model, qM, J, D, aref, fl, qfrc_smooth, warmstart,
+                 hb=None) -> dict:
+  """Plain version of kernel B4: the Newton solve of `forward_batched`
+  from qfrc_smooth, rows laid out as `efc_layout` says. hb (nv,), if
+  given, is the integration diagonal h * damping of the re-solve for
+  qacc_euler (`euler_damp` of the TPU kernel). Returns qacc,
+  qfrc_constraint, efc_force, solver_niter, qacc_smooth, qLD (the lower
+  Cholesky factor of qM) and qacc_euler."""
+  ne, nf, _, _, _ = efc_layout(m, 0)
+  return newton(m, qM, J, D, aref, fl, qfrc_smooth, warmstart, ne, nf,
+                use_warmstart=not m.opt.disableflags & DisableBit.WARMSTART,
+                hdiag=hb)
+
+
+# calls of `solve` and the passes of their loops (Newton or CG) since the
+# counts were last reset. Newton: B5 launches once per call and once per
+# pass; CG: B6 or B8 does
 counts = {'solve': 0, 'passes': 0}
 
 
@@ -282,11 +302,13 @@ def _linesearch_parallel(jaref, search, ma, qfrc_smooth, mv, jv, D, fl, rf,
 
 
 def solve(m: Model, qM, J, D, aref, fl, efc_type, qfrc_smooth, qacc_smooth,
-          qacc_warmstart) -> dict:
-  """Newton solve of the unfused step for J (W, nj, nv), its rows typed
-  by efc_type. Loops until every world is done, so the loop's passes
-  (added to counts['passes']) are the slowest world's solver_niter;
-  returns qacc, qfrc_constraint, efc_force and solver_niter (W,)."""
+          qacc_warmstart, qLD=None) -> dict:
+  """Newton or CG solve (m.opt.solver) of the unfused step for J (W, nj,
+  nv), its rows typed by efc_type. CG reads qLD, the factor of qM that
+  `kernels.batch_linalg.m_solve_factor` returned. Loops until every world
+  is done, so the loop's passes (added to counts['passes']) are the
+  slowest world's solver_niter; returns qacc, qfrc_constraint, efc_force
+  and solver_niter (W,)."""
   W, nj, nv = J.shape
   counts['solve'] += 1
   if (nj == 0 or nv == 0 or m.opt.iterations == 0 or
@@ -298,6 +320,9 @@ def solve(m: Model, qM, J, D, aref, fl, efc_type, qfrc_smooth, qacc_smooth,
   if not m.opt.ls_parallel:
     raise NotImplementedError('the iterative linesearch (ls_parallel=False)'
                               ' is not ported yet')
+  cg = m.opt.solver == SolverType.CG
+  if cg and qLD is None:
+    raise ValueError('the CG solver needs qLD, the factor of qM')
   tol = m.opt.tolerance
   rescale = lambda v: v / (torch.clamp(m.stat.meaninertia, min=MINVAL) *
                            max(1, nv))
@@ -314,6 +339,8 @@ def solve(m: Model, qM, J, D, aref, fl, efc_type, qfrc_smooth, qacc_smooth,
 
   def gradient(ma, qfrc_constraint, quad):
     grad = ma - qfrc_smooth - qfrc_constraint
+    if cg:
+      return grad, kb.m_cho_solve(qLD, grad, m.dof_parentid)
     jd = J * (D * quad.to(D.dtype))[..., None]
     H = qM + torch.bmm(jd.transpose(1, 2), J)
     return grad, kb.spd_solve(H, grad)
@@ -329,6 +356,7 @@ def solve(m: Model, qM, J, D, aref, fl, efc_type, qfrc_smooth, qacc_smooth,
   cost = cost_c + gauss(qacc, ma)
   grad, mgrad = gradient(ma, qfrc_constraint, quad)
   search = -mgrad
+  prev_grad, prev_mgrad = grad, mgrad         # read by CG alone
   niter = torch.zeros(W, dtype=torch.int32, device=J.device)
   done = rescale(torch.sqrt(torch.sum(grad * grad, -1))) < tol
   while not bool(done.all()):
@@ -341,6 +369,13 @@ def solve(m: Model, qM, J, D, aref, fl, efc_type, qfrc_smooth, qacc_smooth,
     n_force, n_qfc, cost_c, quad = constraint(n_jaref)
     n_cost = cost_c + gauss(n_qacc, n_ma)
     n_grad, mgrad = gradient(n_ma, n_qfc, quad)
+    n_search = -mgrad
+    if cg:                                    # Polak-Ribière
+      beta_den = torch.clamp(torch.sum(prev_grad * prev_mgrad, -1),
+                             min=MINVAL)
+      beta = torch.clamp(torch.sum(n_grad * (mgrad - prev_mgrad), -1) /
+                         beta_den, min=0.0)
+      n_search = n_search + beta[:, None] * search
     improvement = rescale(cost - n_cost)
     gradnorm = rescale(torch.sqrt(torch.sum(n_grad * n_grad, -1)))
     n_niter = niter + 1
@@ -353,7 +388,10 @@ def solve(m: Model, qM, J, D, aref, fl, efc_type, qfrc_smooth, qacc_smooth,
     jaref = torch.where(keep, jaref, n_jaref)
     force = torch.where(keep, force, n_force)
     qfrc_constraint = torch.where(keep, qfrc_constraint, n_qfc)
-    search = torch.where(keep, search, -mgrad)
+    search = torch.where(keep, search, n_search)
+    if cg:
+      prev_grad = torch.where(keep, prev_grad, n_grad)
+      prev_mgrad = torch.where(keep, prev_mgrad, mgrad)
     cost = torch.where(done, cost, n_cost)
     niter = torch.where(done, niter, n_niter)
     done = n_done

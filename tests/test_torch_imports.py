@@ -17,7 +17,10 @@ MUJOCO_OK = {os.path.join(PKG, 'models', 'regenerate.py')}
 LAUNCHERS = {'launch', '_launch', 'smooth', 'contact', 'glue',
              'step_batched', 'glue_stages', 'benchmark', 'tree_ldl',
              'spd_solve', '_launch_tree_ldl', '_launch_spd_solve',
-             'unfused_stages', 'batched_stages', 'solve'}
+             'unfused_stages', 'batched_stages', 'solve', 'newton_solve',
+             'cho_solve', 'tree_solve', '_launch_cho_solve',
+             '_launch_tree_solve', 'm_solve_factor', 'm_cho_solve',
+             'forward_stages', 'forward_batched'}
 
 
 def _imports(tree):
@@ -64,5 +67,8 @@ def test_the_scan_sees_the_package():
   names = {_name(p) for p in FILES}
   for must in ('chip_smoke.py', 'mujoco_warp_tpu_torch/io.py',
                'mujoco_warp_tpu_torch/kernels/glue.py',
-               'mujoco_warp_tpu_torch/kernels/batch_linalg.py'):
+               'mujoco_warp_tpu_torch/kernels/batch_linalg.py',
+               'mujoco_warp_tpu_torch/kernels/newton.py',
+               'mujoco_warp_tpu_torch/solver.py',
+               'mujoco_warp_tpu_torch/forward.py'):
     assert must in names

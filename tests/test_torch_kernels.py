@@ -1,5 +1,5 @@
-"""The port's kernel wrappers (B1 smooth, B2 contact, B3 glue, B7 tree_ldl
-and B5 spd_solve).
+"""The port's kernel wrappers (B1 smooth, B2 contact, B3 glue, B4 newton,
+B5 spd_solve, B6 cho_solve, B7 tree_ldl and B8 tree_solve).
 
 On the CPU a wrapper runs its plain version and launches nothing. On the
 card each kernel is held against its plain version (tests marked `cuda`,
@@ -19,7 +19,9 @@ from mujoco_warp_tpu_torch import (batch_linalg, forward, models, smooth,
 from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
 from mujoco_warp_tpu_torch.kernels import contact as kc
 from mujoco_warp_tpu_torch.kernels import glue as kg
+from mujoco_warp_tpu_torch.kernels import newton as kn
 from mujoco_warp_tpu_torch.kernels import smooth as ks
+from mujoco_warp_tpu_torch.types import IntegratorType, SolverType
 from mujoco_warp_tpu_torch.utils import benchmark
 
 NCONMAX = 24
@@ -200,7 +202,7 @@ def test_three_humanoids_kernels_match_plain(cuda):
     _close(con[name], ref[name], name, 2e-3 if name == 'efc_aref' else 2e-5)
   qM, b = sm['qM'], d.qfrc_applied - sm['qfrc_bias']
   diag = m.opt.timestep * m.dof_damping
-  kb.launches.update(tree_ldl=0, spd_solve=0)
+  kb.launches.update(dict.fromkeys(kb.launches, 0))
   for dg in (None, diag):
     x, ld = kb.tree_ldl(qM, b, m.dof_parentid, diag=dg, return_factor=True)
     xr, ldr = batch_linalg.tree_ldl_solve_batched(
@@ -215,7 +217,8 @@ def test_three_humanoids_kernels_match_plain(cuda):
   x = kb.spd_solve(H, b)
   xr = batch_linalg.spd_solve_batched(H, b)
   torch.cuda.synchronize()
-  assert kb.launches == {'tree_ldl': 2, 'spd_solve': 1}
+  assert kb.launches == {'tree_ldl': 2, 'spd_solve': 1, 'cho_solve': 0,
+                         'tree_solve': 0}
   assert float(_residual(H, x, b).max()) <= 1e-5
   x64 = batch_linalg.spd_solve_batched(H.double(), b.double())
   scale = float(x64.abs().max())
@@ -229,12 +232,209 @@ def test_three_humanoids_step_launches(cuda):
   m, d = _state(cuda, 256, 5, models.THREE_HUMANOIDS_NPZ, 100)
   for mod in (ks, kc, kg):
     mod.launches = 0
-  kb.launches.update(tree_ldl=0, spd_solve=0)
+  kb.launches.update(dict.fromkeys(kb.launches, 0))
   solver.counts.update(solve=0, passes=0)
   d = mt.step_batched(m, d)
   torch.cuda.synchronize()
   assert (ks.launches, kc.launches, kg.launches) == (1, 1, 0)
   assert kb.launches == {'tree_ldl': 2,
-                         'spd_solve': 1 + solver.counts['passes']}
+                         'spd_solve': 1 + solver.counts['passes'],
+                         'cho_solve': 0, 'tree_solve': 0}
   assert solver.counts['passes'] == int(d.solver_niter.max())
+  assert bool(torch.isfinite(d.qpos).all())
+
+
+# ---- B4 newton, B6 cho_solve, B8 tree_solve and the paths they serve ----
+
+
+def _reset():
+  for mod in (ks, kc, kg, kn):
+    mod.launches = 0
+  kb.launches.update(dict.fromkeys(kb.launches, 0))
+  solver.counts.update(solve=0, passes=0)
+
+
+def _with(m, **opt):
+  return m.replace(opt=m.opt.replace(**opt))
+
+
+def _newton_inputs(m, d):
+  """B4's inputs at the state d: the stages of forward_batched before the
+  solve."""
+  stages = forward.forward_stages(m, d)
+  assert stages[-1][0] == 'solve[cuda]'
+  for _, fn in stages[:-1]:
+    d = fn(d)
+  return (m, d.qM, d.efc_J, d.efc_D, d.efc_aref, d.efc_frictionloss,
+          d.qfrc_smooth, d.qacc_warmstart)
+
+
+def _factor_inputs(kernel, device):
+  """(launch path, wrapper, plain version, arguments) of B6 or B8 on a
+  factor its producer's plain version wrote."""
+  m, d = _state(device, 3, 5)
+  sm = smooth.smooth(m, d.qpos, d.qvel)
+  b = d.qfrc_applied - sm['qfrc_bias']
+  if kernel == 'cho_solve':
+    _, fac = batch_linalg.spd_solve_batched(sm['qM'], b, return_factor=True)
+    return (kb._launch_cho_solve, kb.cho_solve,
+            batch_linalg.cho_solve_batched, (fac, b))
+  _, fac = batch_linalg.tree_ldl_solve_batched(sm['qM'], b, m.dof_parentid,
+                                               return_factor=True)
+  return (kb._launch_tree_solve, kb.tree_solve,
+          batch_linalg.tree_solve_from_factor_batched,
+          (fac, b, tuple(m.dof_parentid)))
+
+
+@pytest.mark.parametrize('kernel', ['newton', 'cho_solve', 'tree_solve'])
+def test_new_wrappers_run_plain_on_cpu_and_refuse_to_launch(kernel):
+  """A CPU tensor runs the plain version and counts no launch; the launch
+  path itself raises on it."""
+  _reset()
+  if kernel == 'newton':
+    m, d = _state('cpu', 3, 10)
+    args = _newton_inputs(m, d)
+    launch, wrapper, plain = kn._launch, kn.newton_solve, solver.newton_solve
+  else:
+    launch, wrapper, plain, args = _factor_inputs(kernel, 'cpu')
+  out, ref = wrapper(*args), plain(*args)
+  if kernel == 'newton':
+    for name in kn.OUTPUTS:
+      torch.testing.assert_close(out[name], ref[name], rtol=0, atol=0)
+  else:
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+  with pytest.raises(ValueError, match='expected a tensor on'):
+    launch(*args)
+  assert kn.launches == 0 and kb.launches == dict.fromkeys(kb.launches, 0)
+
+
+def test_cpu_paths_dispatch_and_count_nothing():
+  """forward_batched, an RK4 step and CG steps on the CPU: the stage lists
+  of the card, every wrapper on its plain version."""
+  m, d = _state('cpu', 2, 5)
+  _reset()
+  out = mt.forward_batched(m, d)
+  rk4 = mt.step_batched(_with(m, integrator=int(IntegratorType.RK4)), d)
+  assert solver.counts == {'solve': 0, 'passes': 0}
+  cg = mt.step_batched(_with(m, solver=int(SolverType.CG)), d)
+  assert solver.counts['solve'] == 1
+  assert solver.counts['passes'] == int(cg.solver_niter.max()) > 0
+  for dd in (out, rk4, cg):
+    assert bool(torch.isfinite(dd.qacc).all())
+  # no integration; B1 only normalizes qpos's quaternions again
+  torch.testing.assert_close(out.qpos, d.qpos, rtol=0, atol=1e-6)
+  torch.testing.assert_close(out.qvel, d.qvel, rtol=0, atol=0)
+  assert (ks.launches, kc.launches, kg.launches, kn.launches) == (0,) * 4
+  assert kb.launches == dict.fromkeys(kb.launches, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('euler_damp', [False, True])
+def test_newton_kernel_matches_plain(cuda, euler_damp):
+  m, d = _state(cuda, 256, 60)
+  args = _newton_inputs(m, d)
+  # the diagonal eulerdamp would add, had the humanoid not disabled it
+  hb = m.opt.timestep * m.dof_damping if euler_damp else None
+  _reset()
+  out = kn.newton_solve(*args, hb=hb)
+  torch.cuda.synchronize()
+  assert kn.launches == 1 and kg.launches == 0
+  ref = solver.newton_solve(*args, hb=hb)
+  for name in ('qacc', 'qacc_smooth', 'qLD'):
+    _close(out[name], ref[name], name, 5e-5)
+  for name in ('qfrc_constraint', 'efc_force'):
+    _close(out[name], ref[name], name, 5e-4)
+  # with hb, qacc_euler is a linear image of qfrc_constraint through the
+  # ill-conditioned (qM + diag(hb))^-1: held at its tolerance, and by the
+  # residual of that system with the kernel's own qfrc_constraint
+  _close(out['qacc_euler'], ref['qacc_euler'], 'qacc_euler',
+         5e-4 if euler_damp else 5e-5)
+  if euler_damp:
+    a = args[1] + torch.diag(hb)
+    rhs = args[6] + out['qfrc_constraint']
+    assert float(_residual(a, out['qacc_euler'], rhs).max()) <= 1e-5
+  dn = (out['solver_niter'] - ref['solver_niter']).abs()
+  assert int(dn.max()) <= 4, dn.bincount().tolist()
+  if euler_damp:
+    assert float((out['qacc_euler'] - out['qacc']).abs().max()) > 0
+  else:
+    assert torch.equal(out['qacc_euler'], out['qacc'])
+  f64 = [x.double() for x in args[1:6]]
+  qfs = args[6].double()
+  qsm = solver.cho_solve(solver.cholesky(f64[0]), qfs)
+  obj = lambda qa: solver.objective(*f64, qfs, qsm, qa.double(), 0, 0)
+  unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * m.nv
+  assert float((obj(out['qacc']) - obj(ref['qacc'])).abs().max()) <= unit
+
+
+@pytest.mark.cuda
+def test_newton_kernel_equals_the_glue_kernels_solve(cuda):
+  """B3 and B4 run the same device code on the same qfrc_smooth."""
+  m, d = _state(cuda, 256, 60)
+  _, _, _, g_in = _stages(m, d)
+  glue = kg.glue(*g_in)
+  out = kn.newton_solve(m, *g_in[1:6], glue['qfrc_smooth'], g_in[10])
+  for name in kn.OUTPUTS:
+    assert torch.equal(out[name], glue[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kernel', ['cho_solve', 'tree_solve'])
+def test_factor_solve_kernels_match_plain(cuda, kernel):
+  npz, nconmax = ((models.HUMANOID_NPZ, NCONMAX) if kernel == 'cho_solve'
+                  else (models.THREE_HUMANOIDS_NPZ, 100))
+  m, d = _state(cuda, 256, 10, npz, nconmax)
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  qM, b = sm['qM'], d.qfrc_applied - sm['qfrc_bias']
+  _reset()
+  if kernel == 'cho_solve':
+    x0, fac = kb.spd_solve(qM, b, return_factor=True)
+    x, xr = kb.cho_solve(fac, b), batch_linalg.cho_solve_batched(fac, b)
+  else:
+    x0, fac = kb.tree_ldl(qM, b, m.dof_parentid, return_factor=True)
+    x = kb.tree_solve(fac, b, m.dof_parentid)
+    xr = batch_linalg.tree_solve_from_factor_batched(fac, b, m.dof_parentid)
+  torch.cuda.synchronize()
+  assert kb.launches[kernel] == 1
+  _close(x, xr, kernel, 2e-5)
+  assert torch.equal(x, x0)       # the producer's own sweeps
+  assert float(_residual(qM, x, b).max()) <= 1e-5
+  assert torch.equal(kb.m_cho_solve(fac, b, m.dof_parentid), x)
+
+
+@pytest.mark.cuda
+def test_forward_and_rk4_launch_the_newton_kernel(cuda):
+  m, d = _state(cuda, 256, 20)
+  _reset()
+  out = mt.forward_batched(m, d)
+  torch.cuda.synchronize()
+  assert (ks.launches, kc.launches, kn.launches, kg.launches) == (1, 1, 1, 0)
+  assert torch.equal(out.qvel, d.qvel)
+  _close(out.qpos, d.qpos, 'qpos', 1e-6)
+  _reset()
+  out = mt.step_batched(_with(m, integrator=int(IntegratorType.RK4)), d)
+  torch.cuda.synchronize()
+  assert (ks.launches, kc.launches, kn.launches, kg.launches) == (4, 4, 4, 0)
+  assert bool(torch.isfinite(out.qpos).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', ['humanoid', 'three_humanoids'])
+def test_cg_step_launches(cuda, model):
+  npz, nconmax = ((models.HUMANOID_NPZ, NCONMAX) if model == 'humanoid'
+                  else (models.THREE_HUMANOIDS_NPZ, 100))
+  m, d = _state(cuda, 256, 5, npz, nconmax)
+  m = _with(m, solver=int(SolverType.CG))
+  _reset()
+  d = mt.step_batched(m, d)
+  torch.cuda.synchronize()
+  assert (ks.launches, kc.launches, kg.launches, kn.launches) == (1, 1, 0, 0)
+  solves = 1 + solver.counts['passes']
+  assert solver.counts['passes'] == int(d.solver_niter.max()) > 0
+  if model == 'humanoid':     # eulerdamp is disabled: B5 once
+    assert kb.launches == {'tree_ldl': 0, 'spd_solve': 1,
+                           'cho_solve': solves, 'tree_solve': 0}
+  else:
+    assert kb.launches == {'tree_ldl': 2, 'spd_solve': 0, 'cho_solve': 0,
+                           'tree_solve': solves}
   assert bool(torch.isfinite(d.qpos).all())

@@ -127,7 +127,10 @@ _OUTSIDE = {
       <site site="a"/><site site="b"/></spatial></tendon></mujoco>""",
     'elliptic': """<mujoco><option cone="elliptic"/><worldbody><body>
       <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
-    'rk4': """<mujoco><option integrator="RK4"/><worldbody><body>
+    'implicitfast': """<mujoco><option integrator="implicitfast"/>
+      <worldbody><body><freejoint/><geom size=".1"/></body></worldbody>
+      </mujoco>""",
+    'pgs': """<mujoco><option solver="PGS"/><worldbody><body>
       <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
     'box_pair': """<mujoco><worldbody><geom type="plane" size="1 1 1"/>
       <body><freejoint/><geom type="box" size=".1 .1 .1"/></body>
@@ -142,8 +145,24 @@ _OUTSIDE = {
 }
 
 
-@pytest.mark.parametrize('case', sorted(_OUTSIDE))
+# options the gate has opened since: the same test holds that they pass
+_INSIDE = {
+    'rk4': ("""<mujoco><option integrator="RK4"/><worldbody><body>
+      <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
+            'integrator', 1),
+    'cg': ("""<mujoco><option solver="CG"/><worldbody><body>
+      <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
+           'solver', 1),
+}
+
+
+@pytest.mark.parametrize('case', sorted(_OUTSIDE) + sorted(_INSIDE))
 def test_put_model_rejects_models_outside_the_gate(case):
+  if case in _INSIDE:
+    xml, option, value = _INSIDE[case]
+    m = mt.put_model(mujoco.MjModel.from_xml_string(xml), device='cpu')
+    assert getattr(m.opt, option) == value
+    return
   mjm = mujoco.MjModel.from_xml_string(_OUTSIDE[case])
   with pytest.raises(NotImplementedError):
     mt.put_model(mjm, device='cpu')

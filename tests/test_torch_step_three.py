@@ -40,7 +40,7 @@ def stepped():
       jnp.asarray(q), jnp.asarray(v), jnp.asarray(c))
   step = jax.jit(jax.vmap(lambda dd: mjwt.step(jm, dd)))
   d = mt.data_from_numpy(m, dict(qpos=q, qvel=v, ctrl=c), nconmax=NCONMAX)
-  kb.launches.update(tree_ldl=0, spd_solve=0)
+  kb.launches.update(dict.fromkeys(kb.launches, 0))
   solver.counts.update(solve=0, passes=0)
   for _ in range(NSTEP):
     br = step(br)
@@ -86,7 +86,7 @@ def test_three_humanoids_stages_and_counts(stepped):
   assert not forward.uses_glue_kernel(m, d)
   # the CPU runs the plain versions and launches nothing; the solve
   # counted one call per step and its passes are the slowest worlds'
-  assert kb.launches == {'tree_ldl': 0, 'spd_solve': 0}
+  assert kb.launches == dict.fromkeys(kb.launches, 0)
   assert solver.counts['solve'] == NSTEP
   assert solver.counts['passes'] >= int(d.solver_niter.max())
   hm = build('humanoid')[2]
