@@ -9,7 +9,7 @@ import torch
 
 from .forward import forward_batched, step_batched
 from .io import (data_from_numpy, efc_layout, load_model, make_data,
-                 model_from_numpy, put_model, save_model)
+                 model_from_numpy, override_model, put_model, save_model)
 from .parallel import make_batch
 from .types import Contact, Data, Model, Option, Statistic
 

@@ -1,13 +1,13 @@
-"""Constraint (efc) rows: dof friction, joint limits and pyramidal
-contacts at fixed row addresses (io.efc_layout).
+"""Constraint (efc) rows: dof friction, joint limits and contacts
+(pyramidal or elliptic cone) at fixed row addresses (io.efc_layout).
 
 Mirrors `mujoco_warp_tpu/constraint.py` (`_kbi` :32, `_row` :63, the
-friction and limit rows of `make_constraint` :102, the pyramidal branch
-of `_contact_rows_all` :388) with one difference: the Jacobian of a row
-that does not exist this step (an inactive limit, an empty contact slot,
-the unused rows of a frictionless contact) is zero, as in the CUDA
-kernel. Such rows also have D = aref = frictionloss = 0, so the solver
-sees the same problem either way.
+friction and limit rows of `make_constraint` :102, `_contact_rows_all`
+:388 with its elliptic branch :479-517) with one difference: the
+Jacobian of a row that does not exist this step (an inactive limit or
+contact, an empty contact slot, the unused rows of a contact of lower
+dim) is zero, as in the CUDA kernel. Such rows also have D = aref =
+frictionloss = 0, so the solver sees the same problem either way.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from . import math
 from .io import efc_layout
-from .types import ConstraintType, DisableBit, JointType, Model
+from .types import ConeType, ConstraintType, DisableBit, JointType, Model
 
 MINVAL = 1e-15
 _MINIMP = 0.0001
@@ -139,7 +139,7 @@ def make_constraint(m: Model, qpos, qvel, cdof, subtree_com,
 
 def _contact_rows(m: Model, qvel, cdof, subtree_com, con: dict,
                   stride: int) -> dict:
-  """Pyramidal contact rows, `stride` per pool slot."""
+  """Contact rows of the model's cone, `stride` per pool slot."""
   W, C = con['dist'].shape
   dev = qvel.device
   geom_bodyid = torch.tensor(m.geom_bodyid, device=dev)
@@ -175,6 +175,9 @@ def _contact_rows(m: Model, qvel, cdof, subtree_com, con: dict,
 
   invw = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
   friction = con['friction']
+  if m.opt.cone == ConeType.ELLIPTIC:
+    return _elliptic_rows(m, qvel, con, stride, pos, active_con, jn, jdirs,
+                          invw)
   fri0 = friction[..., 0]
   impratio = torch.clamp(m.opt.impratio, min=MINVAL)
   invw_pyr = (invw + fri0 * fri0 * invw) * 2.0 * fri0 * fri0 / impratio
@@ -202,3 +205,46 @@ def _contact_rows(m: Model, qvel, cdof, subtree_com, con: dict,
       W, C))
   return {k: v.reshape((W, C * stride) + v.shape[3:])
           for k, v in rows.items()}
+
+
+def _elliptic_rows(m: Model, qvel, con: dict, S: int, pos, active_con, jn,
+                   jdirs, invw) -> dict:
+  """Elliptic contact rows (constraint.py:479-517): row 0 the normal with
+  the standard impedance; row r >= 1 along the frame's tangent, then its
+  rotations (torsion, rolling), with D_r = D_0 impratio (mu_r / mu_1)^2
+  and aref_r = -b_f vel_r, where b_f comes from solreffriction when that
+  is set and is the normal row's b otherwise."""
+  W, C = con['dist'].shape
+  dev = qvel.device
+  dim = con['dim']
+  friction = con['friction']
+  k, b, imp = kbi(m, con['solref'], con['solimp'], pos)       # (W, C)
+  d0 = 1.0 / torch.clamp(invw * (1.0 - imp) / imp, min=MINVAL)
+  r = torch.arange(S, device=dev)
+  fr_row = friction[..., torch.clamp(r - 1, 0, 4)]            # (W, C, S)
+  d_fr = d0[..., None] * m.opt.impratio * (
+      fr_row / torch.clamp(friction[..., :1], min=MINVAL)) ** 2
+  srf = con['solreffriction']
+  use_srf = torch.any(torch.abs(srf) > 1e-12, -1)
+  b_f = torch.where(use_srf, 2.0 / torch.clamp(
+      torch.clamp(con['solimp'][..., 1], _MINIMP, _MAXIMP) * srf[..., 0],
+      min=MINVAL), b)
+  J = torch.cat([jn[:, :, None], jdirs], 2)[:, :, :S]         # (W, C, S, nv)
+  vel = torch.sum(J * qvel[:, None, None, :], -1)
+  is_normal = r == 0
+  exists = active_con[..., None] & (r < torch.clamp(dim, min=1)[..., None])
+  act = exists.to(qvel.dtype)
+  D = torch.where(is_normal, d0[..., None], d_fr) * act
+  aref = torch.where(is_normal,
+                     (-k * imp * pos)[..., None] - b[..., None] * vel,
+                     -b_f[..., None] * vel) * act
+  ctype = torch.where(dim == 1, int(ConstraintType.CONTACT_FRICTIONLESS),
+                      int(ConstraintType.CONTACT_ELLIPTIC)).to(torch.int32)
+  rep = lambda x: x[:, :, None].expand(W, C, S)
+  rows = dict(
+      J=J * act[..., None], pos=rep(pos + con['includemargin']),
+      margin=rep(con['includemargin']), D=D, vel=vel, aref=aref,
+      frictionloss=torch.zeros_like(D), type=rep(ctype),
+      id=rep(torch.arange(C, dtype=torch.int32, device=dev).expand(W, C)),
+      active=exists)
+  return {k: v.reshape((W, C * S) + v.shape[3:]) for k, v in rows.items()}

@@ -7,8 +7,9 @@
 // launch(const Params*, cudaStream_t) returns a cudaError_t,
 // params_size() the size of its Params struct, and error_string(int) the
 // message of an error code. A source with several kernels prefixes each
-// kernel's launch and params_size with its name. B1-B4 run one thread per
-// world; B5-B8 (batch_linalg.cu) one block per world.
+// kernel's launch and params_size with its name (PORT_C_ENTRY). B1-B4,
+// B3e and B4-elliptic run one thread per world; B5-B8 (batch_linalg.cu)
+// one block per world.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +34,17 @@
   extern "C" int params_size() { return (int)sizeof(Params); }           \
   PORT_C_ERROR_STRING                                                    \
   extern "C" int launch(const Params* p, void* stream) {                 \
+    if (p->nworld <= 0) return (int)cudaSuccess;                         \
+    int grid = (p->nworld + (block) - 1) / (block);                      \
+    PORT_LAUNCH(kernel, grid, (block), 0, stream, *p);                   \
+    return (int)cudaGetLastError();                                      \
+  }
+
+// a further one-thread-per-world kernel of a source: <prefix>launch and
+// <prefix>params_size; nworld names the world count in its Params
+#define PORT_C_ENTRY(prefix, Params, kernel, block, nworld)              \
+  extern "C" int prefix##params_size() { return (int)sizeof(Params); }   \
+  extern "C" int prefix##launch(const Params* p, void* stream) {         \
     if (p->nworld <= 0) return (int)cudaSuccess;                         \
     int grid = (p->nworld + (block) - 1) / (block);                      \
     PORT_LAUNCH(kernel, grid, (block), 0, stream, *p);                   \

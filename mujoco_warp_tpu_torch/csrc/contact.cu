@@ -1,7 +1,13 @@
 // Kernel B2: collision and constraint rows for one world per thread —
 // narrowphase over the static candidate pairs (plane, sphere and capsule
 // primitives), order-keeping compaction of the contacts into the pool,
-// and the efc rows: dof friction, joint limits and pyramidal contacts.
+// and the efc rows: dof friction, joint limits and contacts of the
+// pyramidal cone (contact_kernel) or of the elliptic cone
+// (contact_ell_kernel); both are contact_world<ELL>(), so the pyramidal
+// instantiation is the code it was before the elliptic rows came in.
+// The JAX package builds elliptic rows with XLA (its contact kernel
+// takes the pyramidal cone alone, contact_kernels.py:57); this kernel
+// builds them as mujoco_warp_tpu/constraint.py:479-517 does.
 //
 // Replaces: mujoco_warp_tpu/pallas/contact_kernels.py, contact_efc
 // (:1643; body built by make_contact_kernel :1061). Plain version:
@@ -75,6 +81,7 @@ struct Params {
   int* nl;
   int* nefc;
   float timestep;
+  float impratio;
   int nworld;
   int nq;
   int nv;
@@ -93,7 +100,7 @@ struct Params {
 
 enum { kPlane = 0, kSphere = 2, kCapsule = 3 };
 enum { kFrictionDof = 1, kLimitJoint = 3, kFrictionless = 5,
-       kPyramidal = 6 };
+       kPyramidal = 6, kElliptic = 7 };
 
 // column 2 (the z axis) of a row-major rotation matrix
 DEV void zaxis(const float* m, float* z) {
@@ -258,9 +265,8 @@ DEV void row(const Params& p, size_t r, float pos, float margin, float D,
   p.efc_active[r] = active;
 }
 
-__global__ void contact_kernel(const Params p) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= p.nworld) return;
+template <bool ELL>
+DEV void contact_world(const Params& p, int w) {
   const int nv = p.nv, K = p.nconmax, S = p.stride;
   const float* qpos = p.qpos + (size_t)w * p.nq;
   const float* qvel = p.qvel + (size_t)w * nv;
@@ -334,7 +340,7 @@ __global__ void contact_kernel(const Params p) {
     nl_act += on;
   }
 
-  // ---- pyramidal contact rows, S per pool slot ----
+  // ---- contact rows, S per pool slot ----
   for (int s = 0; s < K; ++s) {
     const int base = nrow_static + S * s;
     const size_t c = (size_t)w * K + s;
@@ -384,16 +390,49 @@ __global__ void contact_kernel(const Params p) {
       }
       const float jdir[5] = {jp[1], jp[2], jr[0], jr[1], jr[2]};
       for (int r = 0; r < S; ++r) {
-        const int kidx = r / 2;
-        const float sign = (r % 2 == 0) ? 1.0f : -1.0f;
-        const bool fl_row = dim == 1 && r == 0;
-        const bool exists = active && (fl_row || (dim > 1 &&
-                                                  r < 2 * (dim - 1)));
-        const float v = fl_row ? jp[0] :
-            jp[0] + sign * pf[kidx] * jdir[kidx];
+        float v;
+        bool exists;
+        if constexpr (ELL) {       // row 0 the normal, then jdir[r - 1]
+          v = r == 0 ? jp[0] : jdir[r - 1];
+          exists = active && r < max(dim, 1);
+        } else {
+          const int kidx = r / 2;
+          const float sign = (r % 2 == 0) ? 1.0f : -1.0f;
+          const bool fl_row = dim == 1 && r == 0;
+          exists = active && (fl_row || (dim > 1 && r < 2 * (dim - 1)));
+          v = fl_row ? jp[0] : jp[0] + sign * pf[kidx] * jdir[kidx];
+        }
         J[(size_t)(base + r) * nv + n] = exists ? v : 0.0f;
         vel[r] += v * qvel[n];
       }
+    }
+    if constexpr (ELL) {
+      // row 0: the standard impedance on invw; row r >= 1: D_0 impratio
+      // (mu_r / mu_1)^2 and aref = -b_f vel_r, b_f from solreffriction
+      // when that is set
+      const float d0 = 1.0f / fmaxf(pf[16] * (1.0f - imp) / imp, kMinVal);
+      const float* srf = pf + 7;
+      const bool use_srf = fabsf(srf[0]) > 1e-12f || fabsf(srf[1]) > 1e-12f;
+      const float b_f = use_srf ?
+          2.0f / fmaxf(fminf(fmaxf(pf[10], 0.0001f), 0.9999f) * srf[0],
+                       kMinVal) : b;
+      for (int r = 0; r < S; ++r) {
+        const bool exists = active && r < max(dim, 1);
+        const float act = exists ? 1.0f : 0.0f;
+        float D, aref;
+        if (r == 0) {
+          D = d0;
+          aref = -k * imp * posv - b * vel[0];
+        } else {
+          const float ratio = pf[min(r - 1, 4)] / fmaxf(pf[0], kMinVal);
+          D = d0 * p.impratio * (ratio * ratio);
+          aref = -b_f * vel[r];
+        }
+        row(p, r0 + base + r, posv + incl, incl, D * act, vel[r], aref * act,
+            0.0f, dim == 1 ? kFrictionless : kElliptic, s, exists);
+        nefc += exists;
+      }
+      continue;
     }
     const float iw = dim == 1 ? pf[16] : pf[17];
     const float dval = 1.0f / fmaxf(iw * (1.0f - imp) / imp, kMinVal);
@@ -413,4 +452,17 @@ __global__ void contact_kernel(const Params p) {
   p.nefc[w] = nefc + nf_act + nl_act;
 }
 
+__global__ void contact_kernel(const Params p) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nworld) return;
+  contact_world<false>(p, w);
+}
+
+__global__ void contact_ell_kernel(const Params p) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nworld) return;
+  contact_world<true>(p, w);
+}
+
 PORT_C_INTERFACE(Params, contact_kernel, 32)
+PORT_C_ENTRY(ell_, Params, contact_ell_kernel, 32, nworld)

@@ -1,15 +1,18 @@
-// Kernel B3: the back half of the step for one world per thread —
-// affine actuation on slide/hinge joints, joint springs and dampers,
-// qfrc_smooth, the Cholesky factor of qM and qacc_smooth, the whole
-// Newton solve for the pyramidal cone, the integration-diagonal
-// re-solve (mode 1: Euler with implicit joint damping) and the
-// semi-implicit Euler advance of qvel and qpos.
+// Kernels B3 and B3e: the back half of the step for one world per
+// thread — affine actuation on slide/hinge joints, joint springs and
+// dampers, qfrc_smooth, the Cholesky factor of qM and qacc_smooth, the
+// whole Newton solve, the integration-diagonal re-solve (mode 1: Euler
+// with implicit joint damping) and the semi-implicit Euler advance of
+// qvel and qpos. B3 (glue_kernel) solves with the pyramidal cone, B3e
+// (glue_ell_kernel) with the elliptic cone of the contacts' friction and
+// dim; both are glue_world<ELL>().
 //
 // Replaces: mujoco_warp_tpu/pallas/solver_kernels.py, make_glue_kernel
-// -> run (:1207; body _glue_kernel / _glue_core :939 / :966, the solve
-// _newton_core :103). Plain version: mujoco_warp_tpu_torch/forward.py,
-// glue() (with solver.newton). The solve is newton_solve() of newton.cuh,
-// which kernel B4 (newton.cu) runs too.
+// -> run (:1207; bodies _glue_kernel / _glue_ell_kernel / _glue_core
+// :939 / :954 / :966, the solve _newton_core :103). Plain version:
+// mujoco_warp_tpu_torch/forward.py, glue() (with solver.newton). The
+// solve is newton_solve<ELL>() of newton.cuh, which kernels B4 and
+// B4-elliptic (newton.cu) run too.
 //
 // What bounds it on the H100: the solve's dependent arithmetic, not the
 // bytes. Per world it reads qM and efc_J (27x27 + 117x27 floats, 15.5 KB)
@@ -23,7 +26,10 @@
 // H and its factor (27x27 floats) in local memory, reads J, D and aref
 // through the cache from the batch-first [W, ...] layout (uncoalesced),
 // and loops until its own world converges (see newton.cuh). A warp per
-// world with shared-memory J tiles is later work.
+// world with shared-memory J tiles is later work. B3e adds per contact
+// a few tens of flops to each constraint update and linesearch point
+// and, in the middle zone, an S x S block to the Hessian, built on the
+// fly from the contact's rows (S <= 6) rather than stored.
 
 #include "newton.cuh"
 
@@ -80,11 +86,21 @@ struct Params {
   int actuation_on;
 };
 
+// B3e's parameters: B3's and the contacts of the elliptic cone
+struct EllParams {
+  Params base;
+  const float* con_friction;  // (nconmax, 5)
+  const int* con_dim;         // (nconmax) 0 in an empty slot
+  float impratio;
+  int efc_base;               // first contact row
+  int stride;                 // rows per contact
+  int nconmax;
+};
+
 enum { kFree = 0, kBall = 1 };
 
-__global__ void glue_kernel(const Params p) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= p.nworld) return;
+template <bool ELL>
+DEV void glue_world(const Params& p, const ConeIn& ci, int w) {
   const int nv = p.nv, nq = p.nq, nu = p.nu;
   const float h = p.timestep;
   const float* qpos = p.qpos_in + (size_t)w * nq;
@@ -132,7 +148,7 @@ __global__ void glue_kernel(const Params p) {
     s.hdiag_stride = 6;
   }
   float qacce[MAXNV];
-  newton_solve(s, qfs, qacce);
+  newton_solve<ELL>(s, ci, qfs, qacce);
 
   // ---- semi-implicit Euler advance (forward.integrate_pos) ----
   float* qvel_out = p.qvel + vw;
@@ -164,4 +180,17 @@ __global__ void glue_kernel(const Params p) {
   }
 }
 
+__global__ void glue_kernel(const Params p) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nworld) return;
+  glue_world<false>(p, ConeIn{}, w);
+}
+
+__global__ void glue_ell_kernel(const EllParams p) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.base.nworld) return;
+  glue_world<true>(p.base, world_cone(p, w), w);
+}
+
 PORT_C_INTERFACE(Params, glue_kernel, 32)
+PORT_C_ENTRY(ell_, EllParams, glue_ell_kernel, 32, base.nworld)

@@ -1,20 +1,23 @@
-// Kernel B4: the Newton solve of forward_batched for one world per
-// thread — the Cholesky factor of qM and qacc_smooth, the whole Newton
-// solve for the pyramidal cone from a given qfrc_smooth, the forces and,
-// with euler_damp, the re-solve (qM + diag(hb)) qacc_euler = qfrc_smooth
-// + qfrc_constraint. It is kernel B3 (glue.cu) without the assembly of
-// qfrc_smooth before the solve and without the advance after it; both
-// run newton_solve() of newton.cuh.
+// Kernels B4 and B4-elliptic: the Newton solve of forward_batched for
+// one world per thread — the Cholesky factor of qM and qacc_smooth, the
+// whole Newton solve from a given qfrc_smooth, the forces and, with
+// euler_damp, the re-solve (qM + diag(hb)) qacc_euler = qfrc_smooth +
+// qfrc_constraint. B4 (newton_kernel) solves with the pyramidal cone,
+// B4-elliptic (newton_ell_kernel) with the elliptic cone of the
+// contacts' friction and dim. They are kernels B3 and B3e (glue.cu)
+// without the assembly of qfrc_smooth before the solve and without the
+// advance after it; all four run newton_solve<ELL>() of newton.cuh.
 //
 // Replaces: mujoco_warp_tpu/pallas/solver_kernels.py,
-// newton_solve_batched (:534; body _newton_kernel :72, the solve
+// newton_solve_batched (:534; bodies _newton_kernel :72 and
+// _newton_ell_kernel :88, the ell branch :593-599, the solve
 // _newton_core :103). Plain version: mujoco_warp_tpu_torch/solver.py,
 // newton_solve() (which is newton()).
 //
 // What bounds it on the H100: as B3, the solve's dependent arithmetic in
 // one serial chain per thread, not the bytes (qM and the acting rows of
 // efc_J once per world). What this first cut does about it: what B3
-// does (newton.cuh).
+// and B3e do (newton.cuh).
 
 #include "newton.cuh"
 
@@ -49,15 +52,38 @@ struct Params {
   int euler_damp;
 };
 
-__global__ void newton_kernel(const Params p) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= p.nworld) return;
+// B4-elliptic's parameters: B4's and the contacts of the elliptic cone
+struct EllParams {
+  Params base;
+  const float* con_friction;  // (nconmax, 5)
+  const int* con_dim;         // (nconmax) 0 in an empty slot
+  float impratio;
+  int efc_base;               // first contact row
+  int stride;                 // rows per contact
+  int nconmax;
+};
+
+template <bool ELL>
+DEV void newton_world(const Params& p, const ConeIn& ci, int w) {
   float qfs[MAXNV], qacce[MAXNV];
   for (int i = 0; i < p.nv; ++i)
     qfs[i] = p.qfrc_smooth[(size_t)w * p.nv + i];
   Solve s = world_solve(p, w);
   if (p.euler_damp) s.hdiag = p.hb;
-  newton_solve(s, qfs, qacce);
+  newton_solve<ELL>(s, ci, qfs, qacce);
+}
+
+__global__ void newton_kernel(const Params p) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nworld) return;
+  newton_world<false>(p, ConeIn{}, w);
+}
+
+__global__ void newton_ell_kernel(const EllParams p) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.base.nworld) return;
+  newton_world<true>(p.base, world_cone(p, w), w);
 }
 
 PORT_C_INTERFACE(Params, newton_kernel, 32)
+PORT_C_ENTRY(ell_, EllParams, newton_ell_kernel, 32, base.nworld)

@@ -1,12 +1,18 @@
-// The Newton solve for the pyramidal cone, one world per thread: the
-// device code kernels B3 (glue.cu) and B4 (newton.cu) share, as the JAX
+// The Newton solve, one world per thread: the device code kernels B3
+// and B3e (glue.cu) and B4 and B4-elliptic (newton.cu) share, as the JAX
 // package shares _newton_core
-// (mujoco_warp_tpu/pallas/solver_kernels.py:103) between _glue_kernel
-// and _newton_kernel. newton_solve() factors qM, solves for qacc_smooth,
-// runs the Newton loop (init :446-466, loop :468-504, linesearch
-// :398-444), writes the forces and, with an integration diagonal,
-// re-solves (qM + diag) qacc_euler = qfrc_smooth + qfrc_constraint.
-// Plain version: mujoco_warp_tpu_torch/solver.py, newton().
+// (mujoco_warp_tpu/pallas/solver_kernels.py:103) between _glue_kernel,
+// _glue_ell_kernel, _newton_kernel and _newton_ell_kernel.
+// newton_solve<ELL>() factors qM, solves for qacc_smooth, runs the Newton
+// loop (init :446-466, loop :468-504, linesearch :398-444), writes the
+// forces and, with an integration diagonal, re-solves (qM + diag)
+// qacc_euler = qfrc_smooth + qfrc_constraint. ELL = false is the
+// pyramidal cone; ELL = true adds the elliptic cone's code (:139-178
+// precompute, :213-245 forces, :283-346 Hessian blocks, :351-390
+// linesearch terms) behind `if constexpr`, so the pyramidal
+// instantiation is the code it was before the cone came in.
+// Plain version: mujoco_warp_tpu_torch/solver.py, newton() (the cone:
+// class Cone).
 //
 // A thread keeps H and its factor (nv x nv floats) and the acting rows'
 // state in local memory and reads J, D and aref through the cache from
@@ -17,10 +23,14 @@
 // result.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 #define MAXNV 32
 #define MAXNJ 256
+#define MAXS 6               // rows of an elliptic contact (condim <= 6)
+#define MAXCONE (MAXNJ / 2)  // elliptic contacts: each has >= 2 rows
 
 // one world's solve: where its inputs and outputs lie, and the settings
 struct Solve {
@@ -87,15 +97,77 @@ DEV Solve world_solve(const P& p, int w) {
   return s;
 }
 
+// one world's contacts for the elliptic cone: the contact rows [base,
+// base + C S) of the efc layout, S per contact
+struct ConeIn {
+  const float* friction;     // (C, 5)
+  const int* dim;            // (C) 0 in an empty slot
+  float impratio;
+  int base;
+  int S;
+  int C;
+};
+
+// world w's ConeIn from an elliptic kernel's Params (B3e's and
+// B4-elliptic's name these fields alike)
+template <class P>
+DEV ConeIn world_cone(const P& p, int w) {
+  ConeIn c;
+  c.friction = p.con_friction + (size_t)w * p.nconmax * 5;
+  c.dim = p.con_dim + (size_t)w * p.nconmax;
+  c.impratio = p.impratio;
+  c.base = p.efc_base;
+  c.S = p.stride;
+  c.C = p.nconmax;
+  return c;
+}
+
 // the efc rows that can act this step, with their solver state
 struct Rows {
   int n;
   int idx[MAXNJ];
-  unsigned char cls[MAXNJ];  // 0 equality, 1 friction, 2 one-sided
+  unsigned char cls[MAXNJ];  // 0 equality, 1 friction, 2 one-sided,
+                             // 3 a row of an elliptic contact
   float D[MAXNJ], fl[MAXNJ], rf[MAXNJ];
   float jaref[MAXNJ], jv[MAXNJ], force[MAXNJ];
   bool quad[MAXNJ];
 };
+
+// The elliptic contacts whose normal row acts: for each, the Rows index
+// of its row r (-1: the row cannot act, and then contributes nothing:
+// its D and its scale vanish together), the scales s (row 0: mu =
+// friction[0] / sqrt(impratio); row r >= 1: friction[min(r - 1, 4)]), mu
+// and Dm = D_0 / (mu^2 (1 + mu^2)).
+struct Cone {
+  int n;
+  int S;
+  short k[MAXCONE][MAXS];
+  float s[MAXCONE][MAXS];
+  float mu[MAXCONE], dm[MAXCONE];
+};
+struct NoCone {};
+template <bool ELL>
+using ConeOf = std::conditional_t<ELL, Cone, NoCone>;
+
+// u = x s over contact j's rows (x indexed by Rows); returns sum_r>=1 u^2
+DEV float cone_u(const Cone& K, int j, const float* x, float* u) {
+  float t2 = 0.0f;
+  for (int r = 0; r < K.S; ++r) {
+    const int k = K.k[j][r];
+    u[r] = k >= 0 ? x[k] * K.s[j][r] : 0.0f;
+    if (r > 0) t2 += u[r] * u[r];
+  }
+  return t2;
+}
+
+enum { kTop = 0, kBottom = 1, kMiddle = 2 };
+
+// the zone of a contact at normal N and tangential norm T (cone_zones)
+DEV int cone_zone(float N, float T, float mu) {
+  if (N >= mu * T) return kTop;
+  if (mu * N + T <= 0.0f) return kBottom;
+  return kMiddle;
+}
 
 // lower Cholesky factor in place (row-major, lower triangle read and
 // written); pivots below kMinVal are floored (solver.cholesky)
@@ -147,8 +219,10 @@ DEV void rows_dot(const Rows& R, const float* J, int nv, const float* x,
   }
 }
 
-// force, quad and the constraint cost of jaref (update_constraint)
-DEV float update_constraint(Rows& R) {
+// force, quad and the constraint cost of jaref (update_constraint); a
+// row of an elliptic contact gets its cone force (ELL)
+template <bool ELL>
+DEV float update_constraint(Rows& R, const ConeOf<ELL>& K) {
   float cost = 0.0f;
   for (int k = 0; k < R.n; ++k) {
     const float x = R.jaref[k], D = R.D[k], fl = R.fl[k], rf = R.rf[k];
@@ -165,6 +239,39 @@ DEV float update_constraint(Rows& R) {
     R.quad[k] = quad;
     cost += cst;
   }
+  if constexpr (ELL) {
+    // per contact: the middle zone's cone-surface force, the bottom
+    // zone's quadratic rows, nothing in the top zone (:213-245)
+    float ccost = 0.0f;
+    for (int j = 0; j < K.n; ++j) {
+      float u[MAXS];
+      const float T = sqrtf(fmaxf(cone_u(K, j, R.jaref, u), 0.0f));
+      const float N = u[0], mu = K.mu[j];
+      const int z = cone_zone(N, T, mu);
+      if (z == kMiddle) {
+        const float nmt = N - mu * T;
+        const float f_norm = -K.dm[j] * nmt * mu;
+        const float t_safe = fmaxf(T, kMinVal);
+        for (int r = 0; r < K.S; ++r) {
+          const int k = K.k[j][r];
+          if (k < 0) continue;
+          R.force[k] = r == 0 ? f_norm
+                              : -(f_norm / t_safe) * (u[r] * K.s[j][r]);
+        }
+        ccost += 0.5f * K.dm[j] * nmt * nmt;
+      } else if (z == kBottom) {
+        for (int r = 0; r < K.S; ++r) {
+          const int k = K.k[j][r];
+          if (k < 0) continue;
+          const float x = R.jaref[k];
+          R.force[k] = -R.D[k] * x;
+          R.quad[k] = true;
+          ccost += 0.5f * R.D[k] * x * x;
+        }
+      }
+    }
+    cost += ccost;
+  }
   return cost;
 }
 
@@ -180,9 +287,14 @@ DEV void gradient(const Rows& R, const float* J, int nv, const float* ma,
   }
 }
 
-// Newton direction H^-1 grad with H = qM + J^T diag(D quad) J
-DEV void newton_dir(const Rows& R, const float* J, const float* qM, int nv,
-                    const float* grad, float* H, float* out) {
+// Newton direction H^-1 grad with H = qM + J^T diag(D quad) J; for the
+// elliptic cone (ELL) also the blocks J_c^T C J_c of the contacts in the
+// middle zone, built on the fly, and the relative Tikhonov floor
+// 1e-7 tr(H) / nv on the diagonal (:283-346)
+template <bool ELL>
+DEV void newton_dir(const Rows& R, const ConeOf<ELL>& K, const float* J,
+                    const float* qM, int nv, const float* grad, float* H,
+                    float* out) {
   for (int i = 0; i < nv; ++i)
     for (int j = 0; j <= i; ++j) H[i * nv + j] = qM[i * nv + j];
   for (int k = 0; k < R.n; ++k) {
@@ -195,12 +307,56 @@ DEV void newton_dir(const Rows& R, const float* J, const float* qM, int nv,
       for (int j = 0; j <= i; ++j) H[i * nv + j] += di * Jr[j];
     }
   }
+  if constexpr (ELL) {
+    for (int c = 0; c < K.n; ++c) {
+      float u[MAXS];
+      const float T = sqrtf(fmaxf(cone_u(K, c, R.jaref, u), 0.0f));
+      const float N = u[0], mu = K.mu[c];
+      if (cone_zone(N, T, mu) != kMiddle) continue;
+      const float t_safe = fmaxf(T, kMinVal);
+      const float t3 = fmaxf(T * t_safe * t_safe, kMinVal);
+      const float mu_over_t = mu / t_safe, mnt3 = mu * N / t3;
+      const float diag_add = mu * mu - mu * N / t_safe;
+      for (int r = 0; r < K.S; ++r) {
+        const int kr = K.k[c][r];
+        if (kr < 0) continue;
+        // w = sum_s C[r][s] J_s, then H += J_r w^T (lower triangle)
+        float w[MAXNV];
+        for (int i = 0; i < nv; ++i) w[i] = 0.0f;
+        for (int q = 0; q < K.S; ++q) {
+          const int kq = K.k[c][q];
+          if (kq < 0) continue;
+          float hc;
+          if (r == 0 && q == 0) hc = 1.0f;
+          else if (r == 0) hc = -mu_over_t * u[q];
+          else if (q == 0) hc = -mu_over_t * u[r];
+          else hc = mnt3 * u[r] * u[q] + (r == q ? diag_add : 0.0f);
+          const float cc = hc * (K.dm[c] * K.s[c][r] * K.s[c][q]);
+          const float* Jq = J + (size_t)R.idx[kq] * nv;
+          for (int i = 0; i < nv; ++i) w[i] += cc * Jq[i];
+        }
+        const float* Jr = J + (size_t)R.idx[kr] * nv;
+        for (int i = 0; i < nv; ++i) {
+          const float ji = Jr[i];
+          if (ji == 0.0f) continue;
+          for (int j = 0; j <= i; ++j) H[i * nv + j] += ji * w[j];
+        }
+      }
+    }
+    float tr = 0.0f;
+    for (int i = 0; i < nv; ++i) tr += H[i * nv + i] * (1.0f / nv);
+    const float eps = 1e-7f * tr;
+    for (int i = 0; i < nv; ++i) H[i * nv + i] += eps;
+  }
   cholesky(H, nv);
   cho_solve(H, nv, grad, out);
 }
 
-// first and second derivative of the cost along the search direction
-DEV float phi_d(const Rows& R, float alpha, float g0, float h0, float* d2) {
+// first and second derivative of the cost along the search direction;
+// the elliptic contacts' terms per contact (ELL, :351-390)
+template <bool ELL>
+DEV float phi_d(const Rows& R, const ConeOf<ELL>& K, float alpha, float g0,
+                float h0, float* d2) {
   float s1 = 0.0f, s2 = 0.0f;
   for (int k = 0; k < R.n; ++k) {
     const float jv = R.jv[k], x = R.jaref[k] + alpha * jv;
@@ -213,20 +369,59 @@ DEV float phi_d(const Rows& R, float alpha, float g0, float h0, float* d2) {
     if (lin_neg) s1 -= R.fl[k] * jv;
     if (lin_pos) s1 += R.fl[k] * jv;
   }
+  if constexpr (ELL) {
+    float c1 = 0.0f, c2 = 0.0f;
+    for (int j = 0; j < K.n; ++j) {
+      float xb[MAXS], jvb[MAXS], ub[MAXS], v[MAXS];
+      float t2 = 0.0f, uv = 0.0f, vfr2 = 0.0f;
+      for (int r = 0; r < K.S; ++r) {
+        const int k = K.k[j][r];
+        jvb[r] = k >= 0 ? R.jv[k] : 0.0f;
+        xb[r] = k >= 0 ? R.jaref[k] + alpha * jvb[r] : 0.0f;
+        ub[r] = xb[r] * K.s[j][r];
+        v[r] = jvb[r] * K.s[j][r];
+        if (r > 0) {
+          t2 += ub[r] * ub[r];
+          uv += ub[r] * v[r];
+          vfr2 += v[r] * v[r];
+        }
+      }
+      const float mu = K.mu[j], N = ub[0];
+      const float T = sqrtf(fmaxf(t2, kMinVal));
+      const int z = cone_zone(N, T, mu);
+      if (z == kMiddle) {
+        const float t1 = uv / T, tt2 = (vfr2 - t1 * t1) / T;
+        const float nmt = N - mu * T, n1mt1 = v[0] - mu * t1;
+        c1 += K.dm[j] * nmt * n1mt1;
+        c2 += K.dm[j] * (n1mt1 * n1mt1 - nmt * mu * tt2);
+      } else if (z == kBottom) {
+        for (int r = 0; r < K.S; ++r) {
+          const int k = K.k[j][r];
+          if (k < 0) continue;
+          c1 += R.D[k] * xb[r] * jvb[r];
+          c2 += R.D[k] * jvb[r] * jvb[r];
+        }
+      }
+    }
+    *d2 = h0 + s2 + c2;
+    return g0 + alpha * h0 + s1 + c1;
+  }
   *d2 = h0 + s2;
   return g0 + alpha * h0 + s1;
 }
 
 // bracket of ls_k log-spaced alphas, secant, then ls_polish safeguarded
 // Newton / bisection steps (_newton_core linesearch :398-444)
-DEV float linesearch(const Solve& p, const Rows& R, float g0, float h0) {
+template <bool ELL>
+DEV float linesearch(const Solve& p, const Rows& R, const ConeOf<ELL>& K,
+                     float g0, float h0) {
   float p2;
-  const float p1_0 = phi_d(R, 0.0f, g0, h0, &p2);
+  const float p1_0 = phi_d<ELL>(R, K, 0.0f, g0, h0, &p2);
   const float alpha0 = fmaxf(-p1_0 / fmaxf(p2, kMinVal), 0.0f);
   float lo = 0.0f, p1_lo = p1_0, hi = INFINITY, p1_hi = INFINITY;
   for (int s = 0; s < p.ls_k; ++s) {
     const float a = alpha0 * p.ls_scales[s];
-    const float p1a = phi_d(R, a, g0, h0, &p2);
+    const float p1a = phi_d<ELL>(R, K, a, g0, h0, &p2);
     if (p1a < 0.0f) {
       lo = a; p1_lo = p1a;
     } else if (!isfinite(hi)) {
@@ -238,13 +433,13 @@ DEV float linesearch(const Solve& p, const Rows& R, float g0, float h0) {
                                 (fabsf(diff) < kMinVal ? 1.0f : diff);
   const float a_max = alpha0 * p.ls_scales[p.ls_k - 1];
   float p2m;
-  const float p1m = phi_d(R, a_max, g0, h0, &p2m);
+  const float p1m = phi_d<ELL>(R, K, a_max, g0, h0, &p2m);
   const float tail = a_max - p1m / fmaxf(p2m, kMinVal);
   float alpha = isfinite(hi) ? secant : fmaxf(tail, a_max);
   const float cap = 10.0f * a_max;
   for (int it = 0; it < p.ls_polish; ++it) {
     float p2a;
-    const float p1a = phi_d(R, alpha, g0, h0, &p2a);
+    const float p1a = phi_d<ELL>(R, K, alpha, g0, h0, &p2a);
     if (p1a < 0.0f) lo = fmaxf(lo, alpha); else hi = fminf(hi, alpha);
     const float step = alpha - p1a / fmaxf(p2a, kMinVal);
     if (step > lo && step < hi) alpha = step;
@@ -255,9 +450,12 @@ DEV float linesearch(const Solve& p, const Rows& R, float g0, float h0) {
 }
 
 // The whole solve of one world for qfrc_smooth qfs (nv, the thread's own
-// array). Writes every output of s; qacce (nv, the thread's own array)
-// also receives qacc_euler, for the caller's advance.
-DEV void newton_solve(const Solve& p, const float* qfs, float* qacce) {
+// array), with the elliptic cone of the contacts ci (ELL; unread
+// otherwise). Writes every output of s; qacce (nv, the thread's own
+// array) also receives qacc_euler, for the caller's advance.
+template <bool ELL>
+DEV void newton_solve(const Solve& p, const ConeIn& ci, const float* qfs,
+                      float* qacce) {
   const int nv = p.nv, nj = p.nj;
   const float* qM = p.qM;
   const float* J = p.J;
@@ -270,6 +468,30 @@ DEV void newton_solve(const Solve& p, const float* qfs, float* qacce) {
   cholesky(qld, nv);
   float qacc_smooth[MAXNV];
   cho_solve(qld, nv, qfs, qacc_smooth);
+
+  // ---- the elliptic contacts whose normal row acts (ELL, :139-178) ----
+  ConeOf<ELL> K;
+  short slot[ELL ? MAXCONE : 1];  // K's index of each contact, or -1
+  if constexpr (ELL) {
+    K.n = 0;
+    K.S = ci.S;
+    for (int c = 0; c < ci.C; ++c) {
+      slot[c] = -1;
+      const float D0 = p.D[ci.base + c * ci.S];
+      if (ci.dim[c] < 2 || D0 == 0.0f) continue;
+      const int j = K.n++;
+      slot[c] = j;
+      const float* fr = ci.friction + 5 * c;
+      const float mu = fr[0] / sqrtf(fmaxf(ci.impratio, kMinVal));
+      const float mu2 = mu * mu;
+      K.mu[j] = mu;
+      K.dm[j] = D0 / fmaxf(mu2 * (1.0f + mu2), kMinVal);
+      for (int r = 0; r < ci.S; ++r) {
+        K.k[j][r] = -1;
+        K.s[j][r] = r == 0 ? mu : fr[min(r - 1, 4)];
+      }
+    }
+  }
 
   // ---- the rows that can act ----
   Rows R;
@@ -284,6 +506,15 @@ DEV void newton_solve(const Solve& p, const float* qfs, float* qacce) {
     R.D[k] = D;
     R.fl[k] = fl;
     R.rf[k] = fl / fmaxf(D, kMinVal);
+    if constexpr (ELL) {
+      if (r >= ci.base) {
+        const int j = slot[(r - ci.base) / ci.S];
+        if (j >= 0) {
+          R.cls[k] = 3;
+          K.k[j][(r - ci.base) % ci.S] = k;
+        }
+      }
+    }
   }
 
   // ---- Newton solve (_newton_core init :446-466, loop :468-504) ----
@@ -306,9 +537,9 @@ DEV void newton_solve(const Solve& p, const float* qfs, float* qacce) {
     for (int i = 0; i < nv; ++i) s += x[i] * x[i];
     return sqrtf(s);
   };
-  float cost = update_constraint(R) + gauss();
+  float cost = update_constraint<ELL>(R, K) + gauss();
   gradient(R, J, nv, ma, qfs, grad);
-  newton_dir(R, J, qM, nv, grad, H, search);
+  newton_dir<ELL>(R, K, J, qM, nv, grad, H, search);
   for (int i = 0; i < nv; ++i) search[i] = -search[i];
   bool done = norm(grad) / rescale < p.tolerance;
   int niter = 0;
@@ -320,13 +551,13 @@ DEV void newton_solve(const Solve& p, const float* qfs, float* qacce) {
       g0 += search[i] * (ma[i] - qfs[i]);
       h0 += search[i] * mv[i];
     }
-    const float alpha = linesearch(p, R, g0, h0);
+    const float alpha = linesearch<ELL>(p, R, K, g0, h0);
     for (int i = 0; i < nv; ++i) {
       qacc[i] += alpha * search[i];
       ma[i] += alpha * mv[i];
     }
     for (int k = 0; k < R.n; ++k) R.jaref[k] += alpha * R.jv[k];
-    const float newcost = update_constraint(R) + gauss();
+    const float newcost = update_constraint<ELL>(R, K) + gauss();
     gradient(R, J, nv, ma, qfs, grad);
     const float improvement = (cost - newcost) / rescale;
     const float gradnorm = norm(grad) / rescale;
@@ -334,7 +565,7 @@ DEV void newton_solve(const Solve& p, const float* qfs, float* qacce) {
     done = improvement < p.tolerance || gradnorm < p.tolerance ||
            niter >= p.iterations;
     if (!done) {
-      newton_dir(R, J, qM, nv, grad, H, search);
+      newton_dir<ELL>(R, K, J, qM, nv, grad, H, search);
       for (int i = 0; i < nv; ++i) search[i] = -search[i];
     }
     cost = newcost;
@@ -342,7 +573,7 @@ DEV void newton_solve(const Solve& p, const float* qfs, float* qacce) {
   *p.solver_niter = niter;
 
   // ---- constraint force, qfrc_constraint ----
-  update_constraint(R);
+  update_constraint<ELL>(R, K);
   float qfc[MAXNV];
   for (int i = 0; i < nv; ++i) qfc[i] = 0.0f;
   for (int k = 0; k < R.n; ++k) {

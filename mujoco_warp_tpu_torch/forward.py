@@ -5,13 +5,14 @@ unfused batched step.
 (`mujoco_warp_tpu/forward.py:867`) does and runs it under the same stage
 names, with the Pallas kernels replaced by the CUDA kernels of
 `kernels/`. With the Newton solver, the Euler integrator and 0 < nv <= 32
-it runs the glue-folded list (`_glue_stages` :577):
+it runs the glue-folded list (`_glue_stages` :577), for either cone:
 
   smooth_mega[cuda]       kernel B1: kinematics .. rne
   camlight                camera and light frames (tensor ops)
   contact_efc_mega[cuda]  kernel B2: narrowphase, compaction, efc rows
   act_len_vel             actuator lengths and velocities (tensor ops)
-  solve_glue[cuda]        kernel B3: actuation, passive, Newton, advance
+  solve_glue[cuda]        kernel B3 (pyramidal) or B3e (elliptic):
+                          actuation, passive, Newton, advance
 
 Otherwise `forward_batched`'s list (`forward_stages`: the `use_mega`
 branch of `batched_stages` :698-758, which never folds the back half)
@@ -25,27 +26,37 @@ and then the integrator, `_euler_batched` (:787-800) or `_rk4_batched`
   fwd_actuation           actuator forces
   fwd_acceleration        qfrc_smooth; qacc_smooth and qLD by kernel B7
                           (nv > 32) or B5 (nv <= 32), unless B4 follows
-  solve[cuda]             Newton and 0 < nv <= 32: kernel B4 (qacc_smooth
-                          and qLD too), or
+  solve[cuda]             Newton and 0 < nv <= 32: kernel B4 (pyramidal)
+                          or B4-elliptic (qacc_smooth and qLD too), or
   solve                   Newton: kernel B5 per direction; CG: kernel B8
-                          (nv > 32) or B6 (nv <= 32) on qLD per direction
+                          (nv > 32) or B6 (nv <= 32) on qLD per direction;
+                          the parallel or, for the elliptic cone, the
+                          iterative linesearch
   euler                   eulerdamp: kernel B7 or B5 with diag h·damping;
                           advance, or
   rk4                     three more `forward_batched` and the Runge-Kutta
                           combination
 
-One deliberate difference: the JAX package runs the smooth and contact
-stages of models past nv 64 (three_humanoids) as XLA, for the TPU
-compiler's sake (`MJWT_MEGA_NV_CAP`, :453; the contact kernel's unroll
-budget). B1 and B2 loop over the model's tables at run time and have no
-such limit, so the port runs them for every model; their results equal
-the XLA stages'.
+The elliptic kernels B3e and B4-elliptic run where the JAX package builds
+its cone for its kernels (`solver.cone_inputs`: the elliptic cone, a
+contact pool, contacts of more than one row); an elliptic model whose
+contacts all have condim 1 runs B3 and B4.
+
+Two deliberate differences from the JAX lists. The JAX package runs the
+smooth and contact stages of models past nv 64 (three_humanoids) as XLA,
+for the TPU compiler's sake (`MJWT_MEGA_NV_CAP`, :453; the contact
+kernel's unroll budget). B1 and B2 loop over the model's tables at run
+time and have no such limit, so the port runs them for every model;
+their results equal the XLA stages'. And the JAX contact kernel refuses
+the elliptic cone (`pallas/contact_kernels.py:57`), so for that cone the
+JAX list runs XLA `collision` and `make_constraint` where the port runs
+B2, which builds the elliptic rows too, under B2's stage name.
 
 camlight is skipped for models without cameras and lights, as in the
 JAX lists. qLD holds a lower Cholesky factor of qM up to nv 32 (from B3,
 B4 or B5) and B7's packed tree factor LD above
 (`kernels.batch_linalg.uses_tree_factor`). This module also holds the
-plain version of B3 (`glue`):
+plain version of B3 and B3e (`glue`):
 actuation (:83), passive forces, qfrc_smooth, the Newton solve and the
 Euler advance (`_advance` :331, `_integrate_pos` :274), in the glue
 kernel's formulation.
@@ -175,9 +186,10 @@ def integrate_pos(m: Model, qpos, qvel, h):
 
 
 def glue(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
-         qvel, ctrl, qfx, qacc_warmstart) -> dict:
-  """Plain version of kernel B3: actuation + passive + qfrc_smooth +
-  Newton solve + Euler advance. qfx = qfrc_applied + xfrc - qfrc_bias."""
+         qvel, ctrl, qfx, qacc_warmstart, cone=None) -> dict:
+  """Plain version of kernel B3 (B3e with `cone`, the contacts'
+  `solver.cone_inputs`): actuation + passive + qfrc_smooth + Newton
+  solve + Euler advance. qfx = qfrc_applied + xfrc - qfrc_bias."""
   ne, nf, _, _, _ = efc_layout(m, 0)
   h = m.opt.timestep
   afrc, qfa = fwd_actuation(m, qpos, qvel, ctrl)
@@ -186,7 +198,7 @@ def glue(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
   out = solver.newton(
       m, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qfs, qacc_warmstart,
       ne, nf, use_warmstart=not m.opt.disableflags & DisableBit.WARMSTART,
-      hdiag=integration_diag(m))
+      hdiag=integration_diag(m), cone=cone)
   qvel_new = qvel + h * out['qacc_euler']
   out.update(actuator_force=afrc, qfrc_actuator=qfa, qfrc_spring=qfsp,
              qfrc_damper=qfdp, qfrc_passive=qfp, qfrc_smooth=qfs,
@@ -237,7 +249,8 @@ def glue_stages(m: Model, d: Data) -> list:
         m, dd.xfrc_applied, dd.xipos, dd.subtree_com, dd.cdof) - dd.qfrc_bias
     out = glue_k.glue(m, dd.qM, dd.efc_J, dd.efc_D, dd.efc_aref,
                       dd.efc_frictionloss, dd.qpos, dd.qvel, dd.ctrl, qfx,
-                      dd.qacc_warmstart)
+                      dd.qacc_warmstart,
+                      cone=solver.cone_inputs(m, dd.contact))
     return dd.replace(time=dd.time + m.opt.timestep,
                       qacc_warmstart=out['qacc'], **out)
 
@@ -246,12 +259,14 @@ def glue_stages(m: Model, d: Data) -> list:
 
 
 def uses_newton_kernel(m: Model, d: Data) -> bool:
-  """True when the solve stage is kernel B4, which also computes
-  qacc_smooth and the qM factor, as the JAX package's gate
-  (`solver.uses_fused_kernel` :678-682): the Newton solver, the pyramidal
-  cone, 0 < nv <= 32, efc rows and iterations to run."""
+  """True when the solve stage is kernel B4 (B4-elliptic where
+  `solver.cone_inputs` gives a cone), which also computes qacc_smooth and
+  the qM factor, as the JAX package's gate (`solver.uses_fused_kernel`
+  :678-682): the Newton solver, either cone, 0 < nv <= 32, efc rows and
+  iterations to run."""
   return (m.opt.solver == SolverType.NEWTON and
-          m.opt.cone == ConeType.PYRAMIDAL and 0 < m.nv <= 32 and
+          m.opt.cone in (ConeType.PYRAMIDAL, ConeType.ELLIPTIC) and
+          0 < m.nv <= 32 and
           d.efc_J.shape[1] > 0 and m.opt.iterations > 0 and
           not m.opt.disableflags & DisableBit.CONSTRAINT)
 
@@ -310,13 +325,14 @@ def forward_stages(m: Model, d: Data) -> list:
     # glue list, so nothing would read the damped re-solve
     return dd.replace(**newton_k.newton_solve(
         m, dd.qM, dd.efc_J, dd.efc_D, dd.efc_aref, dd.efc_frictionloss,
-        dd.qfrc_smooth, dd.qacc_warmstart))
+        dd.qfrc_smooth, dd.qacc_warmstart,
+        cone=solver.cone_inputs(m, dd.contact)))
 
   def solve(dd):
     return dd.replace(**solver.solve(
         m, dd.qM, dd.efc_J, dd.efc_D, dd.efc_aref, dd.efc_frictionloss,
         dd.efc_type, dd.qfrc_smooth, dd.qacc_smooth, dd.qacc_warmstart,
-        qLD=dd.qLD))
+        qLD=dd.qLD, cone=solver.cone_inputs(m, dd.contact)))
 
   return _common_stages(m, d) + [
       ('transmission', transmission), ('velocity_glue', velocity_glue),

@@ -11,6 +11,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -18,8 +19,8 @@ import torch
 
 from . import types
 from .types import (BiasType, ConeType, Contact, Data, DisableBit, DynType,
-                    GainType, GeomType, IntegratorType, JointType, Model,
-                    Option, SolverType, Statistic, TrnType)
+                    EnableBit, GainType, GeomType, IntegratorType, JointType,
+                    Model, Option, SolverType, Statistic, TrnType)
 
 # candidate contacts per supported geom-type pair (keys sorted by type)
 MAX_CONTACTS = {
@@ -47,9 +48,10 @@ def _need(ok, what):
 def check_options(opt):
   """Raise NotImplementedError for options outside the port's gate: opt
   is a compiled model's `opt` or a Model's Option (so options changed on
-  a loaded Model, `m.replace(opt=m.opt.replace(...))`, are held to the
-  same gate when the model is stepped)."""
-  _need(opt.cone == ConeType.PYRAMIDAL, 'the elliptic cone')
+  a loaded Model, `override_model` or `m.replace(opt=...)`, are held to
+  the same gate when the model is stepped)."""
+  _need(opt.cone in (ConeType.PYRAMIDAL, ConeType.ELLIPTIC),
+        f'cone {int(opt.cone)}')
   _need(opt.integrator in (IntegratorType.EULER, IntegratorType.RK4),
         f'integrator {int(opt.integrator)}')
   _need(opt.solver in (SolverType.NEWTON, SolverType.CG),
@@ -361,6 +363,59 @@ def load_model(path: str, device='cuda') -> Model:
     statics = json.loads(str(z['__statics__']))
     leaves = {k: z[k] for k in z.files if k != '__statics__'}
   return model_from_numpy(leaves, statics, device=device)
+
+
+_ENUM_FIELDS = {
+    'solver': {'cg': SolverType.CG, 'newton': SolverType.NEWTON},
+    'integrator': {'euler': IntegratorType.EULER,
+                   'rk4': IntegratorType.RK4,
+                   'implicitfast': IntegratorType.IMPLICITFAST},
+    'cone': {'pyramidal': ConeType.PYRAMIDAL,
+             'elliptic': ConeType.ELLIPTIC},
+}
+_FLAG_FIELDS = {'disableflags': DisableBit, 'enableflags': EnableBit}
+_INT_OPT = {'iterations', 'ls_iterations'}
+_BOOL_OPT = {'ls_parallel'}
+
+
+def override_model(m: Model, overrides: list[str] | str) -> Model:
+  """Model with "opt.field=value" overrides applied (mirrors
+  `mujoco_warp_tpu/io.py:1503`): enum names, '|' unions of flag names,
+  ints, bools and floats (a space-separated list for a vector). A change
+  of cone also sets ls_parallel: the parallel linesearch is for the
+  pyramidal cone's piecewise-linear phi' (as `put_model` sets it)."""
+  if isinstance(overrides, str):
+    overrides = [overrides]
+  opt = m.opt
+  for ov in overrides:
+    path, _, value = ov.partition('=')
+    path, value = path.strip(), value.strip()
+    if not path.startswith('opt.'):
+      raise ValueError(f'only opt.* overrides supported, got {path}')
+    field = path[4:]
+    if field in _ENUM_FIELDS:
+      new = int(_ENUM_FIELDS[field][value.lower()])
+      if field == 'cone':
+        opt = dataclasses.replace(opt,
+                                  ls_parallel=int(new != ConeType.ELLIPTIC))
+    elif field in _FLAG_FIELDS:
+      new = 0
+      for part in value.split('|'):
+        new |= int(_FLAG_FIELDS[field][part.strip().upper()])
+    elif field in _INT_OPT:
+      new = int(value)
+    elif field in _BOOL_OPT:
+      new = int(value.lower() in ('1', 'true', 'yes'))
+    elif field in types.OPTION_TENSORS:
+      cur = getattr(opt, field)
+      vals = [float(v) for v in value.split()]
+      new = torch.tensor(vals[0] if len(vals) == 1 else vals,
+                         dtype=torch.float32, device=cur.device)
+      new = new.expand(cur.shape).clone() if cur.dim() else new
+    else:
+      raise ValueError(f'unknown option {field}')
+    opt = dataclasses.replace(opt, **{field: new})
+  return dataclasses.replace(m, opt=opt)
 
 
 def efc_layout(m: Model, nconmax: int):

@@ -103,13 +103,28 @@ def library(name: str) -> ctypes.CDLL:
   return lib
 
 
-def struct(name: str, ptrs, floats, ints):
+def struct(name: str, ptrs, floats, ints, base=None):
   """ctypes mirror of a kernel's parameter struct: pointers first, then
-  float scalars, then int scalars, in the order of the .cu file."""
+  float scalars, then int scalars, in the order of the .cu file. With
+  `base`, a struct whose first member `base` is that struct (an entry
+  that takes another kernel's parameters and more)."""
   return type(name, (ctypes.Structure,), {'_fields_': (
+      ([('base', base)] if base is not None else []) +
       [(p, ctypes.c_void_p) for p in ptrs] +
       [(f, ctypes.c_float) for f in floats] +
       [(i, ctypes.c_int) for i in ints])})
+
+
+def _fill(params, values: dict) -> None:
+  """Set every field of a parameter struct from `values` (tensors become
+  device pointers, None a null pointer; a nested struct from the same
+  values)."""
+  for field, ftype in params._fields_:
+    if isinstance(ftype, type) and issubclass(ftype, ctypes.Structure):
+      _fill(getattr(params, field), values)
+      continue
+    v = values[field]
+    setattr(params, field, v.data_ptr() if hasattr(v, 'data_ptr') else v)
 
 
 def launch(name: str, params_type, values: dict, device,
@@ -130,9 +145,7 @@ def launch(name: str, params_type, values: dict, device,
                        f'({size_fn()} vs {ctypes.sizeof(params_type)} '
                        f'bytes)')
   params = params_type()
-  for field, _ in params_type._fields_:
-    v = values[field]
-    setattr(params, field, v.data_ptr() if hasattr(v, 'data_ptr') else v)
+  _fill(params, values)
   stream = torch.cuda.current_stream(device).cuda_stream
   err = launch_fn(ctypes.byref(params), ctypes.c_void_p(stream))
   if err:

@@ -1,12 +1,16 @@
 """Kernel B2: narrowphase over the static candidate pairs, order-keeping
 compaction into the contact pool, and the efc rows (dof friction, joint
-limits, pyramidal contacts) in one CUDA kernel, `csrc/contact.cu`.
+limits, contacts of the pyramidal or the elliptic cone) in one CUDA
+kernel, `csrc/contact.cu`.
 
 Replaces the TPU kernel `contact_efc` / `make_contact_kernel`
 (`mujoco_warp_tpu/pallas/contact_kernels.py:1643`, `:1061`) for plane,
-sphere and capsule pairs. Its plain version (`plain`) is
-`collision_driver.collision` followed by `constraint.make_constraint`;
-it runs for CPU tensors, and a CUDA tensor launches the kernel or raises.
+sphere and capsule pairs. That kernel refuses the elliptic cone
+(`:57`), for which the JAX package runs XLA `collision` and
+`make_constraint`; this one builds the elliptic rows too. Its plain
+version (`plain`) is `collision_driver.collision` followed by
+`constraint.make_constraint`; it runs for CPU tensors, and a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 from .. import collision_driver
 from .. import constraint
 from ..io import efc_layout
-from ..types import DisableBit, Model
+from ..types import ConeType, DisableBit, Model
 from . import _build
 
 MAXCON = 128     # compile-time cap of csrc/contact.cu
@@ -35,7 +39,7 @@ _PTRS = (('qpos', 'qvel', 'geom_xpos', 'geom_xmat', 'subtree_com', 'cdof',
           'pair_int', 'pair_float', 'geom_size', 'body_rootid',
           'body_dof_mask', 'fr_int', 'fr_float', 'lim_int', 'lim_float') +
          tuple('con_' + k for k in CONTACT_FIELDS) + EFC_FIELDS + COUNTS)
-_FLOATS = ('timestep',)
+_FLOATS = ('timestep', 'impratio')
 _INTS = ('nworld', 'nq', 'nv', 'nbody', 'ngeom', 'npair', 'nconmax',
          'nf_rows', 'nl_rows', 'stride', 'njmax', 'refsafe', 'fr_on',
          'lim_on')
@@ -94,6 +98,7 @@ def _tables(m: Model) -> dict:
               fr_int=i32(fr), fr_float=fr_float.contiguous(),
               lim_int=lim_int.contiguous(), lim_float=lim_float.contiguous(),
               timestep=float(m.opt.timestep),
+              impratio=float(m.opt.impratio),
               npair=sum(len(gl) for _, _, gl in m.collision_pairs))
 
 
@@ -154,6 +159,8 @@ def _launch(m: Model, qpos, qvel, geom_xpos, geom_xmat, subtree_com, cdof,
       refsafe=int(not dis & DisableBit.REFSAFE),
       fr_on=int(not dis & DisableBit.FRICTIONLOSS),
       lim_on=int(not dis & DisableBit.LIMIT))
-  _build.launch('contact', Params, values, dev)
+  # the elliptic cone's rows are a second entry of the same source
+  _build.launch('contact', Params, values, dev,
+                entry='ell_' if m.opt.cone == ConeType.ELLIPTIC else '')
   launches += 1
   return outs

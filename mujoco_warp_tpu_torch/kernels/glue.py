@@ -1,13 +1,15 @@
-"""Kernel B3: the back half of the step in one CUDA kernel,
+"""Kernels B3 and B3e: the back half of the step in one CUDA kernel,
 `csrc/glue.cu`: affine actuation, joint springs and dampers,
-qfrc_smooth, the qM factor and qacc_smooth, the whole Newton solve
-(pyramidal cone), the integration-diagonal re-solve (mode 1) and the
-semi-implicit Euler advance.
+qfrc_smooth, the qM factor and qacc_smooth, the whole Newton solve, the
+integration-diagonal re-solve (mode 1) and the semi-implicit Euler
+advance. B3 solves with the pyramidal cone; B3e, launched when `glue`
+is given the contacts' `solver.cone_inputs`, with the elliptic cone.
 
-Replaces the TPU kernel `make_glue_kernel` / `run`
-(`mujoco_warp_tpu/pallas/solver_kernels.py:1207`, `_glue_core` :966).
-Its plain version is `mujoco_warp_tpu_torch.forward.glue`, which runs
-for CPU tensors; a CUDA tensor launches the kernel or raises.
+They replace the TPU kernel `make_glue_kernel` / `run`
+(`mujoco_warp_tpu/pallas/solver_kernels.py:1207`, `_glue_core` :966;
+`_glue_kernel` :939 and `_glue_ell_kernel` :954). The plain version is
+`mujoco_warp_tpu_torch.forward.glue`, which runs for CPU tensors; a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ from ..io import efc_layout
 from ..types import DisableBit, JointType, Model
 from . import _build
 
-MAXNV = 32       # compile-time caps of csrc/glue.cu
+MAXNV = 32       # compile-time caps of csrc/newton.cuh
 MAXNJ = 256
+MAXS = 6
 
-launches = 0     # kernel launches since the count was last reset
+launches = 0     # B3 launches since the count was last reset
+launches_ell = 0   # B3e launches since the count was last reset
 
 OUTPUTS = ('qacc', 'qfrc_constraint', 'efc_force', 'solver_niter',
            'qacc_smooth', 'qLD', 'qacc_euler', 'actuator_force',
@@ -37,6 +41,12 @@ _FLOATS = ('timestep', 'tolerance', 'meaninertia')
 _INTS = ('nworld', 'nq', 'nv', 'nu', 'njnt', 'nj', 'ne', 'nf', 'iterations',
          'ls_k', 'ls_polish', 'use_ws', 'mode', 'actuation_on')
 Params = _build.struct('GlueParams', _PTRS, _FLOATS, _INTS)
+# B3e: B3's parameters and the contacts of the elliptic cone
+CONE_PTRS = ('con_friction', 'con_dim')
+CONE_FLOATS = ('impratio',)
+CONE_INTS = ('efc_base', 'stride', 'nconmax')
+EllParams = _build.struct('GlueEllParams', CONE_PTRS, CONE_FLOATS, CONE_INTS,
+                          base=Params)
 
 
 def _tables(m: Model) -> dict:
@@ -81,18 +91,34 @@ def _tables(m: Model) -> dict:
 
 
 def glue(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos, qvel,
-         ctrl, qfx, qacc_warmstart) -> dict:
-  """Back half of the step -> dict of OUTPUTS (qpos, qvel advanced)."""
+         ctrl, qfx, qacc_warmstart, cone=None) -> dict:
+  """Back half of the step -> dict of OUTPUTS (qpos, qvel advanced);
+  with `cone` (`solver.cone_inputs`) kernel B3e."""
   if qM.device.type == 'cpu':
     return forward.glue(m, qM, efc_J, efc_D, efc_aref, efc_frictionloss,
-                        qpos, qvel, ctrl, qfx, qacc_warmstart)
+                        qpos, qvel, ctrl, qfx, qacc_warmstart, cone=cone)
   return _launch(m, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
-                 qvel, ctrl, qfx, qacc_warmstart)
+                 qvel, ctrl, qfx, qacc_warmstart, cone)
+
+
+def cone_values(m: Model, efc_J, cone, dev) -> dict:
+  """The parameters of the elliptic cone (B3e, B4-elliptic), checked."""
+  friction, dim, impratio = cone
+  W, nj = efc_J.shape[0], efc_J.shape[1]
+  C = friction.shape[1]
+  ne, nf, nl, stride, njmax = efc_layout(m, C)
+  if njmax != nj or not 2 <= stride <= MAXS:
+    raise ValueError(f'elliptic cone: {nj} rows, stride {stride} (layout '
+                     f'{njmax} rows, stride cap {MAXS})')
+  _build.check('con_friction', friction, (W, C, 5), device=dev)
+  _build.check('con_dim', dim, (W, C), dtype=torch.int32, device=dev)
+  return dict(con_friction=friction, con_dim=dim, impratio=float(impratio),
+              efc_base=ne + nf + nl, stride=stride, nconmax=C)
 
 
 def _launch(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
-            qvel, ctrl, qfx, qacc_warmstart) -> dict:
-  global launches
+            qvel, ctrl, qfx, qacc_warmstart, cone=None) -> dict:
+  global launches, launches_ell
   W, nj = efc_J.shape[0], efc_J.shape[1]
   if m.nv > MAXNV or nj > MAXNJ:
     raise ValueError(f'glue kernel: nv={m.nv} (cap {MAXNV}), nj={nj} '
@@ -128,6 +154,11 @@ def _launch(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
       ls_polish=solver.LS_POLISH,
       use_ws=int(not dis & DisableBit.WARMSTART), mode=forward.glue_mode(m),
       actuation_on=int(m.nu > 0 and not dis & DisableBit.ACTUATION))
-  _build.launch('glue', Params, values, dev)
-  launches += 1
+  if cone is None:
+    _build.launch('glue', Params, values, dev)
+    launches += 1
+  else:
+    values.update(cone_values(m, efc_J, cone, dev))
+    _build.launch('glue', EllParams, values, dev, entry='ell_')
+    launches_ell += 1
   return outs

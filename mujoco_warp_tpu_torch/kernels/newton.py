@@ -1,13 +1,17 @@
-"""Kernel B4: the Newton solve of `forward_batched` in one CUDA kernel,
-`csrc/newton.cu`: the qM factor and qacc_smooth, the whole Newton solve
-(pyramidal cone) from a given qfrc_smooth, the forces and, with `hb`,
+"""Kernels B4 and B4-elliptic: the Newton solve of `forward_batched` in
+one CUDA kernel, `csrc/newton.cu`: the qM factor and qacc_smooth, the
+whole Newton solve from a given qfrc_smooth, the forces and, with `hb`,
 the re-solve (qM + diag(hb)) qacc_euler = qfrc_smooth + qfrc_constraint.
+B4 solves with the pyramidal cone; B4-elliptic, launched when
+`newton_solve` is given the contacts' `solver.cone_inputs`, with the
+elliptic cone.
 
-Replaces the TPU kernel `newton_solve_batched`
-(`mujoco_warp_tpu/pallas/solver_kernels.py:534`, body `_newton_kernel`
-:72). It shares its device code (`csrc/newton.cuh`) with kernel B3. Its
-plain version is `mujoco_warp_tpu_torch.solver.newton_solve`, which runs
-for CPU tensors; a CUDA tensor launches the kernel or raises.
+They replace the TPU kernel `newton_solve_batched`
+(`mujoco_warp_tpu/pallas/solver_kernels.py:534`, bodies `_newton_kernel`
+:72 and `_newton_ell_kernel` :88). They share their device code
+(`csrc/newton.cuh`) with kernels B3 and B3e. The plain version is
+`mujoco_warp_tpu_torch.solver.newton_solve`, which runs for CPU tensors;
+a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,11 +22,13 @@ from .. import solver
 from ..io import efc_layout
 from ..types import DisableBit, Model
 from . import _build
+from .glue import CONE_FLOATS, CONE_INTS, CONE_PTRS, cone_values
 
 MAXNV = 32       # compile-time caps of csrc/newton.cuh
 MAXNJ = 256
 
-launches = 0     # kernel launches since the count was last reset
+launches = 0     # B4 launches since the count was last reset
+launches_ell = 0   # B4-elliptic launches since the count was last reset
 
 OUTPUTS = ('qacc', 'qfrc_constraint', 'efc_force', 'solver_niter',
            'qacc_smooth', 'qLD', 'qacc_euler')
@@ -33,6 +39,8 @@ _FLOATS = ('tolerance', 'meaninertia')
 _INTS = ('nworld', 'nv', 'nj', 'ne', 'nf', 'iterations', 'ls_k', 'ls_polish',
          'use_ws', 'euler_damp')
 Params = _build.struct('NewtonParams', _PTRS, _FLOATS, _INTS)
+EllParams = _build.struct('NewtonEllParams', CONE_PTRS, CONE_FLOATS,
+                          CONE_INTS, base=Params)
 
 
 def _tables(m: Model) -> dict:
@@ -44,20 +52,21 @@ def _tables(m: Model) -> dict:
 
 
 def newton_solve(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss,
-                 qfrc_smooth, qacc_warmstart, hb=None) -> dict:
+                 qfrc_smooth, qacc_warmstart, hb=None, cone=None) -> dict:
   """The Newton solve from qfrc_smooth -> dict of OUTPUTS; hb (nv,) or
-  None as `solver.newton_solve`."""
+  None and cone (`solver.cone_inputs`) or None as `solver.newton_solve`.
+  With a cone, kernel B4-elliptic."""
   if qM.device.type == 'cpu':
     return solver.newton_solve(m, qM, efc_J, efc_D, efc_aref,
                                efc_frictionloss, qfrc_smooth, qacc_warmstart,
-                               hb=hb)
+                               hb=hb, cone=cone)
   return _launch(m, qM, efc_J, efc_D, efc_aref, efc_frictionloss,
-                 qfrc_smooth, qacc_warmstart, hb)
+                 qfrc_smooth, qacc_warmstart, hb, cone)
 
 
 def _launch(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss,
-            qfrc_smooth, qacc_warmstart, hb=None) -> dict:
-  global launches
+            qfrc_smooth, qacc_warmstart, hb=None, cone=None) -> dict:
+  global launches, launches_ell
   W, nj = efc_J.shape[0], efc_J.shape[1]
   if m.nv > MAXNV or nj > MAXNJ:
     raise ValueError(f'newton kernel: nv={m.nv} (cap {MAXNV}), nj={nj} '
@@ -88,6 +97,11 @@ def _launch(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss,
       ls_polish=solver.LS_POLISH,
       use_ws=int(not m.opt.disableflags & DisableBit.WARMSTART),
       euler_damp=int(hb is not None))
-  _build.launch('newton', Params, values, dev)
-  launches += 1
+  if cone is None:
+    _build.launch('newton', Params, values, dev)
+    launches += 1
+  else:
+    values.update(cone_values(m, efc_J, cone, dev))
+    _build.launch('newton', EllParams, values, dev, entry='ell_')
+    launches_ell += 1
   return outs

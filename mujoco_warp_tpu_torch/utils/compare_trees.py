@@ -1,0 +1,128 @@
+"""Run the pyramidal kernels B2, B3 and B4 of two checkouts of the port on
+the same saved inputs, and compare their outputs bit for bit.
+
+    python3 mujoco_warp_tpu_torch/utils/compare_trees.py inputs FILE
+    python3 mujoco_warp_tpu_torch/utils/compare_trees.py run ROOT FILE OUT
+    python3 mujoco_warp_tpu_torch/utils/compare_trees.py compare OUT OUT...
+
+`inputs` steps the humanoid (8192 worlds, nconmax 24, seeded qpos noise)
+through this checkout's kernels and saves the inputs of B2 (contact),
+B3 (glue) and B4 (newton, without and with the integration diagonal hb).
+`run` imports `mujoco_warp_tpu_torch` from the checkout at ROOT, builds
+its kernels there, runs each kernel on the saved inputs and saves the
+outputs and each kernel's time (CUDA events over 20 launches, after one).
+`compare` prints, for the first file against each other, every output
+that is not bit-equal and the times side by side; it exits 1 if any
+output differs. It needs a card.
+"""
+
+import json
+import os
+import sys
+
+# the checkout this script belongs to, which `inputs` runs
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+NWORLD = 8192
+NCONMAX = 24
+SEED = 0
+PREP_STEPS = 100
+
+
+def make_inputs(path: str) -> None:
+  sys.path.insert(0, HERE)
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import models, support
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
+  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  d = mt.make_batch(m, mt.make_data(m, nconmax=NCONMAX), NWORLD,
+                    qpos_noise=0.01, generator=gen)
+  d, _ = bench.benchmark(m, d, nstep=PREP_STEPS)
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  c_in = (sm['qpos'], d.qvel, sm['geom_xpos'], sm['geom_xmat'],
+          sm['subtree_com'], sm['cdof'])
+  con = kc.contact(m, *c_in, NCONMAX)
+  qfx = d.qfrc_applied + support.xfrc_accumulate(
+      m, d.xfrc_applied, sm['xipos'], sm['subtree_com'], sm['cdof']) - \
+      sm['qfrc_bias']
+  g_in = (sm['qM'], con['efc_J'], con['efc_D'], con['efc_aref'],
+          con['efc_frictionloss'], sm['qpos'], d.qvel, d.ctrl, qfx,
+          d.qacc_warmstart)
+  qfs = kg.glue(m, *g_in)['qfrc_smooth']
+  torch.save(dict(c_in=c_in, g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9])),
+             path)
+
+
+def run(root: str, path: str, out: str) -> None:
+  root = os.path.abspath(root)
+  sys.path.insert(0, root)
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import models
+  from mujoco_warp_tpu_torch.kernels import _build
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import newton as kn
+  if not mt.__file__.startswith(root + '/'):
+    raise RuntimeError(f'imported {mt.__file__}, not the checkout {root}')
+  _build.build_all()
+  inp = torch.load(path)
+  m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
+  hb = m.opt.timestep * m.dof_damping
+  calls = dict(
+      contact=lambda: kc.contact(m, *inp['c_in'], NCONMAX),
+      glue=lambda: kg.glue(m, *inp['g_in']),
+      newton=lambda: kn.newton_solve(m, *inp['n_in']),
+      newton_hb=lambda: kn.newton_solve(m, *inp['n_in'], hb=hb))
+  outs, ms = {}, {}
+  for name, fn in calls.items():
+    outs[name] = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+      fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms[name] = start.elapsed_time(end) / 20
+  torch.save(dict(outs=outs, ms=ms, root=root), out)
+  print(json.dumps({'root': root, 'ms': ms}))
+
+
+def compare(paths) -> int:
+  import torch
+  first = torch.load(paths[0])
+  bad = 0
+  for path in paths[1:]:
+    other = torch.load(path)
+    for name, outs in first['outs'].items():
+      diff = [k for k, v in outs.items()
+              if not torch.equal(v, other['outs'][name][k])]
+      bad += len(diff)
+      print(f'{name}: {first["root"]} against {other["root"]}: '
+            f'{"bit-equal" if not diff else "differ in " + str(diff)}; '
+            f'ms {first["ms"][name]:.4f} vs {other["ms"][name]:.4f}')
+  return 1 if bad else 0
+
+
+def main(argv) -> int:
+  if argv[:1] == ['inputs'] and len(argv) == 2:
+    make_inputs(argv[1])
+    return 0
+  if argv[:1] == ['run'] and len(argv) == 4:
+    run(*argv[1:])
+    return 0
+  if argv[:1] == ['compare'] and len(argv) >= 3:
+    return compare(argv[1:])
+  print(__doc__, file=sys.stderr)
+  return 2
+
+
+if __name__ == '__main__':
+  sys.exit(main(sys.argv[1:]))

@@ -29,6 +29,8 @@ Two kinds of check:
   count plus 4).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import mujoco
@@ -89,10 +91,19 @@ def _port_solve(m, d):
   return solver.solve(m, *[getattr(d, k) for k in INPUTS], qLD=d.qLD)
 
 
+_COMPILED = {}
+
+
 def _jax_solve(jm, batch, iterations=None):
-  if iterations is not None:
-    jm = jm.replace(opt=jm.opt.replace(iterations=iterations))
-  return jax.jit(lambda dd: jsolver._solve_xla(jm, dd))(batch)
+  """`_solve_xla`, compiled once per model: the iteration budget is an
+  argument of the compiled function."""
+  if id(jm) not in _COMPILED:
+    _COMPILED[id(jm)] = (jm, jax.jit(lambda dd, it: jsolver._solve_xla(
+        dataclasses.replace(jm, opt=dataclasses.replace(jm.opt,
+                                                        iterations=it)),
+        dd)))
+  it = jm.opt.iterations if iterations is None else iterations
+  return _COMPILED[id(jm)][1](batch, jnp.int32(it))
 
 
 def test_qld_layout_follows_nv(problem):
@@ -116,10 +127,11 @@ def test_qld_layout_follows_nv(problem):
 def test_cg_passes_match_jax(problem, iterations):
   _, jm, m, d, batch = problem
   mm = m.replace(opt=m.opt.replace(iterations=iterations))
-  solver.counts.update(solve=0, passes=0)
+  solver.counts.update(dict.fromkeys(solver.counts, 0))
   out = _port_solve(mm, d)
   ref = _jax_solve(jm, batch, iterations)
-  assert solver.counts == {'solve': 1, 'passes': iterations}
+  assert solver.counts == {'solve': 1, 'passes': iterations,
+                            'linesearch': 0}
   np.testing.assert_array_equal(out['solver_niter'].numpy(),
                                 np.asarray(ref.solver_niter))
   assert int(out['solver_niter'].max()) == iterations
@@ -132,7 +144,7 @@ def test_cg_passes_match_jax(problem, iterations):
 def test_cg_converged_matches_jax_and_newton(problem):
   _, jm, m, d, batch = problem
   assert int(d.ncon.min()) > 0 and bool((d.qacc_warmstart != 0).any())
-  solver.counts.update(solve=0, passes=0)
+  solver.counts.update(dict.fromkeys(solver.counts, 0))
   kb.launches.update(dict.fromkeys(kb.launches, 0))
   out = _port_solve(m, d)
   assert solver.counts['solve'] == 1

@@ -69,6 +69,8 @@ def test_the_scan_sees_the_package():
                'mujoco_warp_tpu_torch/kernels/glue.py',
                'mujoco_warp_tpu_torch/kernels/batch_linalg.py',
                'mujoco_warp_tpu_torch/kernels/newton.py',
+               'mujoco_warp_tpu_torch/kernels/contact.py',
+               'mujoco_warp_tpu_torch/utils/compare_trees.py',
                'mujoco_warp_tpu_torch/solver.py',
                'mujoco_warp_tpu_torch/forward.py'):
     assert must in names

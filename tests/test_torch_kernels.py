@@ -1,5 +1,6 @@
 """The port's kernel wrappers (B1 smooth, B2 contact, B3 glue, B4 newton,
-B5 spd_solve, B6 cho_solve, B7 tree_ldl and B8 tree_solve).
+B5 spd_solve, B6 cho_solve, B7 tree_ldl and B8 tree_solve; with the
+elliptic cone, B2's elliptic rows, B3e and B4-elliptic).
 
 On the CPU a wrapper runs its plain version and launches nothing. On the
 card each kernel is held against its plain version (tests marked `cuda`,
@@ -35,10 +36,16 @@ def cuda():
   return torch.device('cuda')
 
 
+ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
+
+
 def _state(device, nworld, nstep, npz=models.HUMANOID_NPZ,
-           nconmax=NCONMAX):
-  """Worlds stepped into contact through the port itself."""
+           nconmax=NCONMAX, elliptic=False):
+  """Worlds stepped into contact through the port itself (with the
+  elliptic cone at impratio 10, given `elliptic`)."""
   m = mt.load_model(npz, device=device)
+  if elliptic:
+    m = mt.override_model(m, ELLIPTIC)
   gen = torch.Generator(device=device).manual_seed(0)
   d = mt.make_batch(m, mt.make_data(m, nconmax=nconmax), nworld,
                     qpos_noise=0.02, generator=gen)
@@ -233,7 +240,7 @@ def test_three_humanoids_step_launches(cuda):
   for mod in (ks, kc, kg):
     mod.launches = 0
   kb.launches.update(dict.fromkeys(kb.launches, 0))
-  solver.counts.update(solve=0, passes=0)
+  solver.counts.update(dict.fromkeys(solver.counts, 0))
   d = mt.step_batched(m, d)
   torch.cuda.synchronize()
   assert (ks.launches, kc.launches, kg.launches) == (1, 1, 0)
@@ -250,8 +257,9 @@ def test_three_humanoids_step_launches(cuda):
 def _reset():
   for mod in (ks, kc, kg, kn):
     mod.launches = 0
+  kg.launches_ell = kn.launches_ell = 0
   kb.launches.update(dict.fromkeys(kb.launches, 0))
-  solver.counts.update(solve=0, passes=0)
+  solver.counts.update(dict.fromkeys(solver.counts, 0))
 
 
 def _with(m, **opt):
@@ -315,7 +323,7 @@ def test_cpu_paths_dispatch_and_count_nothing():
   _reset()
   out = mt.forward_batched(m, d)
   rk4 = mt.step_batched(_with(m, integrator=int(IntegratorType.RK4)), d)
-  assert solver.counts == {'solve': 0, 'passes': 0}
+  assert solver.counts == {'solve': 0, 'passes': 0, 'linesearch': 0}
   cg = mt.step_batched(_with(m, solver=int(SolverType.CG)), d)
   assert solver.counts['solve'] == 1
   assert solver.counts['passes'] == int(cg.solver_niter.max()) > 0
@@ -438,3 +446,124 @@ def test_cg_step_launches(cuda, model):
     assert kb.launches == {'tree_ldl': 2, 'spd_solve': 0, 'cho_solve': 0,
                            'tree_solve': solves}
   assert bool(torch.isfinite(d.qpos).all())
+
+
+# ---- the elliptic cone: B2's elliptic rows, B3e and B4-elliptic ----
+
+
+def _cone(m, con):
+  return solver.cone_inputs(m, mt.Contact(**{k: con[k]
+                                            for k in kc.CONTACT_FIELDS}))
+
+
+def test_elliptic_wrappers_run_plain_on_cpu_and_refuse_to_launch():
+  m, d = _state('cpu', 3, 10, elliptic=True)
+  _reset()
+  sm, c_in, con, g_in = _stages(m, d)
+  assert bool((con['efc_type'] == 7).any())        # elliptic rows
+  for name, ref in kc.plain(*c_in).items():
+    torch.testing.assert_close(con[name], ref, rtol=0, atol=0)
+  cone = _cone(m, con)
+  out = kg.glue(*g_in, cone=cone)
+  for name, ref in forward.glue(*g_in, cone=cone).items():
+    torch.testing.assert_close(out[name], ref, rtol=0, atol=0)
+  n_in = g_in[:6] + (out['qfrc_smooth'], g_in[10])
+  nout = kn.newton_solve(*n_in, cone=cone)
+  for name, ref in solver.newton_solve(*n_in, cone=cone).items():
+    torch.testing.assert_close(nout[name], ref, rtol=0, atol=0)
+  with pytest.raises(ValueError, match='expected a tensor on'):
+    kc._launch(*c_in)
+  for launch, args in ((kg._launch, g_in), (kn._launch, n_in)):
+    with pytest.raises(ValueError, match='expected a tensor on'):
+      launch(*args, cone=cone)
+  assert (kc.launches, kg.launches, kg.launches_ell, kn.launches,
+          kn.launches_ell) == (0,) * 5
+
+
+def _objective(m, args, cone, qacc):
+  """The elliptic problem's cost (W,) at qacc, in float64."""
+  f64 = [x.double() for x in args[1:6]]
+  qfs = args[6].double()
+  qsm = solver.cho_solve(solver.cholesky(f64[0]), qfs)
+  K = solver.Cone(m, f64[2], (cone[0].double(), cone[1], cone[2].double()))
+  ne, nf, _, _, _ = mt.efc_layout(m, 0)
+  return solver.objective(*f64, qfs, qsm, qacc.double(), ne, nf, cone=K)
+
+
+def _check_elliptic_solve(m, out, ref, args, cone):
+  """B3's criteria: qacc 5e-5 and forces 5e-4 of scale, solver_niter
+  within 4, the objective within one unit of tolerance · meaninertia ·
+  nv; a world over the elementwise tolerances must reach an objective no
+  higher than the plain solve's plus one unit, or have stopped earlier
+  (chip_smoke.py, _check_excused)."""
+  unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * m.nv
+  gap = (_objective(m, args, cone, out['qacc']) -
+         _objective(m, args, cone, ref['qacc'])) / unit
+  over = torch.zeros_like(gap, dtype=torch.bool)
+  for name, tol in (('qacc', 5e-5), ('qacc_smooth', 5e-5), ('qLD', 5e-5),
+                    ('qfrc_constraint', 5e-4), ('efc_force', 5e-4)):
+    a, b = out[name].cpu(), ref[name].cpu()
+    scale = max(1.0, float(b.abs().max()))
+    over |= ((a - b).abs().reshape(a.shape[0], -1).amax(1) > tol * scale
+             ).to(over.device)
+  dn = (out['solver_niter'] - ref['solver_niter'])
+  assert int(dn.abs().max()) <= 4, dn.abs().bincount().tolist()
+  assert int(over.sum()) <= max(2, gap.shape[0] // 100), int(over.sum())
+  assert bool((~over | (gap <= 1.0) | (dn < 0)).all())
+  assert float(gap[~over].abs().max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_elliptic_kernels_match_plain(cuda):
+  m, d = _state(cuda, 256, 60, elliptic=True)
+  _reset()
+  sm, c_in, con, g_in = _stages(m, d)
+  torch.cuda.synchronize()
+  assert kc.launches == 1
+  ref = kc.plain(*c_in)
+  assert bool((ref['efc_type'][ref['efc_active']] == 7).any())
+  for name in ref:
+    _close(con[name], ref[name], name, 2e-3 if name == 'efc_aref' else 2e-5)
+  cone = _cone(m, ref)
+  out = kg.glue(*g_in, cone=cone)
+  torch.cuda.synchronize()
+  assert (kg.launches, kg.launches_ell) == (0, 1)
+  gref = forward.glue(*g_in, cone=cone)
+  n_args = g_in[:6] + (gref['qfrc_smooth'], g_in[10])
+  _check_elliptic_solve(m, out, gref, n_args, cone)
+  _close(out['qpos'], gref['qpos'], 'qpos', 5e-6)
+  nout = kn.newton_solve(*n_args, cone=cone)
+  torch.cuda.synchronize()
+  assert (kn.launches, kn.launches_ell) == (0, 1)
+  _check_elliptic_solve(m, nout, solver.newton_solve(*n_args, cone=cone),
+                        n_args, cone)
+
+
+@pytest.mark.cuda
+def test_newton_ell_kernel_equals_the_glue_ell_kernels_solve(cuda):
+  """B3e and B4-elliptic run the same device code on the same
+  qfrc_smooth."""
+  m, d = _state(cuda, 256, 60, elliptic=True)
+  _, _, con, g_in = _stages(m, d)
+  cone = _cone(m, con)
+  glue = kg.glue(*g_in, cone=cone)
+  out = kn.newton_solve(*g_in[:6], glue['qfrc_smooth'], g_in[10], cone=cone)
+  for name in kn.OUTPUTS:
+    assert torch.equal(out[name], glue[name]), name
+
+
+@pytest.mark.cuda
+def test_elliptic_paths_launch_the_elliptic_kernels(cuda):
+  m, d = _state(cuda, 256, 20, elliptic=True)
+  _reset()
+  out = mt.step_batched(m, d)
+  torch.cuda.synchronize()
+  assert (ks.launches, kc.launches, kg.launches, kg.launches_ell) == (
+      1, 1, 0, 1)
+  assert bool(torch.isfinite(out.qpos).all())
+  _reset()
+  mt.forward_batched(m, d)
+  out = mt.step_batched(_with(m, integrator=int(IntegratorType.RK4)), d)
+  torch.cuda.synchronize()
+  assert (kn.launches, kn.launches_ell, kg.launches_ell) == (0, 5, 0)
+  assert bool(torch.isfinite(out.qpos).all())

@@ -125,8 +125,6 @@ _OUTSIDE = {
       <geom size=".1" contype="0" conaffinity="0"/><site name="a"/></body>
       <site name="b" pos="0 0 1"/></worldbody><tendon><spatial>
       <site site="a"/><site site="b"/></spatial></tendon></mujoco>""",
-    'elliptic': """<mujoco><option cone="elliptic"/><worldbody><body>
-      <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
     'implicitfast': """<mujoco><option integrator="implicitfast"/>
       <worldbody><body><freejoint/><geom size=".1"/></body></worldbody>
       </mujoco>""",
@@ -153,6 +151,9 @@ _INSIDE = {
     'cg': ("""<mujoco><option solver="CG"/><worldbody><body>
       <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
            'solver', 1),
+    'elliptic': ("""<mujoco><option cone="elliptic"/><worldbody><body>
+      <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
+                 'cone', 1),
 }
 
 

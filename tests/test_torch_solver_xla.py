@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import mujoco_warp_tpu as mjwt
 import mujoco_warp_tpu_torch as mt
@@ -26,7 +27,8 @@ INPUTS = ('qM', 'efc_J', 'efc_D', 'efc_aref', 'efc_frictionloss', 'efc_type',
           'qfrc_smooth', 'qacc_smooth', 'qacc_warmstart')
 
 
-def _inputs():
+@pytest.fixture(scope='module')
+def inputs():
   """The solve's inputs after one port step (which sets the warm start)
   and the stages before the solve of the next."""
   mjm, jm, m = build('three_humanoids')
@@ -41,10 +43,10 @@ def _inputs():
   return jm, m, d
 
 
-def test_solve_matches_jax_xla_solver():
-  jm, m, d = _inputs()
+def test_solve_matches_jax_xla_solver(inputs):
+  jm, m, d = inputs
   assert int(d.ncon.min()) > 0 and bool((d.qacc_warmstart != 0).any())
-  solver.counts.update(solve=0, passes=0)
+  solver.counts.update(dict.fromkeys(solver.counts, 0))
   out = solver.solve(m, *[getattr(d, k) for k in INPUTS])
   assert solver.counts['solve'] == 1
   assert solver.counts['passes'] == int(out['solver_niter'].max()) > 0
@@ -63,8 +65,31 @@ def test_solve_matches_jax_xla_solver():
   assert dn.max() <= 2, (out['solver_niter'], ref.solver_niter)
 
 
-def test_solve_refuses_the_iterative_linesearch():
-  jm, m, d = _inputs()
-  m = m.replace(opt=m.opt.replace(ls_parallel=0))
-  with pytest.raises(NotImplementedError):
-    solver.solve(m, *[getattr(d, k) for k in INPUTS])
+def test_solve_refuses_the_iterative_linesearch(inputs):
+  """Named when the iterative linesearch (ls_parallel off) raised: the
+  same Newton solve with it now runs it and reaches the optimum the
+  parallel linesearch reaches, its objective within one unit of
+  tolerance · meaninertia · nv (float64). The iterative linesearch is
+  held against the JAX package's `_solve_xla` in
+  tests/test_torch_forward.py (CG) and tests/test_torch_elliptic_solve.py
+  (the elliptic cone)."""
+  _, m, d = inputs
+  f64 = lambda x: x.double() if x.is_floating_point() else x
+  args = [f64(getattr(d, k)) for k in INPUTS]
+  solver.counts.update(dict.fromkeys(solver.counts, 0))
+  it = solver.solve(m.replace(opt=m.opt.replace(ls_parallel=0)), *args)
+  assert solver.counts['passes'] == int(it['solver_niter'].max()) > 0
+  par = solver.solve(m, *args)
+  ne, nf, _, _, _ = mt.efc_layout(m, 0)
+  rf = args[4] / torch.clamp(args[2], min=solver.MINVAL)
+  masks = solver._row_masks(d.efc_type)
+
+  def objective(qacc):
+    jaref = torch.einsum('wrn,wn->wr', args[1], qacc) - args[3]
+    _, cost, _ = solver._update_constraint(jaref, args[2], args[4], rf,
+                                           *masks)
+    ma = torch.einsum('wij,wj->wi', args[0], qacc)
+    return 0.5 * ((ma - args[6]) * (qacc - args[7])).sum(1) + cost[:, 0]
+  unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * m.nv
+  gap = (objective(it['qacc']) - objective(par['qacc'])) / unit
+  assert float(gap.abs().max()) <= 1.0, gap

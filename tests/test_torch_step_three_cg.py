@@ -48,7 +48,7 @@ def stepped():
   d = mt.data_from_numpy(m, dict(qpos=q, qvel=v, ctrl=c), nconmax=NCONMAX)
   d_newton = d
   kb.launches.update(dict.fromkeys(kb.launches, 0))
-  solver.counts.update(solve=0, passes=0)
+  solver.counts.update(dict.fromkeys(solver.counts, 0))
   for _ in range(NSTEP):
     br = step(br)
     d = mt.step_batched(m, d)

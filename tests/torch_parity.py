@@ -48,11 +48,12 @@ def build(scene: str):
 
 
 def states(mjm, nworld: int, nstep: int, seed: int = 0,
-           qpos_noise: float = 0.05):
+           qpos_noise: float = 0.05, warmstart: bool = False):
   """(qpos, qvel) float32 arrays of nworld C MuJoCo rollouts of nstep
-  (+ 7 per world) steps from qpos0 with Gaussian qpos noise."""
+  (+ 7 per world) steps from qpos0 with Gaussian qpos noise; with
+  warmstart, also the rollouts' qacc_warmstart (the last step's qacc)."""
   rng = np.random.default_rng(seed)
-  qs, vs = [], []
+  qs, vs, ws = [], [], []
   for w in range(nworld):
     d = mujoco.MjData(mjm)
     d.qpos[:] += qpos_noise * rng.standard_normal(mjm.nq)
@@ -60,7 +61,9 @@ def states(mjm, nworld: int, nstep: int, seed: int = 0,
       mujoco.mj_step(mjm, d)
     qs.append(d.qpos.copy())
     vs.append(d.qvel.copy())
-  return np.asarray(qs, np.float32), np.asarray(vs, np.float32)
+    ws.append(d.qacc_warmstart.copy())
+  out = np.asarray(qs, np.float32), np.asarray(vs, np.float32)
+  return out + (np.asarray(ws, np.float32),) if warmstart else out
 
 
 def assert_close(a, b, name: str, tol: float):
