@@ -62,6 +62,15 @@ Phases:
       iterative linesearch); hold one step of each against the all-plain
       step; time B2, B3e and B4-elliptic with their plain versions and
       bounds.
+  Then the entry point of B9-B12 (kernels.smooth.smooth_front, kinematics,
+  com_pos, crb), which reaches no step:
+  (p) on the humanoid state of (c) and the three_humanoids state of (f),
+      8192 worlds: from counts at 0, call each of the four functions once
+      on B1's normalized qpos q (B11 on B10's outputs, B12 on B11's) and
+      require one launch each; hold every output bit-equal to B1's of the
+      same name (or, where it is not, within TOL_B1, printed), each kernel
+      against its plain version at TOL_B1 (B12 also on inputs plus seeded
+      noise); time each kernel and its plain version, with its bound.
 One JSON line lists every kernel's record.
 
 The last line is {"ok": true, "device": {...}}; any failure raises and
@@ -483,6 +492,7 @@ def _reset_counts():
   for mod in (ks, kc, kg, kn):
     mod.launches = 0
   kg.launches_ell = kn.launches_ell = 0
+  ks.launches_front = ks.launches_kin = ks.launches_com = ks.launches_crb = 0
   kb.launches.update(dict.fromkeys(kb.launches, 0))
   solver.counts.update(dict.fromkeys(solver.counts, 0))
 
@@ -495,7 +505,19 @@ def _read_counts() -> dict:
   from mujoco_warp_tpu_torch.kernels import smooth as ks
   return dict(smooth=ks.launches, contact=kc.launches, glue=kg.launches,
               glue_ell=kg.launches_ell, newton=kn.launches,
-              newton_ell=kn.launches_ell, **kb.launches)
+              newton_ell=kn.launches_ell, front=ks.launches_front,
+              kinematics=ks.launches_kin, com_pos=ks.launches_com,
+              crb=ks.launches_crb, **kb.launches)
+
+
+ENTRY_COUNTS = ('front', 'kinematics', 'com_pos', 'crb')    # B9-B12
+
+
+def _expect_no_entries(label):
+  """A step path launches none of B9-B12."""
+  counts = {k: _read_counts()[k] for k in ENTRY_COUNTS}
+  if any(counts.values()):
+    raise RuntimeError(f'{label}: launched B9-B12 {counts}')
 
 
 def _zero_counts() -> dict:
@@ -827,6 +849,7 @@ def _three_humanoids(card) -> list:
 
   # ---- (f) kernels against their plain versions ----
   d, prep = bench.benchmark(m, d, nstep=PREP3)
+  d_f = d
   print(f'prep: {PREP3} steps, ncon mean {prep["ncon_mean"]:.2f}, '
         f'solver_niter mean {prep["solver_niter_mean"]:.2f} max '
         f'{prep["solver_niter_max"]}')
@@ -911,6 +934,7 @@ def _three_humanoids(card) -> list:
   if kb.launches['tree_solve'] or kb.launches['cho_solve'] or kn.launches:
     raise RuntimeError(f'the Newton step launched {kb.launches}, newton '
                        f'{kn.launches}')
+  _expect_no_entries('the three_humanoids main path')
   counts = {'smooth[three_humanoids]': ks.launches,
             'contact[three_humanoids]': kc.launches,
             'tree_ldl': kb.launches['tree_ldl'],
@@ -1041,7 +1065,7 @@ def _three_humanoids(card) -> list:
           lambda: batch_linalg.tree_solve_from_factor_batched(ld, grad,
                                                               parent),
           W * 4 * (nnz + 2 * nv), W * (4 * (nnz - nv) + nv))
-  return records
+  return records + _smooth_entries('[three_humanoids]', m, d_f)
 
 
 def _flops_cone(m, cone, D, it) -> float:
@@ -1334,6 +1358,96 @@ def _elliptic_three(card) -> list:
   return records
 
 
+def _flops_entry(m, W, stages) -> float:
+  """B9-B12's operations, estimated from the model's sizes per stage:
+  'kin' (FK), 'com' (body frames, subtree com, cinert, cdof), 'crb'
+  (subtree sums, qM's ancestor chains)."""
+  chain = sum(len(r) for r in m.dof_ancestor_rows)
+  per = dict(kin=90 * m.nbody + 100 * m.njnt,
+             com=260 * m.nbody + 30 * m.nv,
+             crb=10 * m.nbody + 40 * m.nv + 12 * chain)
+  return W * sum(per[s] for s in stages)
+
+
+def _held_to_b1(label, out, b1) -> None:
+  """Hold outputs of B9-B12 to B1's outputs of the same names: bit-equal,
+  the same device code on the same inputs; a field that is not (the
+  compiler contracting differently at another call site) is printed and
+  held at TOL_B1."""
+  import torch
+  diff = [k for k in out if not torch.equal(out[k], b1[k])]
+  print(f'  {label} against B1: '
+        f'{"bit-equal" if not diff else "not bit-equal in " + str(diff)}')
+  if diff:
+    _compare(f'{label} vs B1', out, b1, TOL_B1, diff)
+
+
+def _smooth_entries(tag, m, d) -> list:
+  """Phase (p) on the state d: B9-B12 from counts at 0, each once, held
+  to B1's outputs and to their plain versions, then timed with their
+  bounds; returns their records, named with `tag`."""
+  import torch
+  from mujoco_warp_tpu_torch import smooth
+  from mujoco_warp_tpu_torch.kernels import _build
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  b1 = ks.smooth(m, d.qpos, d.qvel)
+  q = b1['qpos']
+  _reset_counts()
+  front = ks.smooth_front(m, q)
+  kin = ks.kinematics(m, q)
+  com = ks.com_pos(m, *kin)
+  crb = ks.crb(m, *com[1:])
+  torch.cuda.synchronize()
+  _expect_counts(f'B9-B12{tag}', dict(_zero_counts(), front=1, kinematics=1,
+                                      com_pos=1, crb=1))
+  launches = _read_counts()
+  named = lambda names, x: dict(zip(names, x))
+  outs = dict(B9=front, B10=named(ks.KINEMATICS, kin),
+              B11=named(ks.COM_POS, com), B12=named(ks.CRB, crb))
+  for k, o in outs.items():
+    _held_to_b1(f'{k}{tag}', o, b1)
+
+  errs = dict(
+      B9=_compare(f'B9{tag}', front, ks.plain_smooth_front(m, q), TOL_B1,
+                  ks.FRONT),
+      B10=_compare(f'B10{tag}', outs['B10'],
+                   named(ks.KINEMATICS, smooth.kinematics(m, q)), TOL_B1,
+                   ks.KINEMATICS),
+      B11=_compare(f'B11{tag}', outs['B11'],
+                   named(ks.COM_POS, ks.plain_com_pos(m, *kin)), TOL_B1,
+                   ks.COM_POS),
+      B12=_compare(f'B12{tag}', outs['B12'],
+                   named(ks.CRB, smooth.crb(m, *com[1:])), TOL_B1, ks.CRB))
+  # B12 on inputs that no B11 made
+  gen = torch.Generator(device=q.device).manual_seed(SEED)
+  noisy = [x + 0.05 * torch.randn(x.shape, generator=gen, device=x.device)
+           for x in com[1:]]
+  errs['B12'] = max(errs['B12'], _compare(
+      f'B12{tag} perturbed', named(ks.CRB, ks.crb(m, *noisy)),
+      named(ks.CRB, smooth.crb(m, *noisy)), TOL_B1, ks.CRB))
+
+  records = []
+  W = q.shape[0]
+  tables = _build.model_tables(m, 'smooth', ks._tables)
+  for key, name, count, line, ins, out, run, plain, stages in (
+      ('B9', 'smooth_front', 'front', 665, (q,), front,
+       lambda: ks.smooth_front(m, q),
+       lambda: ks.plain_smooth_front(m, q), ('kin', 'com', 'crb')),
+      ('B10', 'kinematics', 'kinematics', 722, (q,), kin,
+       lambda: ks.kinematics(m, q), lambda: smooth.kinematics(m, q),
+       ('kin',)),
+      ('B11', 'com_pos', 'com_pos', 243, kin, com,
+       lambda: ks.com_pos(m, *kin), lambda: ks.plain_com_pos(m, *kin),
+       ('com',)),
+      ('B12', 'crb', 'crb', 353, com[1:], crb, lambda: ks.crb(m, *com[1:]),
+       lambda: smooth.crb(m, *com[1:]), ('crb',))):
+    _record(records, name + tag, launches[count], errs[key],
+            'mujoco_warp_tpu_torch/csrc/smooth.cu',
+            f'mujoco_warp_tpu/pallas/smooth_kernels.py:{line}', run, plain,
+            _nbytes(ins, out, tables), _flops_entry(m, W, stages))
+  return records
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -1359,7 +1473,7 @@ def main() -> int:
   print(f'kernel build: {secs:.1f} s (one nvcc per source, in parallel)')
   for name in _build.SOURCES:
     for line in _build.build_log(name).splitlines():
-      if 'registers' in line or 'spill' in line:
+      if 'registers' in line or 'spill' in line or 'properties' in line:
         print(f'  ptxas {name}: {line.strip()}')
 
   # ---- (b) model and batch ----
@@ -1372,6 +1486,7 @@ def main() -> int:
 
   # ---- (c) kernels against their plain versions ----
   d, prep = bench.benchmark(m, d, nstep=PREP_STEPS)
+  d_c = d
   print(f'prep: {PREP_STEPS} steps, ncon mean {prep["ncon_mean"]:.2f}')
   errs = {}
   sm_out = ks.smooth(m, d.qpos, d.qvel)
@@ -1467,6 +1582,7 @@ def main() -> int:
             'glue': kg.launches}
   if kn.launches:
     raise RuntimeError('the glue step launched the Newton kernel')
+  _expect_no_entries('the main path')
   print(f'launches in the main path: {counts} for {WARMUP + NSTEP} steps')
   for name, n in counts.items():
     if n != WARMUP + NSTEP:
@@ -1538,6 +1654,7 @@ def main() -> int:
   records += _three_humanoids(card)
   records += _elliptic_humanoid(card, m, d)
   records += _elliptic_three(card)
+  records += _smooth_entries('', m, d_c)
   print(json.dumps({'kernels': records}))
   print(f'card: {card}')
   print(json.dumps({'ok': True, 'device': {

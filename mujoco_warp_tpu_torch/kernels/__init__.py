@@ -10,10 +10,18 @@
   batch_linalg.tree_ldl    B7  (pallas/batch_linalg.tree_ldl_solve_batched)
   batch_linalg.tree_solve  B8
                       (pallas/batch_linalg.tree_solve_from_factor_batched)
+  smooth.smooth_front      B9   csrc/smooth.cu
+                               (pallas/smooth_kernels.smooth_front_batched)
+  smooth.kinematics        B10  (pallas/smooth_kernels.kinematics_batched)
+  smooth.com_pos           B11  (pallas/smooth_kernels.com_pos_batched)
+  smooth.crb               B12  (pallas/smooth_kernels.crb_batched)
 
-B3 and B4 share the solve's device code, csrc/newton.cuh.
+B3 and B4 share the solve's device code, csrc/newton.cuh; B9-B12 are
+instantiations of B1's kernel that run some of its stages.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, counting launches in its module's
-`launches` (batch_linalg: one count per kernel).
+`launches` (batch_linalg: one count per kernel; glue and newton count the
+elliptic entries in `launches_ell`, smooth B9-B12 in `launches_front`,
+`launches_kin`, `launches_com` and `launches_crb`).
 """

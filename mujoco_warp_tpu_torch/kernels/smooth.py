@@ -1,10 +1,28 @@
 """Kernel B1: the smooth stage (kinematics, frames, com_pos, crb/qM,
-com_vel, rne) in one CUDA kernel, `csrc/smooth.cu`.
+com_vel, rne) in one CUDA kernel, `csrc/smooth.cu`; and kernels B9-B12,
+entries of the same source that run B1's position stages.
 
 Replaces the TPU kernel `smooth_mega_batched`
 (`mujoco_warp_tpu/pallas/smooth_kernels.py:557`). Its plain version is
 `mujoco_warp_tpu_torch.smooth.smooth`, which runs for CPU tensors; a
 CUDA tensor launches the kernel or raises.
+
+B9-B12 are public functions with the JAX kernels' inputs and outputs:
+
+* B10 `kinematics` (`kinematics_batched` :722): xpos, xquat, xanchor,
+  xaxis of normalized qpos; plain version `smooth.kinematics`.
+* B11 `com_pos` (`com_pos_batched` :243): subtree_com, cinert, cdof of
+  xpos, xquat, xanchor, xaxis; plain version `plain_com_pos`.
+* B12 `crb` (`crb_batched` :353): crb and the dense qM of any cinert and
+  cdof; plain version `smooth.crb`.
+* B9 `smooth_front` (`smooth_front_batched` :665): B10, B11 and B12 in
+  one launch; plain version `plain_smooth_front`.
+
+No step path calls them. Unlike the JAX kernels, they return njnt rows of
+xanchor and xaxis when njnt is 0 (the JAX kernels pad one row), and, as
+B1, they take no mocap bodies (the model gate refuses them). `launches`
+counts B1's launches; `launches_front`, `launches_kin`, `launches_com`
+and `launches_crb` count B9, B10, B11 and B12.
 """
 
 from __future__ import annotations
@@ -17,7 +35,8 @@ from . import _build
 
 MAXBODY = 64     # compile-time cap of csrc/smooth.cu
 
-launches = 0     # kernel launches since the count was last reset
+launches = 0     # B1's launches since the count was last reset
+launches_front = launches_kin = launches_com = launches_crb = 0   # B9-B12
 
 _PTRS = (
     'qpos', 'qvel',
@@ -73,20 +92,117 @@ def smooth(m: Model, qpos: torch.Tensor, qvel: torch.Tensor) -> dict:
   return _launch(m, qpos, qvel)
 
 
+def _launch_entry(m: Model, entry: str, inputs: dict, outputs,
+                  local_frames: bool) -> dict:
+  """Launch an entry of csrc/smooth.cu on `inputs` (Params fields ->
+  tensors) into new tensors for the fields `outputs`; every other pointer
+  of Params is null. An entry with `local_frames` keeps per-body arrays in
+  local memory, sized by MAXBODY."""
+  if local_frames and m.nbody > MAXBODY:
+    raise ValueError(f'smooth kernel: nbody={m.nbody} (cap {MAXBODY})')
+  W = next(iter(inputs.values())).shape[0]
+  dev = m.device
+  shapes = dict(output_shapes(m, W), qvel=(W, m.nv))
+  for k, t in inputs.items():
+    _build.check(k, t, shapes[k], device=dev)
+  outs = {k: torch.empty(shapes[k], dtype=torch.float32, device=dev)
+          for k in outputs}
+  values = dict.fromkeys(_PTRS)
+  values.update(_build.model_tables(m, 'smooth', _tables), **inputs)
+  values.update({'qpos_out' if k == 'qpos' else k: t for k, t in outs.items()})
+  values.update(nworld=W, nq=m.nq, nv=m.nv, nbody=m.nbody, njnt=m.njnt,
+                ngeom=m.ngeom, nsite=m.nsite)
+  _build.launch('smooth', Params, values, dev, entry=entry)
+  return outs
+
+
 def _launch(m: Model, qpos: torch.Tensor, qvel: torch.Tensor) -> dict:
   global launches
-  if m.nbody > MAXBODY:
-    raise ValueError(f'smooth kernel: nbody={m.nbody} (cap {MAXBODY})')
-  W = qpos.shape[0]
-  dev = m.device
-  _build.check('qpos', qpos, (W, m.nq), device=dev)
-  _build.check('qvel', qvel, (W, m.nv), device=dev)
-  outs = {k: torch.empty(s, dtype=torch.float32, device=dev)
-          for k, s in output_shapes(m, W).items()}
-  values = dict(_build.model_tables(m, 'smooth', _tables), **outs)
-  values.update(qpos=qpos, qvel=qvel, qpos_out=outs['qpos'], nworld=W,
-                nq=m.nq, nv=m.nv, nbody=m.nbody, njnt=m.njnt, ngeom=m.ngeom,
-                nsite=m.nsite)
-  _build.launch('smooth', Params, values, dev)
+  outs = _launch_entry(m, '', dict(qpos=qpos, qvel=qvel), plain.OUTPUTS,
+                       True)
   launches += 1
+  return outs
+
+
+KINEMATICS = ('xpos', 'xquat', 'xanchor', 'xaxis')
+COM_POS = ('subtree_com', 'cinert', 'cdof')
+CRB = ('crb', 'qM')
+FRONT = KINEMATICS + COM_POS + CRB
+
+
+def plain_com_pos(m: Model, xpos, xquat, xanchor, xaxis):
+  """B11's plain version: the body frames, then `smooth.com_pos`."""
+  _, xipos, ximat, *_ = plain.frames(m, xpos, xquat)
+  return plain.com_pos(m, xquat, xipos, ximat, xanchor, xaxis)
+
+
+def plain_smooth_front(m: Model, qpos) -> dict:
+  """B9's plain version: kinematics, com_pos and crb in order."""
+  out = dict(zip(KINEMATICS, plain.kinematics(m, qpos)))
+  out.update(zip(COM_POS, plain_com_pos(m, *out.values())))
+  out.update(zip(CRB, plain.crb(m, out['cinert'], out['cdof'])))
+  return out
+
+
+def kinematics(m: Model, qpos: torch.Tensor):
+  """Normalized (W, nq) qpos -> (xpos (W, nb, 3), xquat (W, nb, 4),
+  xanchor, xaxis (W, njnt, 3)), as `smooth_kernels.kinematics_batched`."""
+  if qpos.device.type == 'cpu':
+    return plain.kinematics(m, qpos)
+  return _launch_kinematics(m, qpos)
+
+
+def _launch_kinematics(m: Model, qpos: torch.Tensor):
+  global launches_kin
+  outs = _launch_entry(m, 'kin_', dict(qpos=qpos), KINEMATICS, False)
+  launches_kin += 1
+  return tuple(outs.values())
+
+
+def com_pos(m: Model, xpos, xquat, xanchor, xaxis):
+  """(W, nb, 3) xpos, (W, nb, 4) xquat, (W, njnt, 3) xanchor and xaxis ->
+  (subtree_com (W, nb, 3), cinert (W, nb, 10), cdof (W, nv, 6)), as
+  `smooth_kernels.com_pos_batched`."""
+  if xpos.device.type == 'cpu':
+    return plain_com_pos(m, xpos, xquat, xanchor, xaxis)
+  return _launch_com_pos(m, xpos, xquat, xanchor, xaxis)
+
+
+def _launch_com_pos(m: Model, xpos, xquat, xanchor, xaxis):
+  global launches_com
+  outs = _launch_entry(m, 'com_', dict(xpos=xpos, xquat=xquat,
+                                       xanchor=xanchor, xaxis=xaxis),
+                       COM_POS, True)
+  launches_com += 1
+  return tuple(outs.values())
+
+
+def crb(m: Model, cinert, cdof):
+  """(W, nb, 10) cinert and (W, nv, 6) cdof -> (crb (W, nb, 10), qM (W,
+  nv, nv)), as `smooth_kernels.crb_batched`."""
+  if cinert.device.type == 'cpu':
+    return plain.crb(m, cinert, cdof)
+  return _launch_crb(m, cinert, cdof)
+
+
+def _launch_crb(m: Model, cinert, cdof):
+  global launches_crb
+  outs = _launch_entry(m, 'crb_', dict(cinert=cinert, cdof=cdof), CRB,
+                       False)
+  launches_crb += 1
+  return tuple(outs.values())
+
+
+def smooth_front(m: Model, qpos: torch.Tensor) -> dict:
+  """Normalized (W, nq) qpos -> dict of FRONT tensors (xpos .. qM), as
+  `smooth_kernels.smooth_front_batched`."""
+  if qpos.device.type == 'cpu':
+    return plain_smooth_front(m, qpos)
+  return _launch_smooth_front(m, qpos)
+
+
+def _launch_smooth_front(m: Model, qpos: torch.Tensor) -> dict:
+  global launches_front
+  outs = _launch_entry(m, 'front_', dict(qpos=qpos), FRONT, True)
+  launches_front += 1
   return outs

@@ -1,13 +1,15 @@
-"""Run the pyramidal kernels B2, B3 and B4 of two checkouts of the port on
-the same saved inputs, and compare their outputs bit for bit.
+"""Run the kernels B1, B2, B3 and B4 (pyramidal) of two checkouts of the
+port on the same saved inputs, and compare their outputs bit for bit.
 
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py inputs FILE
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py run ROOT FILE OUT
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py compare OUT OUT...
 
 `inputs` steps the humanoid (8192 worlds, nconmax 24, seeded qpos noise)
-through this checkout's kernels and saves the inputs of B2 (contact),
-B3 (glue) and B4 (newton, without and with the integration diagonal hb).
+through this checkout's kernels and saves the inputs of B1 (smooth), B2
+(contact), B3 (glue) and B4 (newton, without and with the integration
+diagonal hb); and B1's inputs on three_humanoids (8192 worlds, nconmax
+100, after THREE_STEPS steps).
 `run` imports `mujoco_warp_tpu_torch` from the checkout at ROOT, builds
 its kernels there, runs each kernel on the saved inputs and saves the
 outputs and each kernel's time (CUDA events over 20 launches, after one).
@@ -27,6 +29,7 @@ NWORLD = 8192
 NCONMAX = 24
 SEED = 0
 PREP_STEPS = 100
+THREE_STEPS = 10
 
 
 def make_inputs(path: str) -> None:
@@ -54,7 +57,12 @@ def make_inputs(path: str) -> None:
           con['efc_frictionloss'], sm['qpos'], d.qvel, d.ctrl, qfx,
           d.qacc_warmstart)
   qfs = kg.glue(m, *g_in)['qfrc_smooth']
-  torch.save(dict(c_in=c_in, g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9])),
+  m3 = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
+  d3 = mt.make_batch(m3, mt.make_data(m3, nconmax=100), NWORLD,
+                     qpos_noise=0.01, generator=gen)
+  d3, _ = bench.benchmark(m3, d3, nstep=THREE_STEPS)
+  torch.save(dict(s_in=(d.qpos, d.qvel), s3_in=(d3.qpos, d3.qvel),
+                  c_in=c_in, g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9])),
              path)
 
 
@@ -68,13 +76,17 @@ def run(root: str, path: str, out: str) -> None:
   from mujoco_warp_tpu_torch.kernels import contact as kc
   from mujoco_warp_tpu_torch.kernels import glue as kg
   from mujoco_warp_tpu_torch.kernels import newton as kn
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
   if not mt.__file__.startswith(root + '/'):
     raise RuntimeError(f'imported {mt.__file__}, not the checkout {root}')
   _build.build_all()
   inp = torch.load(path)
   m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
+  m3 = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
   hb = m.opt.timestep * m.dof_damping
   calls = dict(
+      smooth=lambda: ks.smooth(m, *inp['s_in']),
+      smooth_three_humanoids=lambda: ks.smooth(m3, *inp['s3_in']),
       contact=lambda: kc.contact(m, *inp['c_in'], NCONMAX),
       glue=lambda: kg.glue(m, *inp['g_in']),
       newton=lambda: kn.newton_solve(m, *inp['n_in']),

@@ -20,7 +20,9 @@ LAUNCHERS = {'launch', '_launch', 'smooth', 'contact', 'glue',
              'unfused_stages', 'batched_stages', 'solve', 'newton_solve',
              'cho_solve', 'tree_solve', '_launch_cho_solve',
              '_launch_tree_solve', 'm_solve_factor', 'm_cho_solve',
-             'forward_stages', 'forward_batched'}
+             'forward_stages', 'forward_batched', 'kinematics', 'com_pos',
+             'crb', 'smooth_front', '_launch_kinematics', '_launch_com_pos',
+             '_launch_crb', '_launch_smooth_front', '_launch_entry'}
 
 
 def _imports(tree):
@@ -67,6 +69,7 @@ def test_the_scan_sees_the_package():
   names = {_name(p) for p in FILES}
   for must in ('chip_smoke.py', 'mujoco_warp_tpu_torch/io.py',
                'mujoco_warp_tpu_torch/kernels/glue.py',
+               'mujoco_warp_tpu_torch/kernels/smooth.py',
                'mujoco_warp_tpu_torch/kernels/batch_linalg.py',
                'mujoco_warp_tpu_torch/kernels/newton.py',
                'mujoco_warp_tpu_torch/kernels/contact.py',

@@ -1,6 +1,7 @@
 """The port's kernel wrappers (B1 smooth, B2 contact, B3 glue, B4 newton,
 B5 spd_solve, B6 cho_solve, B7 tree_ldl and B8 tree_solve; with the
-elliptic cone, B2's elliptic rows, B3e and B4-elliptic).
+elliptic cone, B2's elliptic rows, B3e and B4-elliptic; B1's entries B9
+smooth_front, B10 kinematics, B11 com_pos and B12 crb).
 
 On the CPU a wrapper runs its plain version and launches nothing. On the
 card each kernel is held against its plain version (tests marked `cuda`,
@@ -102,18 +103,62 @@ def test_wrappers_refuse_models_past_their_caps():
                sm['subtree_com'], sm['cdof'], kc.MAXCON + 1)
 
 
-@pytest.mark.parametrize('kernel', ['smooth', 'contact', 'glue'])
+def _smooth_entries(m, sm):
+  """B9-B12 on B1's outputs sm: name -> (wrapper, launch path, count,
+  plain version, output names, arguments)."""
+  pos = (sm['xpos'], sm['xquat'], sm['xanchor'], sm['xaxis'])
+  return dict(
+      smooth_front=(ks.smooth_front, ks._launch_smooth_front,
+                    'launches_front', ks.plain_smooth_front, ks.FRONT,
+                    (m, sm['qpos'])),
+      kinematics=(ks.kinematics, ks._launch_kinematics, 'launches_kin',
+                  smooth.kinematics, ks.KINEMATICS, (m, sm['qpos'])),
+      com_pos=(ks.com_pos, ks._launch_com_pos, 'launches_com',
+               ks.plain_com_pos, ks.COM_POS, (m, *pos)),
+      crb=(ks.crb, ks._launch_crb, 'launches_crb', smooth.crb, ks.CRB,
+           (m, sm['cinert'], sm['cdof'])))
+
+
+SMOOTH_ENTRIES = ('smooth_front', 'kinematics', 'com_pos', 'crb')
+
+
+def _named(out, names):
+  return out if isinstance(out, dict) else dict(zip(names, out))
+
+
+@pytest.mark.parametrize('kernel', ['smooth', 'contact', 'glue',
+                                    *SMOOTH_ENTRIES])
 def test_launch_refuses_cpu_tensors(kernel):
   """The kernels have no CPU mode: their launch path raises on a CPU
   tensor and counts no launch."""
   m, d = _state('cpu', 2, 0)
   sm, c_in, _, g_in = _stages(m, d)
-  mod, args = {'smooth': (ks, (m, d.qpos, d.qvel)),
-               'contact': (kc, c_in), 'glue': (kg, g_in)}[kernel]
-  mod.launches = 0
+  table = {'smooth': (ks, 'launches', ks._launch, (m, d.qpos, d.qvel)),
+           'contact': (kc, 'launches', kc._launch, c_in),
+           'glue': (kg, 'launches', kg._launch, g_in)}
+  table.update({k: (ks, count, launch, args) for k, (_, launch, count, _, _,
+                                                     args)
+                in _smooth_entries(m, sm).items()})
+  mod, count, launch, args = table[kernel]
+  setattr(mod, count, 0)
   with pytest.raises(ValueError, match='expected a tensor on'):
-    mod._launch(*args)
-  assert mod.launches == 0
+    launch(*args)
+  assert getattr(mod, count) == 0
+
+
+@pytest.mark.parametrize('entry', SMOOTH_ENTRIES)
+def test_smooth_entries_run_plain_on_cpu(entry):
+  """B9-B12 on CPU tensors: the plain version, bit for bit, and no
+  launch counted."""
+  m, d = _state('cpu', 3, 10)
+  sm = smooth.smooth(m, d.qpos, d.qvel)
+  fn, _, count, plain, names, args = _smooth_entries(m, sm)[entry]
+  setattr(ks, count, 0)
+  out, ref = _named(fn(*args), names), _named(plain(*args), names)
+  assert set(out) == set(names)
+  for name in names:
+    torch.testing.assert_close(out[name], ref[name], rtol=0, atol=0)
+  assert getattr(ks, count) == 0
 
 
 @pytest.mark.cuda
@@ -125,6 +170,34 @@ def test_smooth_kernel_matches_plain(cuda):
   assert ks.launches == 1
   for name, ref in smooth.smooth(m, d.qpos, d.qvel).items():
     _close(out[name], ref, name, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', ['humanoid', 'three_humanoids'])
+def test_smooth_entries_match_plain_and_b1(cuda, model):
+  """B9-B12 against their plain versions at 2e-5 of scale, and against
+  B1's outputs of the same names bit for bit: they run B1's device code
+  on B1's normalized qpos (B11 on B10's outputs, B12 on B11's). B12 also
+  on inputs no B11 made."""
+  npz, nconmax = ((models.HUMANOID_NPZ, NCONMAX) if model == 'humanoid'
+                  else (models.THREE_HUMANOIDS_NPZ, 100))
+  m, d = _state(cuda, 256, 20, npz, nconmax)
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  for entry, (fn, _, count, plain, names, args) in _smooth_entries(
+      m, sm).items():
+    setattr(ks, count, 0)
+    out = _named(fn(*args), names)
+    torch.cuda.synchronize()
+    assert getattr(ks, count) == 1, entry
+    ref = _named(plain(*args), names)
+    for name in names:
+      _close(out[name], ref[name], f'{entry} {name}', 2e-5)
+      assert torch.equal(out[name], sm[name]), f'{entry} {name}'
+  gen = torch.Generator(device=cuda).manual_seed(1)
+  noisy = [x + 0.05 * torch.randn(x.shape, generator=gen, device=cuda)
+           for x in (sm['cinert'], sm['cdof'])]
+  for a, b, name in zip(ks.crb(m, *noisy), smooth.crb(m, *noisy), ks.CRB):
+    _close(a, b, f'crb {name} (perturbed)', 2e-5)
 
 
 @pytest.mark.cuda
