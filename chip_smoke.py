@@ -4,15 +4,19 @@
 
 Phases:
   (a) print the card's name and power limit; build the CUDA kernels from
-      mujoco_warp_tpu_torch/csrc (one nvcc per source, in parallel);
+      mujoco_warp_tpu_torch/csrc (one nvcc per source, in parallel); hold
+      B3 and B4 (one warp per world) to no spill stores and at most
+      MAX_STACK_B3 bytes of stack in ptxas's report;
   (b) load the humanoid from its committed .npz and make 8192 worlds with
       seeded qpos noise, nconmax=24;
   (c) step 100 times, then hold each kernel (B1 smooth, B2 contact, B3
-      glue) against its plain PyTorch version on the same inputs on the
-      card, failing above the stated tolerance;
-  (d) with every launch count at 0, run the main path (20 warm-up + 100
-      timed steps with OU control noise) and require each kernel to have
-      launched once per step; print steps/s and check for NaN;
+      glue, also in mode 1 with eulerdamp on) against its plain PyTorch
+      version on the same inputs on the card, failing above the stated
+      tolerance, and B3's two launches on the same inputs bit-equal;
+  (d) with every launch count at 0, run the main path (the harness's
+      protocol, utils/benchmark.py: 120 steps with OU control noise, the
+      last 99 timed) and require each kernel to have launched once per
+      step; print steps/s and check for NaN;
   (e) from the state the main path left, time each kernel and its plain
       version, compute its bound, and repeat 10 steps of the main path
       under torch.profiler for the device time per kernel name and the
@@ -24,8 +28,8 @@ Phases:
       (spd_solve, on the Hessians of the solve's first direction) by the
       packed factor, the per-world residual and the forward error against
       the plain version in float64;
-  (g) with every count at 0, run the main path (2 warm-up + 10 timed
-      steps) and require B1 and B2 once per step, B7 twice per step and
+  (g) with every count at 0, run the main path (12 steps, the last one
+      timed) and require B1 and B2 once per step, B7 twice per step and
       B5 once per Newton direction (one per step plus one per pass of the
       solve's loop); hold one whole step of the kernels against the
       all-plain step on the same state (qacc and the solve's objective);
@@ -35,7 +39,9 @@ Phases:
   selected on the loaded models (m.replace(opt=m.opt.replace(...))):
   (i) on the humanoid state of (c): hold B4 (newton) against its plain
       version with B3's criteria, without and with an integration
-      diagonal hb, and its qLD against solver.cholesky; hold B6
+      diagonal hb, and its qLD against solver.cholesky; B4 bit-equal to
+      B3's solve on the same qfrc_smooth, and two launches bit-equal;
+      print B3's and B4's launch shapes; hold B6
       (cho_solve) on B5's factor of qM by residual and forward error
       against the float64 plain version, and against B5's own x;
   (j) on the three_humanoids state of (f): hold B8 (tree_solve) on B7's
@@ -88,8 +94,10 @@ NCONMAX = 24
 SEED = 0
 QPOS_NOISE = 0.01
 PREP_STEPS = 100
-WARMUP = 20
-NSTEP = 100
+# the main path's steps in all: utils/benchmark.benchmark(nstep=120) takes
+# a first step, 20 warm-up steps and 99 timed ones (the JAX harness's
+# protocol)
+NSTEP = 120
 # scale-relative tolerances: |kernel - plain| <= tol * max(1, max |plain|)
 TOL_B1 = TOL_B2 = 2e-5       # same operations in another order
 # B3: the step tolerances of tests/test_glue_kernel.py:52-66 (qpos 5e-6,
@@ -112,8 +120,7 @@ PROFILE_STEPS = 10
 # three_humanoids (phases f-h): the benchmark suite's configuration
 NCONMAX3 = 100
 PREP3 = 10
-WARMUP3 = 2
-NSTEP3 = 10
+NSTEP3 = 12        # steps in all (a first, 10 warm-up and 1 timed)
 PROFILE3 = 2
 # B5 and B7 are held by residual and forward error, not elementwise: at
 # nv 81 the float32 rounding of either version moves x by more than a
@@ -128,10 +135,12 @@ FWD_FLOOR = 1e-6
 # one whole step, kernels against plain versions: qacc as B3's (5e-5 of
 # max(1, max |qacc|)) over the worlds whose contact and row sets agree
 TOL_STEP_QACC = 5e-5
-# forward_batched, RK4 and CG paths (phases i-l): timed steps after warm-up
-RK4_WARMUP, RK4_STEPS = 1, 4
-CG_WARMUP, CG_STEPS = 1, 4
-CG3_WARMUP, CG3_STEPS = 1, 2
+# forward_batched, RK4 and CG paths (phases i-l): steps in all, of which
+# the harness times the last one (a run of fewer than 22 steps is a first
+# step, n - 2 warm-up steps and one timed step)
+RK4_STEPS = 5
+CG_STEPS = 5
+CG3_STEPS = 3
 # One CG step, kernels against plain versions: CG is compared at its
 # converged answer, not per iteration. A change of one ulp in qfrc_smooth
 # moves the plain version's own qacc by 1.9e-4 of scale at 4 worlds
@@ -147,9 +156,9 @@ TOL_STEP_QACC_CG = 2e-3
 # units apart on the CPU). A qacc wrong by 1e-2 costs hundreds of units.
 TOL_OBJ_CG = 10.0
 # the elliptic cone (phases m-o): the options of the suite's aloha scenes,
-# set as the JAX package's override_model sets them; timed steps after
-# warm-up of P7 (the humanoid's glue step, B3e), P8 (RK4 steps, B4-elliptic
-# four times a step) and P9 (three_humanoids' unfused step)
+# set as the JAX package's override_model sets them; steps in all of P7
+# (the humanoid's glue step, B3e; the last 4 timed), P8 (RK4 steps,
+# B4-elliptic four times a step) and P9 (three_humanoids' unfused step)
 ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 # B3e and B4-elliptic are held to B3's tolerances, measured against the
 # plain version's own spread: its solve after a 1-ulp change of
@@ -172,9 +181,12 @@ ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 # of P7-P9 are held the same way against the all-plain step after a 1-ulp
 # change of qvel (_compare_step's `spread`), their worlds over the
 # tolerance by count, with their objectives printed.
-P7_WARMUP, P7_STEPS = 5, 20
-P8_WARMUP, P8_STEPS = 1, 3
-P9_PREP, P9_WARMUP, P9_STEPS = 2, 1, 2
+P7_STEPS = 25
+P8_STEPS = 4
+P9_PREP, P9_STEPS = 2, 3
+# B3 and B4 run one warp per world: their ptxas report may show at most
+# this much stack and no spill stores
+MAX_STACK_B3 = 1024
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -482,6 +494,52 @@ def _flops_newton(nv, nact, it, nu=0) -> float:
                 4 * nact * nv + it * per_iter).sum())
 
 
+WARP_KERNELS = (('glue', 'glue_kernel'), ('newton', 'newton_kernel'))
+
+
+def _check_warp_kernels_ptxas():
+  """B3 and B4 run one warp per world with their state in shared memory:
+  ptxas must report no spill stores and at most MAX_STACK_B3 bytes of
+  stack for them."""
+  from mujoco_warp_tpu_torch.kernels import _build
+  for source, kernel in WARP_KERNELS:
+    info = {k: v for k, v in _build.ptxas_info(source).items()
+            if k.startswith(f'_Z{len(kernel)}{kernel}')}
+    if len(info) != 1:
+      raise RuntimeError(f'{kernel}: no single ptxas report ({info})')
+    (mangled, rep), = info.items()
+    print(f'  ptxas {kernel} ({mangled}): {rep.get("registers")} registers, '
+          f'{rep.get("stack")} B stack, {rep.get("spill_stores")} B spill '
+          f'stores, {rep.get("spill_loads")} B spill loads, '
+          f'{rep.get("smem")} B static shared memory')
+    if rep.get('spill_stores') != 0 or rep.get('stack', 1 << 30) > \
+        MAX_STACK_B3:
+      raise RuntimeError(f'{kernel}: spills or stack past {MAX_STACK_B3} B')
+
+
+def _print_warp_shapes():
+  """The launch shape of B3's and B4's last launches."""
+  from mujoco_warp_tpu_torch.kernels import _build
+  for source, kernel in WARP_KERNELS:
+    grid, block, smem, per_sm = _build.shapes[(source, '')]
+    print(f'  {kernel} launch: grid {grid}, block {block} threads '
+          f'({block // 32} worlds), {smem} B dynamic shared memory '
+          f'({smem // (block // 32)} B a world); {per_sm} blocks '
+          f'({per_sm * block // 32} worlds) resident per SM')
+
+
+def _check_repeat(label, fn):
+  """Two launches on the same inputs give the same bits (every sum in
+  the kernel runs in a fixed order, without atomics)."""
+  import torch
+  a, b = fn(), fn()
+  diff = [k for k in a if not torch.equal(a[k], b[k])]
+  print(f'  {label} two launches: '
+        f'{"bit-equal" if not diff else "differ in " + str(diff)}')
+  if diff:
+    raise RuntimeError(f'{label}: two launches differ in {diff}')
+
+
 def _reset_counts():
   from mujoco_warp_tpu_torch import solver
   from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
@@ -531,23 +589,37 @@ def _expect_counts(label, expect):
     raise RuntimeError(f'{label}: launch counts {counts}, expected {expect}')
 
 
-def _run_path(label, m, d, nstep, warmup, card):
-  """Benchmark a path from counts at 0; returns (Data, metrics, steps)."""
+def _bench_nstep(steps: int) -> int:
+  """The harness's nstep that takes `steps` steps in all (>= 2)."""
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  nstep = steps - 2 if steps <= 22 else steps
+  assert bench.total_steps(nstep) == steps, steps
+  return nstep
+
+
+def _solved(m, d) -> int:
+  """Worlds whose last solve stopped before opt.iterations."""
+  return int((d.solver_niter < m.opt.iterations).sum())
+
+
+def _run_path(label, m, d, steps, card):
+  """Benchmark a path of `steps` steps in all from counts at 0; returns
+  (Data, metrics, steps)."""
   import torch
   from mujoco_warp_tpu_torch import solver
   from mujoco_warp_tpu_torch.utils import benchmark as bench
   _reset_counts()
-  d, res = bench.benchmark(m, d, nstep=nstep, warmup=warmup)
-  steps = warmup + nstep
+  d, res = bench.benchmark(m, d, nstep=_bench_nstep(steps))
   for k in ('qpos', 'qvel', 'qacc', 'efc_force'):
     if not bool(torch.isfinite(getattr(d, k)).all()):
       raise RuntimeError(f'{label}: non-finite {k}')
   passes = solver.counts['passes'] / steps
   print(f'{label}: {res["steps_per_sec"]:.1f} steps/s, '
-        f'{res["step_time_us"]:.1f} us/step over {nstep} steps at '
-        f'{NWORLD} worlds; solver_niter mean '
+        f'{res["step_time_us"]:.1f} us/step over {res["nstep"]} timed of '
+        f'{steps} steps at {NWORLD} worlds; final solver_niter mean '
         f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}, '
-        f'converged {res["converged_worlds"]} of {NWORLD}; '
+        f'solve stopped before opt.iterations in {_solved(m, d)} of '
+        f'{NWORLD}; {res["converged_worlds"]} worlds without NaN; '
         f'{passes:.2f} solver passes per step ({card})')
   print(json.dumps({label: dict(res, passes_per_step=passes, card=card)}))
   return d, res, steps
@@ -765,7 +837,7 @@ def _humanoid_paths(card, m, d, errs) -> list:
   if names(rk4) != front + ['solve[cuda]', 'rk4'] or \
       forward.uses_glue_kernel(rk4, d):
     raise RuntimeError('the RK4 humanoid does not run the unfused list')
-  d4, _, steps = _run_path('step_rk4', rk4, d, RK4_STEPS, RK4_WARMUP, card)
+  d4, _, steps = _run_path('step_rk4', rk4, d, RK4_STEPS, card)
   _expect_counts('RK4', dict(zero, smooth=4 * steps, contact=4 * steps,
                              newton=4 * steps))
   launches_b4 += kn.launches
@@ -777,7 +849,7 @@ def _humanoid_paths(card, m, d, errs) -> list:
   if names(cg) != front + ['solve', 'euler'] or \
       forward.uses_glue_kernel(cg, d):
     raise RuntimeError('the CG humanoid does not run the unfused list')
-  d5, _, steps = _run_path('step_cg', cg, d, CG_STEPS, CG_WARMUP, card)
+  d5, _, steps = _run_path('step_cg', cg, d, CG_STEPS, card)
   solves = solver.counts['solve'] + solver.counts['passes']
   if solver.counts['solve'] != steps or not solver.counts['passes']:
     raise RuntimeError(f'CG: solver counts {solver.counts}')
@@ -848,11 +920,11 @@ def _three_humanoids(card) -> list:
         f'nconmax={NCONMAX3}')
 
   # ---- (f) kernels against their plain versions ----
-  d, prep = bench.benchmark(m, d, nstep=PREP3)
+  d = bench.rollout(m, d, PREP3)
   d_f = d
-  print(f'prep: {PREP3} steps, ncon mean {prep["ncon_mean"]:.2f}, '
-        f'solver_niter mean {prep["solver_niter_mean"]:.2f} max '
-        f'{prep["solver_niter_max"]}')
+  print(f'prep: {PREP3} steps, ncon mean {float(d.ncon.float().mean()):.2f}, '
+        f'solver_niter mean {float(d.solver_niter.float().mean()):.2f} max '
+        f'{int(d.solver_niter.max())}')
   stages = forward.batched_stages(m, d)
   names = [n for n, _ in stages]
   print(f'stages: {" -> ".join(names)}')
@@ -929,8 +1001,8 @@ def _three_humanoids(card) -> list:
 
   # ---- (g) the main path, counted and timed ----
   _reset_counts()
-  d, res = bench.benchmark(m, d, nstep=NSTEP3, warmup=WARMUP3)
-  steps = WARMUP3 + NSTEP3
+  d, res = bench.benchmark(m, d, nstep=_bench_nstep(NSTEP3))
+  steps = NSTEP3
   if kb.launches['tree_solve'] or kb.launches['cho_solve'] or kn.launches:
     raise RuntimeError(f'the Newton step launched {kb.launches}, newton '
                        f'{kn.launches}')
@@ -952,10 +1024,12 @@ def _three_humanoids(card) -> list:
     if not bool(torch.isfinite(getattr(d, k)).all()):
       raise RuntimeError(f'non-finite {k} after the main path')
   print(f'step: {res["steps_per_sec"]:.1f} steps/s, '
-        f'{res["step_time_us"]:.1f} us/step over {NSTEP3} steps at '
-        f'{NWORLD} worlds; ncon mean {res["ncon_mean"]:.2f}, solver_niter '
-        f'mean {res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}'
-        f', converged {res["converged_worlds"]} of {NWORLD} ({card})')
+        f'{res["step_time_us"]:.1f} us/step over {res["nstep"]} timed of '
+        f'{steps} steps at {NWORLD} worlds; final ncon mean '
+        f'{res["ncon_mean"]:.2f}, solver_niter mean '
+        f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}, '
+        f'solve stopped before opt.iterations in {_solved(m, d)} of '
+        f'{NWORLD}; {res["converged_worlds"]} worlds without NaN ({card})')
   print(json.dumps({'step_three_humanoids': dict(res, card=card)}))
 
   # one whole step of the kernel path against the all-plain path
@@ -1035,7 +1109,7 @@ def _three_humanoids(card) -> list:
          _nbytes((H, grad, x)), W * (n ** 3 / 3 + 2 * n * n),
          library=lambda: torch.linalg.solve(H, grad))
   _print_profile('profile_three_humanoids',
-                 lambda: bench.benchmark(m, d, nstep=PROFILE3), PROFILE3,
+                 lambda: bench.rollout(m, d, PROFILE3), PROFILE3,
                  res['step_time_us'] / 1e3, card)
 
   # ---- (k) P6: CG steps ----
@@ -1046,7 +1120,7 @@ def _three_humanoids(card) -> list:
     raise RuntimeError('three_humanoids with CG does not run the unfused '
                        'list')
   d6, _, steps = _run_path('step_cg_three_humanoids', cg, d, CG3_STEPS,
-                           CG3_WARMUP, card)
+                           card)
   solves = solver.counts['solve'] + solver.counts['passes']
   if solver.counts['solve'] != steps or not solver.counts['passes']:
     raise RuntimeError(f'CG: solver counts {solver.counts}')
@@ -1178,8 +1252,7 @@ def _elliptic_humanoid(card, m0, d0) -> list:
   if names(m, d) != ['smooth_mega[cuda]', 'contact_efc_mega[cuda]',
                      'act_len_vel', 'solve_glue[cuda]']:
     raise RuntimeError('the elliptic humanoid does not take the glue list')
-  d7, res7, steps = _run_path('step_elliptic', m, d, P7_STEPS, P7_WARMUP,
-                              card)
+  d7, res7, steps = _run_path('step_elliptic', m, d, P7_STEPS, card)
   _expect_counts('P7', dict(_zero_counts(), smooth=steps, contact=steps,
                             glue_ell=steps))
   counts7 = _read_counts()
@@ -1239,8 +1312,7 @@ def _elliptic_humanoid(card, m0, d0) -> list:
   rk4 = m.replace(opt=m.opt.replace(integrator=int(IntegratorType.RK4)))
   if names(rk4, d7)[-2:] != ['solve[cuda]', 'rk4']:
     raise RuntimeError('the elliptic RK4 humanoid does not run B4-elliptic')
-  d8, _, steps = _run_path('step_elliptic_rk4', rk4, d7, P8_STEPS,
-                           P8_WARMUP, card)
+  d8, _, steps = _run_path('step_elliptic_rk4', rk4, d7, P8_STEPS, card)
   _expect_counts('P8 RK4', dict(_zero_counts(), smooth=4 * steps,
                                 contact=4 * steps, newton_ell=4 * steps))
   launches_b4e += kn.launches_ell
@@ -1285,7 +1357,7 @@ def _elliptic_humanoid(card, m0, d0) -> list:
                         n_out['solver_niter'].double()) +
           _flops_cone(m, cone, n_in[2], n_out['solver_niter']))
   _print_profile('profile_elliptic',
-                 lambda: bench.benchmark(m, d7, nstep=PROFILE_STEPS),
+                 lambda: bench.rollout(m, d7, PROFILE_STEPS),
                  PROFILE_STEPS, res7['step_time_us'] / 1e3, card)
   return records
 
@@ -1315,7 +1387,7 @@ def _elliptic_three(card) -> list:
   if names[-2:] != ['solve', 'euler'] or 'solve_glue[cuda]' in names:
     raise RuntimeError('elliptic three_humanoids does not run the unfused '
                        'list')
-  d, _ = bench.benchmark(m, d, nstep=P9_PREP)
+  d = bench.rollout(m, d, P9_PREP)
 
   # ---- (m) B2's elliptic rows against the plain rows ----
   sm = ks.smooth(m, d.qpos, d.qvel)
@@ -1327,7 +1399,7 @@ def _elliptic_three(card) -> list:
 
   # ---- (o) P9: counted and timed, then one step against the plain ----
   d9, res9, steps = _run_path('step_elliptic_three_humanoids', m, d,
-                              P9_STEPS, P9_WARMUP, card)
+                              P9_STEPS, card)
   counts = solver.counts
   solves = counts['solve'] + counts['passes']
   print(f'  P9: {counts["passes"] / steps:.2f} Newton passes and '
@@ -1344,7 +1416,7 @@ def _elliptic_three(card) -> list:
     raise RuntimeError('P9: no elliptic contact rows')
   _compare_step('P9 step', m, d9, TOL_STEP_QACC, spread=True)
   _print_profile('profile_elliptic_three_humanoids',
-                 lambda: bench.benchmark(m, d9, nstep=1), 1,
+                 lambda: bench.rollout(m, d9, 1), 1,
                  res9['step_time_us'] / 1e3, card)
   records = []
   _record(records, 'contact[elliptic three_humanoids]', launches, err,
@@ -1462,6 +1534,7 @@ def main() -> int:
   from mujoco_warp_tpu_torch.kernels import glue as kg
   from mujoco_warp_tpu_torch.kernels import newton as kn
   from mujoco_warp_tpu_torch.kernels import smooth as ks
+  from mujoco_warp_tpu_torch.types import DisableBit
   from mujoco_warp_tpu_torch.utils import benchmark as bench
 
   # ---- (a) card and build ----
@@ -1475,6 +1548,7 @@ def main() -> int:
     for line in _build.build_log(name).splitlines():
       if 'registers' in line or 'spill' in line or 'properties' in line:
         print(f'  ptxas {name}: {line.strip()}')
+  _check_warp_kernels_ptxas()
 
   # ---- (b) model and batch ----
   m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
@@ -1485,9 +1559,10 @@ def main() -> int:
         f'ngeom={m.ngeom} nu={m.nu}; nworld={NWORLD} nconmax={NCONMAX}')
 
   # ---- (c) kernels against their plain versions ----
-  d, prep = bench.benchmark(m, d, nstep=PREP_STEPS)
+  d = bench.rollout(m, d, PREP_STEPS)
   d_c = d
-  print(f'prep: {PREP_STEPS} steps, ncon mean {prep["ncon_mean"]:.2f}')
+  print(f'prep: {PREP_STEPS} steps, ncon mean '
+        f'{float(d.ncon.float().mean()):.2f}')
   errs = {}
   sm_out = ks.smooth(m, d.qpos, d.qvel)
   sm_ref = smooth.smooth(m, d.qpos, d.qvel)
@@ -1551,6 +1626,29 @@ def main() -> int:
   if share < share_ulp - NITER_MARGIN:
     raise RuntimeError(f'B3: solver_niter differs by more than '
                        f'{NITER_SLACK} in too many worlds')
+  _check_repeat('B3', lambda: kg.glue(m, *g_in))
+  # glue mode 1 (the humanoid with eulerdamp on): the re-solve with
+  # h * dof_damping held as B4's hb case (_check_newton), the advance
+  # against the kernel's own qacc_euler, the forces before the solve at
+  # B3's tolerances
+  m1 = m.replace(opt=m.opt.replace(disableflags=int(
+      m.opt.disableflags) & ~int(DisableBit.EULERDAMP)))
+  if forward.glue_mode(m1) != 1:
+    raise RuntimeError('the humanoid with eulerdamp on is not in mode 1')
+  g1, g1_ref = kg.glue(m1, *g_in), forward.glue(m1, *g_in)
+  h = float(m.opt.timestep)
+  errs['glue'] = max(errs['glue'], _check_newton(
+      'B3 mode 1', m1, g1, g1_ref, g_in[:5] + (g1_ref['qfrc_smooth'],
+                                                g_in[9]),
+      h * m.dof_damping))
+  qvel1 = g_in[6] + h * g1['qacc_euler']
+  _compare('B3 mode 1 advance', g1, dict(
+      qvel=qvel1, qpos=forward.integrate_pos(m1, g_in[5], qvel1, h)),
+           dict(qvel=TOL_B3_OTHER, qpos=TOL_B3['qpos']), ['qvel', 'qpos'])
+  _compare('B3 mode 1', g1, g1_ref, tol3,
+           ['actuator_force', 'qfrc_actuator', 'qfrc_spring', 'qfrc_damper',
+            'qfrc_passive', 'qfrc_smooth'])
+  _check_repeat('B3 mode 1', lambda: kg.glue(m1, *g_in))
 
   # ---- (i) B4 and B6 on the same state ----
   n_in = g_in[:5] + (g_ref['qfrc_smooth'], g_in[9])
@@ -1563,6 +1661,15 @@ def main() -> int:
         label, m, n_out, n_ref, n_in, hb))
   if float((n_out['qacc_euler'] - n_out['qacc']).abs().max()) == 0:
     raise RuntimeError('B4: hb left qacc_euler at qacc')
+  _check_repeat('B4 hb', lambda: kn.newton_solve(m, *n_in, hb=hb))
+  # B3 and B4 run the same device code, warp_newton
+  n_b3 = kn.newton_solve(m, *g_in[:5], g_out['qfrc_smooth'], g_in[9])
+  same = [k for k in kn.OUTPUTS if not torch.equal(n_b3[k], g_out[k])]
+  print(f'  B4 against B3\'s solve on the same qfrc_smooth: '
+        f'{"bit-equal" if not same else "differs in " + str(same)}')
+  if same:
+    raise RuntimeError('B4 differs from B3\'s solve')
+  _print_warp_shapes()
   # B6 on B5's factor of qM, a CG-like right-hand side (the gradient at
   # the warm start without its constraint part)
   qM = g_in[0]
@@ -1577,24 +1684,27 @@ def main() -> int:
 
   # ---- (d) the main path, counted and timed ----
   _reset_counts()
-  d, res = bench.benchmark(m, d, nstep=NSTEP, warmup=WARMUP)
+  d, res = bench.benchmark(m, d, nstep=NSTEP)
   counts = {'smooth': ks.launches, 'contact': kc.launches,
             'glue': kg.launches}
   if kn.launches:
     raise RuntimeError('the glue step launched the Newton kernel')
   _expect_no_entries('the main path')
-  print(f'launches in the main path: {counts} for {WARMUP + NSTEP} steps')
+  steps = bench.total_steps(NSTEP)
+  print(f'launches in the main path: {counts} for {steps} steps')
   for name, n in counts.items():
-    if n != WARMUP + NSTEP:
-      raise RuntimeError(f'{name}: {n} launches for {WARMUP + NSTEP} steps')
+    if n != steps:
+      raise RuntimeError(f'{name}: {n} launches for {steps} steps')
   for k in ('qpos', 'qvel', 'qacc', 'efc_force'):
     if not bool(torch.isfinite(getattr(d, k)).all()):
       raise RuntimeError(f'non-finite {k} after the main path')
   print(f'step: {res["steps_per_sec"]:.1f} steps/s, '
-        f'{res["step_time_us"]:.1f} us/step over {NSTEP} steps at '
-        f'{NWORLD} worlds; ncon mean {res["ncon_mean"]:.2f}, solver_niter '
-        f'mean {res["solver_niter_mean"]:.2f}, converged '
-        f'{res["converged_worlds"]} of {NWORLD} ({card})')
+        f'{res["step_time_us"]:.1f} us/step over {res["nstep"]} timed of '
+        f'{steps} steps at {NWORLD} worlds; final ncon mean '
+        f'{res["ncon_mean"]:.2f}, solver_niter mean '
+        f'{res["solver_niter_mean"]:.2f}, solve stopped before '
+        f'opt.iterations in {_solved(m, d)} of {NWORLD}; '
+        f'{res["converged_worlds"]} worlds without NaN ({card})')
   print(json.dumps({'step': dict(res, card=card)}))
 
   # ---- (e) kernel times, plain times and bounds ----
@@ -1646,8 +1756,7 @@ def main() -> int:
 
   # where a step's device time goes, from the state the kernels were
   # timed at; the busy share divides by phase (d)'s host-clock step
-  _print_profile('profile', lambda: bench.benchmark(m, d,
-                                                    nstep=PROFILE_STEPS),
+  _print_profile('profile', lambda: bench.rollout(m, d, PROFILE_STEPS),
                  PROFILE_STEPS, res['step_time_us'] / 1e3, card)
 
   records += _humanoid_paths(card, m, d, errs)

@@ -1,26 +1,27 @@
-// The Newton solve, one world per thread: the device code kernels B3
-// and B3e (glue.cu) and B4 and B4-elliptic (newton.cu) share, as the JAX
-// package shares _newton_core
-// (mujoco_warp_tpu/pallas/solver_kernels.py:103) between _glue_kernel,
-// _glue_ell_kernel, _newton_kernel and _newton_ell_kernel.
-// newton_solve<ELL>() factors qM, solves for qacc_smooth, runs the Newton
-// loop (init :446-466, loop :468-504, linesearch :398-444), writes the
-// forces and, with an integration diagonal, re-solves (qM + diag)
-// qacc_euler = qfrc_smooth + qfrc_constraint. ELL = false is the
-// pyramidal cone; ELL = true adds the elliptic cone's code (:139-178
-// precompute, :213-245 forces, :283-346 Hessian blocks, :351-390
-// linesearch terms) behind `if constexpr`, so the pyramidal
-// instantiation is the code it was before the cone came in.
-// Plain version: mujoco_warp_tpu_torch/solver.py, newton() (the cone:
-// class Cone).
+// The Newton solve: the device code kernels B3 and B3e (glue.cu) and B4
+// and B4-elliptic (newton.cu) share, as the JAX package shares
+// _newton_core (mujoco_warp_tpu/pallas/solver_kernels.py:103) between
+// _glue_kernel, _glue_ell_kernel, _newton_kernel and _newton_ell_kernel.
+// Each solve factors qM, solves for qacc_smooth, runs the Newton loop
+// (init :446-466, loop :468-504, linesearch :398-444), writes the forces
+// and, with an integration diagonal, re-solves (qM + diag) qacc_euler =
+// qfrc_smooth + qfrc_constraint. Plain version:
+// mujoco_warp_tpu_torch/solver.py, newton() (the cone: class Cone).
 //
-// A thread keeps H and its factor (nv x nv floats) and the acting rows'
-// state in local memory and reads J, D and aref through the cache from
-// the batch-first [W, ...] layout. It loops until its own world
-// converges: a converged world stops, as the TPU kernel freezes it with
-// alpha = 0 (:480). The rows that cannot act (D = 0 and frictionloss =
-// 0: inactive limits, empty contact slots) are skipped, which changes no
-// result.
+// The pyramidal cone (B3, B4) runs warp_newton(): one warp per world,
+// lane i owning dof i (nv <= 32), the world's matrices and acting rows in
+// shared memory (WarpMem), every sum over dofs or rows a warp reduction
+// in a fixed order, so that two launches give the same bits. The
+// elliptic cone (B3e, B4-elliptic) runs newton_solve<true>(): one thread
+// per world, H and the rows' state in local memory, J read through the
+// cache from the batch-first [W, ...] layout; it adds the cone's code
+// (:139-178 precompute, :213-245 forces, :283-346 Hessian blocks,
+// :351-390 linesearch terms) behind `if constexpr`.
+//
+// Both loop until their own world converges: a converged world stops,
+// as the TPU kernel freezes it with alpha = 0 (:480). The rows that
+// cannot act (D = 0 and frictionloss = 0: inactive limits, empty contact
+// slots) are skipped, which changes no result.
 #pragma once
 
 #include <type_traits>
@@ -601,4 +602,458 @@ DEV void newton_solve(const Solve& p, const ConeIn& ci, const float* qfs,
     p.qacc_smooth[i] = qacc_smooth[i];
     p.qacc_euler[i] = qacce[i];
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The pyramidal solve, one warp per world.
+//
+// Lane i keeps dof i's qacc, ma, grad, search, mv, qfrc_smooth and
+// qacc_smooth in registers. Shared memory holds, per world (WarpMem), qM
+// and the matrix being factored, then its factor, at the odd row stride
+// ld = nv | 1, so that lanes reading a column hit 32 banks; the acting
+// rows' state, compacted by __ballot_sync; and efc_J of the first JCAP
+// acting rows (the rest are read from global memory, one coalesced row
+// at a time). Global loads are issued all at once where they can be (qM,
+// D, frictionloss, the cached rows). Sums over dofs are warp reductions
+// (warp_sum); a row's product with a dof vector runs in the row's owner
+// lane (row k: lane k % 32), a dof's sum over rows in the dof's lane.
+// H = qM + J^T D J builds row i in lane i (a register array unrolled at
+// compile time); the Cholesky factor is formed column by column in
+// shared memory, lane i forming row i, the pivot broadcast by
+// __shfl_sync (warp_factor_solve); each substitution step is one shuffle
+// and a multiply by the stored reciprocal root of the pivot. The
+// linesearch evaluates its LS_K bracket points in one pass over the rows
+// (one partial sum per point in each lane, then a reduction each): the
+// point at 0 comes first, since the bracket scales multiply its alpha0.
+// Every sum runs in a fixed order, without atomics.
+//
+// On the H100 at 8192 humanoid worlds: 16 worlds resident per SM (4
+// blocks of 4, registers and shared memory both near their limit). The
+// time is about four waves of the slowest world's dependent chain (the
+// factor's columns, the substitutions' steps, the linesearch's
+// reductions), not the bytes or the flops.
+
+#define FULL_MASK 0xffffffffu
+#define WARPS 4    // worlds (warps) per block
+#define JCAP 32    // acting rows of efc_J kept in shared memory
+#define MAXLSK 16  // cap of ls_k (the wrappers pass solver.LS_K = 10)
+
+// The sum of v over the warp's lanes. Partners add the same two values,
+// so every lane ends with the same bits.
+DEV float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+// one world's shared memory
+struct WarpMem {
+  float* qM;     // nv x ld
+  float* L;      // nv x ld: a matrix to factor, then its lower factor
+  float* dinv;   // 32: its pivots' reciprocal roots
+  float* vec;    // 32: a dof vector, read by every lane
+  float* aux;    // naux: the actuators' forces on their dofs (B3)
+  float* Jc;     // jcap x ld: efc_J of the first jcap acting rows
+  float* D;      // nj each: the acting rows' state
+  float* fl;
+  float* rf;
+  float* jaref;
+  float* jv;
+  float* force;
+  int* idx;      // efc row
+  int* cls;      // 0 equality, 1 friction, 2 one-sided
+  int* quad;
+};
+
+// floats (and ints) of one world's WarpMem
+__host__ __device__ inline int warp_mem_words(int nv, int naux, int nj) {
+  const int ld = nv | 1;
+  return 2 * nv * ld + 64 + naux + (nj < JCAP ? nj : JCAP) * ld + 9 * nj;
+}
+
+DEV WarpMem warp_mem(float* base, int nv, int naux, int nj) {
+  const int ld = nv | 1;
+  WarpMem s;
+  float* p = base;
+  s.qM = p; p += nv * ld;
+  s.L = p; p += nv * ld;
+  s.dinv = p; p += 32;
+  s.vec = p; p += 32;
+  s.aux = p; p += naux;
+  s.Jc = p; p += min(nj, JCAP) * ld;
+  s.D = p; p += nj;
+  s.fl = p; p += nj;
+  s.rf = p; p += nj;
+  s.jaref = p; p += nj;
+  s.jv = p; p += nj;
+  s.force = p; p += nj;
+  s.idx = (int*)p; p += nj;
+  s.cls = (int*)p; p += nj;
+  s.quad = (int*)p;
+  return s;
+}
+
+// x = A^-1 b for the n x n SPD matrix A in sm.L (row stride ld, lower
+// triangle read), b and x one dof per lane. Factors A = L L^T in place
+// (lane i forms row i column by column; pivots below kMinVal are floored,
+// as solver.cholesky does), keeps the pivots' reciprocal roots in
+// sm.dinv, then substitutes forward and backward, one shuffle a step.
+DEV float warp_factor_solve(const WarpMem& sm, int n, int ld, float b,
+                            int lane) {
+  float* A = sm.L;
+  const float* Ai = A + lane * ld;
+  for (int j = 0; j < n; ++j) {
+    const float* Aj = A + j * ld;
+    float s = lane < n ? Ai[j] : 0.0f;
+    if (lane < n) {
+#pragma unroll 8
+      for (int k = 0; k < j; ++k) s -= Ai[k] * Aj[k];
+    }
+    const float inv = rsqrtf(fmaxf(__shfl_sync(FULL_MASK, s, j), kMinVal));
+    if (lane >= j && lane < n) A[lane * ld + j] = s * inv;
+    if (lane == j) sm.dinv[j] = inv;
+    __syncwarp();
+  }
+  float t = lane < n ? b : 0.0f;
+  for (int j = 0; j < n; ++j) {
+    const float l = lane > j && lane < n ? Ai[j] : 0.0f;
+    const float y = __shfl_sync(FULL_MASK, t, j) * sm.dinv[j];
+    t = lane == j ? y : t - l * y;
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const float l = lane < j ? A[j * ld + lane] : 0.0f;
+    const float x = __shfl_sync(FULL_MASK, t, j) * sm.dinv[j];
+    t = lane == j ? x : t - l * x;
+  }
+  return lane < n ? t : 0.0f;
+}
+
+// The whole pyramidal solve of one world in its warp (newton_solve<false>
+// in this layout) for the lane's qfrc_smooth qfs (0 past nv). Writes every
+// output of s; returns the lane's qacc_euler, for the caller's advance.
+DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
+                      int lane) {
+  const int nv = p.nv, nj = p.nj, ld = nv | 1;
+  const bool own = lane < nv;
+
+  // ---- qM in shared memory (all loads in flight at once: each lane
+  // loads in bounds, and keeps what it needs) ----
+  {
+    float v[MAXNV * MAXNV / 32];
+#pragma unroll
+    for (int t = 0; t < MAXNV * MAXNV / 32; ++t)
+      v[t] = __ldg(p.qM + min(t * 32 + lane, nv * nv - 1));
+#pragma unroll
+    for (int t = 0; t < MAXNV * MAXNV / 32; ++t) {
+      const int e = t * 32 + lane, i = e / nv;
+      if (e < nv * nv) sm.qM[i * ld + e - i * nv] = v[t];
+    }
+  }
+  __syncwarp();
+  // its factor (qLD) and qacc_smooth
+  if (own)
+    for (int j = 0; j <= lane; ++j) sm.L[lane * ld + j] = sm.qM[lane * ld + j];
+  __syncwarp();
+  const float qsm = warp_factor_solve(sm, nv, ld, qfs, lane);
+  for (int e = lane; e < nv * nv; e += 32) {
+    const int i = e / nv, j = e - i * nv;
+    p.qLD[e] = j <= i ? sm.L[i * ld + j] : 0.0f;
+  }
+
+  // ---- the rows that can act, compacted in row order ----
+  float Dr[MAXNJ / 32], flr[MAXNJ / 32];
+#pragma unroll
+  for (int c = 0; c < MAXNJ / 32; ++c) {
+    const int r = min(c * 32 + lane, nj - 1);
+    Dr[c] = c * 32 < nj ? __ldg(p.D + r) : 0.0f;
+    flr[c] = c * 32 < nj ? __ldg(p.fl + r) : 0.0f;
+  }
+  int n = 0;
+#pragma unroll
+  for (int c = 0; c < MAXNJ / 32; ++c) {
+    if (c * 32 >= nj) break;
+    const int r = c * 32 + lane;
+    const float D = Dr[c], fl = flr[c];
+    const bool act = r < nj && (D != 0.0f || fl != 0.0f);
+    if (r < nj && !act) p.efc_force[r] = 0.0f;
+    const unsigned ballot = __ballot_sync(FULL_MASK, act);
+    if (act) {
+      const int k = n + __popc(ballot & ((1u << lane) - 1u));
+      sm.idx[k] = r;
+      sm.cls[k] = r < p.ne ? 0 : (r < p.ne + p.nf ? 1 : 2);
+      sm.D[k] = D;
+      sm.fl[k] = fl;
+      sm.rf[k] = fl / fmaxf(D, kMinVal);
+    }
+    n += __popc(ballot);
+  }
+  __syncwarp();
+  // efc_J of the first nc acting rows, one coalesced row per load, all
+  // loads in flight at once; row k past nc is read from global memory
+  const int nc = min(n, JCAP);
+  if (nc > 0) {
+    const int col = own ? lane : 0;
+    float v[JCAP];
+#pragma unroll
+    for (int k = 0; k < JCAP; ++k)
+      v[k] = __ldg(p.J + (size_t)sm.idx[k < nc ? k : 0] * nv + col);
+#pragma unroll
+    for (int k = 0; k < JCAP; ++k)
+      if (k < nc && own) sm.Jc[k * ld + lane] = v[k];
+  }
+  __syncwarp();
+  // row k's efc_J in global memory (k >= nc)
+  auto jrow = [&](int k) { return p.J + (size_t)sm.idx[k] * nv; };
+
+  // the lanes' dof values x to every lane
+  auto share = [&](float x) {
+    sm.vec[lane] = x;
+    __syncwarp();
+  };
+  // out[k] = J_k . x over the lane's rows
+  auto rows_dot = [&](float x, float* out) {
+    share(x);
+    for (int k = lane; k < n; k += 32) {
+      float s = 0.0f;
+      if (k < nc) {
+        const float* Jr = sm.Jc + k * ld;
+#pragma unroll
+        for (int i = 0; i < MAXNV; ++i)
+          if (i < nv) s += Jr[i] * sm.vec[i];
+      } else {
+        const float* Jr = jrow(k);
+#pragma unroll
+        for (int i = 0; i < MAXNV; ++i)
+          if (i < nv) s += __ldg(Jr + i) * sm.vec[i];
+      }
+      out[k] = s;
+    }
+    __syncwarp();
+  };
+  // (qM x)_i in lane i
+  auto qm_dot = [&](float x) {
+    share(x);
+    float s = 0.0f;
+    if (own) {
+      const float* Mi = sm.qM + lane * ld;
+#pragma unroll
+      for (int j = 0; j < MAXNV; ++j)
+        if (j < nv) s += Mi[j] * sm.vec[j];
+    }
+    __syncwarp();
+    return s;
+  };
+  // J^T y, dof i in lane i, for y over the rows in shared memory
+  auto rows_t_dot = [&](const float* y) {
+    float s = 0.0f;
+    if (own) {
+      int k = 0;
+#pragma unroll 8
+      for (; k < nc; ++k) s += sm.Jc[k * ld + lane] * y[k];
+      for (; k < n; ++k) s += __ldg(jrow(k) + lane) * y[k];
+    }
+    return s;
+  };
+  // force, quad and the constraint cost of jaref (update_constraint)
+  auto update_constraint = [&]() {
+    float cost = 0.0f;
+    for (int k = lane; k < n; k += 32) {
+      const float x = sm.jaref[k], D = sm.D[k], fl = sm.fl[k], rf = sm.rf[k];
+      const int c = sm.cls[k];
+      const bool lin_neg = c == 1 && x <= -rf;
+      const bool lin_pos = c == 1 && x >= rf;
+      const bool quad = c == 0 || (c == 1 && !lin_neg && !lin_pos) ||
+                        (c == 2 && x < 0.0f);
+      float f = 0.0f, cst = 0.0f;
+      if (quad) { f = -D * x; cst = 0.5f * D * x * x; }
+      if (lin_neg) { f = fl; cst = -fl * (0.5f * rf + x); }
+      if (lin_pos) { f = -fl; cst = -fl * (0.5f * rf - x); }
+      sm.force[k] = f;
+      sm.quad[k] = quad;
+      cost += cst;
+    }
+    __syncwarp();
+    return warp_sum(cost);
+  };
+  // H^-1 grad with H = qM + J^T diag(D quad) J, row i built in lane i
+  auto newton_dir = [&](float grad) {
+    if (own) {
+      float h[MAXNV];
+      const float* Mi = sm.qM + lane * ld;
+#pragma unroll
+      for (int j = 0; j < MAXNV; ++j) h[j] = j < nv ? Mi[j] : 0.0f;
+      int k = 0;
+      for (; k < nc; ++k) {
+        if (!sm.quad[k]) continue;
+        const float* Jr = sm.Jc + k * ld;
+        const float di = sm.D[k] * Jr[lane];
+#pragma unroll
+        for (int j = 0; j < MAXNV; ++j)
+          if (j < nv) h[j] += di * Jr[j];
+      }
+      for (; k < n; ++k) {
+        if (!sm.quad[k]) continue;
+        const float* Jr = jrow(k);
+        const float di = sm.D[k] * __ldg(Jr + lane);
+#pragma unroll
+        for (int j = 0; j < MAXNV; ++j)
+          if (j < nv) h[j] += di * __ldg(Jr + j);
+      }
+      float* Hi = sm.L + lane * ld;
+#pragma unroll
+      for (int j = 0; j < MAXNV; ++j)
+        if (j < nv) Hi[j] = h[j];
+    }
+    __syncwarp();
+    return warp_factor_solve(sm, nv, ld, grad, lane);
+  };
+  // the lane's rows' share of the cost's first (returned) and second
+  // derivative along the search direction at alpha
+  auto phi_rows = [&](float alpha, float* s2) {
+    float s1 = 0.0f;
+    *s2 = 0.0f;
+    for (int k = lane; k < n; k += 32) {
+      const float jv = sm.jv[k], x = sm.jaref[k] + alpha * jv;
+      const int c = sm.cls[k];
+      const float rf = sm.rf[k];
+      const bool lin_neg = c == 1 && x <= -rf;
+      const bool lin_pos = c == 1 && x >= rf;
+      const bool quad = c == 0 || (c == 1 && !lin_neg && !lin_pos) ||
+                        (c == 2 && x < 0.0f);
+      if (quad) { s1 += sm.D[k] * x * jv; *s2 += sm.D[k] * jv * jv; }
+      if (lin_neg) s1 -= sm.fl[k] * jv;
+      if (lin_pos) s1 += sm.fl[k] * jv;
+    }
+    return s1;
+  };
+  auto phi_d = [&](float alpha, float g0, float h0, float* d2) {
+    float s2;
+    const float s1 = warp_sum(phi_rows(alpha, &s2));
+    *d2 = h0 + warp_sum(s2);
+    return g0 + alpha * h0 + s1;
+  };
+  // bracket of ls_k log-spaced alphas, secant, then ls_polish safeguarded
+  // Newton / bisection steps (linesearch<false>, the same rules)
+  auto linesearch = [&](float g0, float h0) {
+    float p2;
+    const float p1_0 = phi_d(0.0f, g0, h0, &p2);
+    const float alpha0 = fmaxf(-p1_0 / fmaxf(p2, kMinVal), 0.0f);
+    float a[MAXLSK], s1[MAXLSK], s2m = 0.0f;
+#pragma unroll
+    for (int s = 0; s < MAXLSK; ++s) {
+      a[s] = s < p.ls_k ? alpha0 * p.ls_scales[s] : 0.0f;
+      s1[s] = 0.0f;
+    }
+    for (int k = lane; k < n; k += 32) {
+      const float jv = sm.jv[k], jaref = sm.jaref[k], D = sm.D[k];
+      const float fl = sm.fl[k], rf = sm.rf[k];
+      const int c = sm.cls[k];
+#pragma unroll
+      for (int s = 0; s < MAXLSK; ++s) {
+        if (s >= p.ls_k) break;
+        const float x = jaref + a[s] * jv;
+        const bool lin_neg = c == 1 && x <= -rf;
+        const bool lin_pos = c == 1 && x >= rf;
+        const bool quad = c == 0 || (c == 1 && !lin_neg && !lin_pos) ||
+                          (c == 2 && x < 0.0f);
+        if (quad) {
+          s1[s] += D * x * jv;
+          if (s == p.ls_k - 1) s2m += D * jv * jv;
+        }
+        if (lin_neg) s1[s] -= fl * jv;
+        if (lin_pos) s1[s] += fl * jv;
+      }
+    }
+    float lo = 0.0f, p1_lo = p1_0, hi = INFINITY, p1_hi = INFINITY;
+    float p1m = 0.0f;
+#pragma unroll
+    for (int s = 0; s < MAXLSK; ++s) {
+      if (s >= p.ls_k) break;
+      const float p1a = g0 + a[s] * h0 + warp_sum(s1[s]);
+      if (p1a < 0.0f) {
+        lo = a[s]; p1_lo = p1a;
+      } else if (!isfinite(hi)) {
+        hi = a[s]; p1_hi = p1a;
+      }
+      p1m = p1a;
+    }
+    const float diff = p1_hi - p1_lo;
+    const float secant = lo - p1_lo * (hi - lo) /
+                                  (fabsf(diff) < kMinVal ? 1.0f : diff);
+    // a_max is the last bracket point
+    const float a_max = alpha0 * p.ls_scales[p.ls_k - 1];
+    const float p2m = h0 + warp_sum(s2m);
+    const float tail = a_max - p1m / fmaxf(p2m, kMinVal);
+    float alpha = isfinite(hi) ? secant : fmaxf(tail, a_max);
+    const float cap = 10.0f * a_max;
+    for (int it = 0; it < p.ls_polish; ++it) {
+      float p2a;
+      const float p1a = phi_d(alpha, g0, h0, &p2a);
+      if (p1a < 0.0f) lo = fmaxf(lo, alpha); else hi = fminf(hi, alpha);
+      const float step = alpha - p1a / fmaxf(p2a, kMinVal);
+      if (step > lo && step < hi) alpha = step;
+      else alpha = isfinite(hi) ? 0.5f * (lo + hi) : fmaxf(step, lo);
+      alpha = fminf(fmaxf(alpha, 0.0f), cap);
+    }
+    return p1_0 >= 0.0f ? 0.0f : alpha;
+  };
+
+  // ---- Newton solve (_newton_core init :446-466, loop :468-504) ----
+  const float rescale = fmaxf(p.meaninertia, kMinVal) * (float)max(1, nv);
+  float qacc = own ? (p.use_ws ? p.warmstart[lane] : qsm) : 0.0f;
+  float ma = qm_dot(qacc);
+  rows_dot(qacc, sm.jaref);
+  for (int k = lane; k < n; k += 32) sm.jaref[k] -= __ldg(p.aref + sm.idx[k]);
+  auto gauss = [&]() {
+    return 0.5f * warp_sum((ma - qfs) * (qacc - qsm));
+  };
+  float cost = update_constraint() + gauss();
+  float grad = ma - qfs - rows_t_dot(sm.force);
+  bool done = sqrtf(warp_sum(grad * grad)) / rescale < p.tolerance;
+  int niter = 0;
+  while (!done) {   // the direction of an iteration is the last one's
+    const float search = -newton_dir(grad);
+    rows_dot(search, sm.jv);
+    const float mv = qm_dot(search);
+    const float g0 = warp_sum(search * (ma - qfs));
+    const float h0 = warp_sum(search * mv);
+    const float alpha = linesearch(g0, h0);
+    qacc += alpha * search;
+    ma += alpha * mv;
+    for (int k = lane; k < n; k += 32) sm.jaref[k] += alpha * sm.jv[k];
+    const float newcost = update_constraint() + gauss();
+    grad = ma - qfs - rows_t_dot(sm.force);
+    const float improvement = (cost - newcost) / rescale;
+    const float gradnorm = sqrtf(warp_sum(grad * grad)) / rescale;
+    ++niter;
+    done = improvement < p.tolerance || gradnorm < p.tolerance ||
+           niter >= p.iterations;
+    cost = newcost;
+  }
+  if (lane == 0) *p.solver_niter = niter;
+
+  // ---- efc_force (the last update's) and qfrc_constraint ----
+  for (int k = lane; k < n; k += 32) p.efc_force[sm.idx[k]] = sm.force[k];
+  const float qfc = rows_t_dot(sm.force);
+
+  // ---- integration diagonal: (qM + diag(hdiag)) qacc_euler = qfs + qfc ----
+  float qacce = qacc;
+  if (p.hdiag) {
+    __syncwarp();
+    if (own) {
+      for (int j = 0; j <= lane; ++j)
+        sm.L[lane * ld + j] = sm.qM[lane * ld + j];
+      sm.L[lane * ld + lane] += p.hdiag[lane * p.hdiag_stride];
+    }
+    __syncwarp();
+    qacce = warp_factor_solve(sm, nv, ld, qfs + qfc, lane);
+  }
+  if (own) {
+    p.qacc[lane] = qacc;
+    p.qfrc_constraint[lane] = qfc;
+    p.qacc_smooth[lane] = qsm;
+    p.qacc_euler[lane] = qacce;
+  }
+  return qacce;
 }

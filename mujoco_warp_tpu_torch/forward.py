@@ -263,11 +263,14 @@ def uses_newton_kernel(m: Model, d: Data) -> bool:
   `solver.cone_inputs` gives a cone), which also computes qacc_smooth and
   the qM factor, as the JAX package's gate (`solver.uses_fused_kernel`
   :678-682): the Newton solver, either cone, 0 < nv <= 32, efc rows and
-  iterations to run."""
+  iterations to run. Besides, the rows must fit the kernels' cap (nj <=
+  256, `csrc/newton.cuh`), which the JAX gate need not ask: it falls back
+  to XLA where its kernel does not compile."""
+  from .kernels.newton import MAXNJ, MAXNV
   return (m.opt.solver == SolverType.NEWTON and
           m.opt.cone in (ConeType.PYRAMIDAL, ConeType.ELLIPTIC) and
-          0 < m.nv <= 32 and
-          d.efc_J.shape[1] > 0 and m.opt.iterations > 0 and
+          0 < m.nv <= MAXNV and
+          0 < d.efc_J.shape[1] <= MAXNJ and m.opt.iterations > 0 and
           not m.opt.disableflags & DisableBit.CONSTRAINT)
 
 
@@ -355,11 +358,16 @@ def forward_batched(m: Model, d: Data) -> Data:
 
 def _euler(m: Model, d: Data) -> Data:
   """Semi-implicit Euler with implicit joint damping
-  (`_euler_batched` :787)."""
+  (`_euler_batched` :787). With the damper disabled there is no damping
+  to integrate implicitly, so qacc is used as it is, as in C MuJoCo's
+  mj_Euler; the JAX package's unfused Euler re-solves with h·dof_damping
+  all the same (ROADMAP §C)."""
   from .kernels import batch_linalg as linalg_k
   h = m.opt.timestep
   qacc = d.qacc
-  if m.has_damping and not m.opt.disableflags & DisableBit.EULERDAMP:
+  dis = m.opt.disableflags
+  if (m.has_damping and not dis & DisableBit.EULERDAMP and
+      not dis & DisableBit.DAMPER):
     qacc, _ = linalg_k.m_solve_factor(
         d.qM, d.qfrc_smooth + d.qfrc_constraint, m.dof_parentid,
         diag=h * m.dof_damping)

@@ -30,6 +30,10 @@ FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _loaded: dict = {}
 _tables: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+# (source, entry) -> (grid, block, shared bytes, blocks resident per SM)
+# of the last launch of a kernel that reports its shape (`launch_shape`:
+# the warp-per-world ones)
+shapes: dict = {}
 
 
 def _nvcc() -> str:
@@ -89,6 +93,26 @@ def build_log(name: str) -> str:
     return ''
   with open(path) as f:
     return f.read()
+
+
+def ptxas_info(name: str) -> dict:
+  """Per kernel of csrc/<name>.cu (its mangled name), what ptxas reported
+  in the last build: registers, stack, spill_stores, spill_loads (bytes)
+  and smem (static shared bytes)."""
+  out, current = {}, None
+  for line in build_log(name).splitlines():
+    if 'Function properties for' in line:
+      current = out.setdefault(line.split('for')[-1].strip(), {})
+    elif current is not None and 'stack frame' in line:
+      nums = [int(t) for t in line.replace(',', ' ').split() if t.isdigit()]
+      current.update(stack=nums[0], spill_stores=nums[1],
+                     spill_loads=nums[2])
+    elif current is not None and 'Used' in line and 'registers' in line:
+      words = line.replace(',', ' ').split()
+      current['registers'] = int(words[words.index('Used') + 1])
+      current['smem'] = sum(int(words[i - 2]) for i, w in enumerate(words)
+                            if w == 'smem' and words[i - 2].isdigit())
+  return out
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -151,6 +175,12 @@ def launch(name: str, params_type, values: dict, device,
   if err:
     raise RuntimeError(f'{name} kernel launch failed: '
                        f'{lib.error_string(err).decode()}')
+  shape_fn = getattr(lib, entry + 'launch_shape', None)
+  if shape_fn is not None:
+    shape = (ctypes.c_int * 4)()
+    if shape_fn(ctypes.byref(params), shape):
+      raise RuntimeError(f'{name}: launch_shape failed')
+    shapes[(name, entry)] = tuple(shape)
 
 
 def model_tables(m, name: str, make):

@@ -2,8 +2,10 @@
 `csrc/glue.cu`: affine actuation, joint springs and dampers,
 qfrc_smooth, the qM factor and qacc_smooth, the whole Newton solve, the
 integration-diagonal re-solve (mode 1) and the semi-implicit Euler
-advance. B3 solves with the pyramidal cone; B3e, launched when `glue`
-is given the contacts' `solver.cone_inputs`, with the elliptic cone.
+advance. B3 solves with the pyramidal cone, one warp per world (4 worlds
+a block, each world's state in shared memory); B3e, launched when `glue`
+is given the contacts' `solver.cone_inputs`, with the elliptic cone, one
+thread per world.
 
 They replace the TPU kernel `make_glue_kernel` / `run`
 (`mujoco_warp_tpu/pallas/solver_kernels.py:1207`, `_glue_core` :966;

@@ -2,13 +2,14 @@
 plain stepping loop (mirrors `mujoco_warp_tpu/utils/benchmark.py`:
 `halton` :22, `ctrl_noise` :42, `benchmark` :147).
 
-The loop steps from Python and synchronizes the card around the timed
-steps; capturing the step in a CUDA graph is later work.
+`benchmark` follows the JAX harness's protocol and gives its metrics
+their meaning there; `rollout` steps without timing. The loop steps from
+Python and synchronizes the card around the timed steps; capturing the
+step in a CUDA graph is later work.
 """
 
 from __future__ import annotations
 
-import math
 import time
 
 import numpy as np
@@ -62,33 +63,57 @@ def ctrl_noise(m: Model, ctrl: torch.Tensor, worldid: torch.Tensor, step: int,
                      new)
 
 
-def benchmark(m: Model, d: Data, nstep: int, warmup: int = 0,
-              ctrlnoise_std: float = 0.01,
-              ctrlnoise_rate: float = 0.1) -> tuple[Data, dict]:
-  """Step every world of d `warmup` + `nstep` times with control noise;
-  time the last nstep. Returns the final Data and the metrics."""
-  nworld = d.nworld
-  worldid = torch.arange(nworld, dtype=torch.int32, device=d.qpos.device)
-  sync = (torch.cuda.synchronize if d.qpos.is_cuda else lambda: None)
-  ncon, niter = [], []
-  t0 = 0.0
-  for i in range(warmup + nstep):
-    if i == warmup:
-      sync()
-      t0 = time.perf_counter()
+def rollout(m: Model, d: Data, nstep: int, start: int = 0,
+            ctrlnoise_std: float = 0.01,
+            ctrlnoise_rate: float = 0.1) -> Data:
+  """Step every world of d nstep times with control noise, the steps
+  numbered from `start` (the noise's step index), untimed."""
+  worldid = torch.arange(d.nworld, dtype=torch.int32, device=d.qpos.device)
+  for i in range(start, start + nstep):
     d = d.replace(ctrl=ctrl_noise(m, d.ctrl, worldid, i, ctrlnoise_std,
                                   ctrlnoise_rate))
     d = step_batched(m, d)
-    if i >= warmup:
-      ncon.append(d.ncon)
-      niter.append(d.solver_niter)
+  return d
+
+
+def benchmark(m: Model, d: Data, nstep: int, ctrlnoise_std: float = 0.01,
+              ctrlnoise_rate: float = 0.1) -> tuple[Data, dict]:
+  """The JAX harness's protocol and metrics
+  (`mujoco_warp_tpu/utils/benchmark.py:269-292`): one first step (the
+  JAX harness's compile step), min(20, nstep) warm-up steps, then
+  max(nstep - warm-up - 1, 1) timed steps, the step index running on
+  through all of them. converged_worlds counts the worlds with no NaN in
+  qpos; ncon_mean, nefc_mean, solver_niter_mean (and _max) are read from
+  the final state. Returns the final Data and the metrics."""
+  nworld = d.nworld
+  sync = (torch.cuda.synchronize if d.qpos.is_cuda else lambda: None)
+  noise = dict(ctrlnoise_std=ctrlnoise_std, ctrlnoise_rate=ctrlnoise_rate)
+  t0 = time.perf_counter()
+  d = rollout(m, d, 1, **noise)
   sync()
-  elapsed = time.perf_counter() - t0 if nstep else 0.0
-  mean = lambda xs: float(torch.stack(xs).float().mean()) if xs else math.nan
+  first_time = time.perf_counter() - t0
+  warmup = min(20, nstep)
+  d = rollout(m, d, warmup, start=1, **noise)
+  sync()
+  steps_done = max(nstep - warmup - 1, 1)
+  t0 = time.perf_counter()
+  d = rollout(m, d, steps_done, start=1 + warmup, **noise)
+  sync()
+  run_time = time.perf_counter() - t0
+  nan_worlds = int(torch.isnan(d.qpos).any(-1).sum())
   return d, dict(
-      nworld=nworld, nstep=nstep, seconds=elapsed,
-      steps_per_sec=nworld * nstep / elapsed if elapsed > 0 else math.nan,
-      step_time_us=1e6 * elapsed / nstep if nstep else math.nan,
-      ncon_mean=mean(ncon), solver_niter_mean=mean(niter),
-      solver_niter_max=int(torch.stack(niter).max()) if niter else 0,
-      converged_worlds=int((d.solver_niter < m.opt.iterations).sum()))
+      nworld=nworld, nstep=steps_done, first_step_time=first_time,
+      seconds=run_time,
+      steps_per_sec=steps_done * nworld / max(run_time, 1e-9),
+      step_time_us=1e6 * run_time / steps_done,
+      converged_worlds=nworld - nan_worlds,
+      ncon_mean=float(d.ncon.float().mean()),
+      nefc_mean=float(d.nefc.float().mean()),
+      solver_niter_mean=float(d.solver_niter.float().mean()),
+      solver_niter_max=int(d.solver_niter.max()))
+
+
+def total_steps(nstep: int) -> int:
+  """The steps `benchmark(m, d, nstep)` takes in all."""
+  warmup = min(20, nstep)
+  return 1 + warmup + max(nstep - warmup - 1, 1)

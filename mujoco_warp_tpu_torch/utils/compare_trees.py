@@ -1,5 +1,6 @@
-"""Run the kernels B1, B2, B3 and B4 (pyramidal) of two checkouts of the
-port on the same saved inputs, and compare their outputs bit for bit.
+"""Run the kernels B1, B2, B3, B4, B3e and B4-elliptic of two checkouts
+of the port on the same saved inputs, and compare their outputs bit for
+bit.
 
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py inputs FILE
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py run ROOT FILE OUT
@@ -8,8 +9,10 @@ port on the same saved inputs, and compare their outputs bit for bit.
 `inputs` steps the humanoid (8192 worlds, nconmax 24, seeded qpos noise)
 through this checkout's kernels and saves the inputs of B1 (smooth), B2
 (contact), B3 (glue) and B4 (newton, without and with the integration
-diagonal hb); and B1's inputs on three_humanoids (8192 worlds, nconmax
-100, after THREE_STEPS steps).
+diagonal hb); B1's inputs on three_humanoids (8192 worlds, nconmax 100,
+after THREE_STEPS steps); and, on the humanoid with the elliptic cone
+(ELLIPTIC, ELL_STEPS steps on from the pyramidal state), the inputs of
+B3e (glue with the cone) and B4-elliptic (newton with the cone).
 `run` imports `mujoco_warp_tpu_torch` from the checkout at ROOT, builds
 its kernels there, runs each kernel on the saved inputs and saves the
 outputs and each kernel's time (CUDA events over 20 launches, after one).
@@ -30,22 +33,15 @@ NCONMAX = 24
 SEED = 0
 PREP_STEPS = 100
 THREE_STEPS = 10
+ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
+ELL_STEPS = 5
 
 
-def make_inputs(path: str) -> None:
-  sys.path.insert(0, HERE)
-  import torch
-  import mujoco_warp_tpu_torch as mt
-  from mujoco_warp_tpu_torch import models, support
+def glue_inputs(m, d):
+  """B2's inputs and B3's (B3e's) at the state d, and the contacts."""
+  from mujoco_warp_tpu_torch import support
   from mujoco_warp_tpu_torch.kernels import contact as kc
-  from mujoco_warp_tpu_torch.kernels import glue as kg
   from mujoco_warp_tpu_torch.kernels import smooth as ks
-  from mujoco_warp_tpu_torch.utils import benchmark as bench
-  m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
-  gen = torch.Generator(device='cuda').manual_seed(SEED)
-  d = mt.make_batch(m, mt.make_data(m, nconmax=NCONMAX), NWORLD,
-                    qpos_noise=0.01, generator=gen)
-  d, _ = bench.benchmark(m, d, nstep=PREP_STEPS)
   sm = ks.smooth(m, d.qpos, d.qvel)
   c_in = (sm['qpos'], d.qvel, sm['geom_xpos'], sm['geom_xmat'],
           sm['subtree_com'], sm['cdof'])
@@ -56,14 +52,41 @@ def make_inputs(path: str) -> None:
   g_in = (sm['qM'], con['efc_J'], con['efc_D'], con['efc_aref'],
           con['efc_frictionloss'], sm['qpos'], d.qvel, d.ctrl, qfx,
           d.qacc_warmstart)
+  return c_in, con, g_in
+
+
+def make_inputs(path: str) -> None:
+  sys.path.insert(0, HERE)
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import models, solver
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
+  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  d = mt.make_batch(m, mt.make_data(m, nconmax=NCONMAX), NWORLD,
+                    qpos_noise=0.01, generator=gen)
+  d = bench.rollout(m, d, PREP_STEPS)
+  c_in, _, g_in = glue_inputs(m, d)
   qfs = kg.glue(m, *g_in)['qfrc_smooth']
+  me = mt.override_model(m, ELLIPTIC)
+  de = mt.make_data(me, nconmax=NCONMAX, nworld=NWORLD).replace(
+      qpos=d.qpos, qvel=d.qvel, ctrl=d.ctrl, time=d.time,
+      qacc_warmstart=d.qacc_warmstart)
+  de = bench.rollout(me, de, ELL_STEPS)
+  _, con_e, ge_in = glue_inputs(me, de)
+  cone = solver.cone_inputs(me, mt.Contact(
+      **{k: con_e[k] for k in kc.CONTACT_FIELDS}))
+  qfs_e = kg.glue(me, *ge_in, cone=cone)['qfrc_smooth']
   m3 = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
   d3 = mt.make_batch(m3, mt.make_data(m3, nconmax=100), NWORLD,
                      qpos_noise=0.01, generator=gen)
-  d3, _ = bench.benchmark(m3, d3, nstep=THREE_STEPS)
+  d3 = bench.rollout(m3, d3, THREE_STEPS)
   torch.save(dict(s_in=(d.qpos, d.qvel), s3_in=(d3.qpos, d3.qvel),
-                  c_in=c_in, g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9])),
-             path)
+                  c_in=c_in, g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9]),
+                  ge_in=ge_in, ne_in=ge_in[:5] + (qfs_e, ge_in[9]),
+                  cone=cone), path)
 
 
 def run(root: str, path: str, out: str) -> None:
@@ -83,14 +106,18 @@ def run(root: str, path: str, out: str) -> None:
   inp = torch.load(path)
   m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
   m3 = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
+  me = mt.override_model(m, ELLIPTIC)
   hb = m.opt.timestep * m.dof_damping
+  cone = inp['cone']
   calls = dict(
       smooth=lambda: ks.smooth(m, *inp['s_in']),
       smooth_three_humanoids=lambda: ks.smooth(m3, *inp['s3_in']),
       contact=lambda: kc.contact(m, *inp['c_in'], NCONMAX),
       glue=lambda: kg.glue(m, *inp['g_in']),
       newton=lambda: kn.newton_solve(m, *inp['n_in']),
-      newton_hb=lambda: kn.newton_solve(m, *inp['n_in'], hb=hb))
+      newton_hb=lambda: kn.newton_solve(m, *inp['n_in'], hb=hb),
+      glue_ell=lambda: kg.glue(me, *inp['ge_in'], cone=cone),
+      newton_ell=lambda: kn.newton_solve(me, *inp['ne_in'], cone=cone))
   outs, ms = {}, {}
   for name, fn in calls.items():
     outs[name] = fn()

@@ -18,12 +18,13 @@ import torch
 import mujoco_warp_tpu_torch as mt
 from mujoco_warp_tpu_torch import (batch_linalg, forward, models, smooth,
                                    solver, support)
+from mujoco_warp_tpu_torch.kernels import _build
 from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
 from mujoco_warp_tpu_torch.kernels import contact as kc
 from mujoco_warp_tpu_torch.kernels import glue as kg
 from mujoco_warp_tpu_torch.kernels import newton as kn
 from mujoco_warp_tpu_torch.kernels import smooth as ks
-from mujoco_warp_tpu_torch.types import IntegratorType, SolverType
+from mujoco_warp_tpu_torch.types import DisableBit, IntegratorType, SolverType
 from mujoco_warp_tpu_torch.utils import benchmark
 
 NCONMAX = 24
@@ -50,7 +51,7 @@ def _state(device, nworld, nstep, npz=models.HUMANOID_NPZ,
   gen = torch.Generator(device=device).manual_seed(0)
   d = mt.make_batch(m, mt.make_data(m, nconmax=nconmax), nworld,
                     qpos_noise=0.02, generator=gen)
-  d, _ = benchmark.benchmark(m, d, nstep=nstep)
+  d = benchmark.rollout(m, d, nstep)
   return m, d
 
 
@@ -93,6 +94,31 @@ def test_wrappers_run_plain_on_cpu():
   for name, ref in forward.glue(*g_in).items():
     torch.testing.assert_close(out[name], ref, rtol=0, atol=0)
   assert (ks.launches, kc.launches, kg.launches) == (0, 0, 0)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_Z11glue_kernel6Params' for 'sm_90a'
+ptxas info    : Function properties for _Z11glue_kernel6Params
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 0 barriers, 528 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z15glue_ell_kernel9EllParams' for 'sm_90a'
+ptxas info    : Function properties for _Z15glue_ell_kernel9EllParams
+    16400 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 16400 bytes cumulative stack size, 64 bytes smem, 560 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_is_read_per_kernel(monkeypatch):
+  """The build log's ptxas lines, per kernel: chip_smoke and the card's
+  tests hold B3 and B4 to no spill stores and a small stack by them."""
+  monkeypatch.setattr(_build, 'build_log', lambda name: PTXAS_LOG)
+  info = _build.ptxas_info('glue')
+  assert info == {
+      '_Z11glue_kernel6Params': dict(stack=0, spill_stores=0, spill_loads=0,
+                                     registers=120, smem=0),
+      '_Z15glue_ell_kernel9EllParams': dict(
+          stack=16400, spill_stores=8, spill_loads=12, registers=64,
+          smem=64)}
 
 
 def test_wrappers_refuse_models_past_their_caps():
@@ -457,6 +483,65 @@ def test_newton_kernel_equals_the_glue_kernels_solve(cuda):
   out = kn.newton_solve(m, *g_in[1:6], glue['qfrc_smooth'], g_in[10])
   for name in kn.OUTPUTS:
     assert torch.equal(out[name], glue[name]), name
+
+
+def _eulerdamp_on(m):
+  """The model with eulerdamp on: glue mode 1, the re-solve with
+  h * dof_damping."""
+  return _with(m, disableflags=int(m.opt.disableflags) &
+               ~int(DisableBit.EULERDAMP))
+
+
+@pytest.mark.cuda
+def test_glue_kernel_mode_1_matches_plain(cuda):
+  """B3 in mode 1, held as B4's hb case: qacc_euler, a linear image of
+  qfrc_constraint through the ill-conditioned (qM + diag)^-1, at its
+  tolerance and by the residual of that system; the advance from the
+  kernel's own qacc_euler."""
+  m, d = _state(cuda, 256, 60)
+  _, _, _, g_in = _stages(m, d)
+  m1 = _eulerdamp_on(m)
+  assert forward.glue_mode(m1) == 1
+  out, ref = kg.glue(m1, *g_in[1:]), forward.glue(m1, *g_in[1:])
+  for name in ('qacc', 'qacc_smooth', 'qLD', 'qfrc_smooth'):
+    _close(out[name], ref[name], name, 5e-5)
+  for name in ('qfrc_constraint', 'efc_force', 'qacc_euler'):
+    _close(out[name], ref[name], name, 5e-4)
+  hb = m.opt.timestep * m.dof_damping
+  rhs = out['qfrc_smooth'] + out['qfrc_constraint']
+  assert float(_residual(g_in[1] + torch.diag(hb), out['qacc_euler'],
+                         rhs).max()) <= 1e-5
+  h = float(m.opt.timestep)
+  qvel = g_in[7] + h * out['qacc_euler']
+  _close(out['qvel'], qvel, 'qvel', 5e-5)
+  _close(out['qpos'], forward.integrate_pos(m1, g_in[6], qvel, h), 'qpos',
+         5e-6)
+  dn = (out['solver_niter'] - ref['solver_niter']).abs()
+  assert int(dn.max()) <= 4, dn.bincount().tolist()
+
+
+@pytest.mark.cuda
+def test_warp_kernels_are_deterministic_and_fit_their_design(cuda):
+  """B3 (modes 0 and 1) and B4 (with hb) give the same bits in two
+  launches; they launch 4 worlds (warps) a block, and ptxas gives them
+  no spill stores and at most 1 KB of stack."""
+  m, d = _state(cuda, 256, 60)
+  _, _, _, g_in = _stages(m, d)
+  hb = m.opt.timestep * m.dof_damping
+  n_in = _newton_inputs(m, d)
+  for fn in (lambda: kg.glue(*g_in), lambda: kg.glue(_eulerdamp_on(m),
+                                                      *g_in[1:]),
+             lambda: kn.newton_solve(*n_in, hb=hb)):
+    a, b = fn(), fn()
+    for name in a:
+      assert torch.equal(a[name], b[name]), name
+  for source, kernel in (('glue', 'glue_kernel'),
+                         ('newton', 'newton_kernel')):
+    grid, block, smem, per_sm = _build.shapes[(source, '')]
+    assert (grid, block) == (256 // 4, 128) and smem > 0 and per_sm >= 1
+    info, = [v for k, v in _build.ptxas_info(source).items()
+             if k.startswith(f'_Z{len(kernel)}{kernel}')]
+    assert info['spill_stores'] == 0 and info['stack'] <= 1024, info
 
 
 @pytest.mark.cuda

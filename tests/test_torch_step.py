@@ -92,9 +92,10 @@ def test_step_stages_and_cpu_dispatch():
                    'act_len_vel', 'solve_glue[cuda]']
   for mod in (ks, kc, kg):
     mod.launches = 0
-  d2, res = tbench.benchmark(m, d, nstep=2, warmup=1)
+  # one first step, one warm-up step and one timed step
+  d2, res = tbench.benchmark(m, d, nstep=1)
   assert (ks.launches, kc.launches, kg.launches) == (0, 0, 0)
-  assert res['nstep'] == 2 and np.isfinite(res['steps_per_sec'])
+  assert res['nstep'] == 1 and np.isfinite(res['steps_per_sec'])
   assert bool(torch.isfinite(d2.qpos).all())
   np.testing.assert_allclose(d2.time.numpy(), 3 * float(m.opt.timestep),
                              rtol=1e-6)
