@@ -5,14 +5,15 @@
 Phases:
   (a) print the card's name and power limit; build the CUDA kernels from
       mujoco_warp_tpu_torch/csrc (one nvcc per source, in parallel); hold
-      B3 and B4 (one warp per world) to no spill stores and at most
-      MAX_STACK_B3 bytes of stack in ptxas's report;
+      B2's two entries, B3 and B4 (one warp per world) to no spill stores
+      and at most MAX_STACK_B3 bytes of stack in ptxas's report;
   (b) load the humanoid from its committed .npz and make 8192 worlds with
       seeded qpos noise, nconmax=24;
   (c) step 100 times, then hold each kernel (B1 smooth, B2 contact, B3
       glue, also in mode 1 with eulerdamp on) against its plain PyTorch
       version on the same inputs on the card, failing above the stated
-      tolerance, and B3's two launches on the same inputs bit-equal;
+      tolerance (B3's worlds by LOTTERY_WORLDS), and B2's and B3's two
+      launches on the same inputs bit-equal;
   (d) with every launch count at 0, run the main path (the harness's
       protocol, utils/benchmark.py: 120 steps with OU control noise, the
       last 99 timed) and require each kernel to have launched once per
@@ -24,10 +25,11 @@ Phases:
   Then three_humanoids (nv 81) from its .npz, 8192 worlds, nconmax 100,
   which runs the unfused step:
   (f) step 10 times, then hold B1 and B2 against their plain versions as
-      in (c), B7 (tree_ldl, with and without the Euler diagonal) and B5
-      (spd_solve, on the Hessians of the solve's first direction) by the
-      packed factor, the per-world residual and the forward error against
-      the plain version in float64;
+      in (c) (B2 also over two launches, its launch shape printed), B7
+      (tree_ldl, with and without the Euler diagonal) and B5 (spd_solve,
+      on the Hessians of the solve's first direction) by the packed
+      factor, the per-world residual and the forward error against the
+      plain version in float64;
   (g) with every count at 0, run the main path (12 steps, the last one
       timed) and require B1 and B2 once per step, B7 twice per step and
       B5 once per Newton direction (one per step plus one per pass of the
@@ -41,7 +43,7 @@ Phases:
       version with B3's criteria, without and with an integration
       diagonal hb, and its qLD against solver.cholesky; B4 bit-equal to
       B3's solve on the same qfrc_smooth, and two launches bit-equal;
-      print B3's and B4's launch shapes; hold B6
+      print B2's, B3's and B4's launch shapes; hold B6
       (cho_solve) on B5's factor of qM by residual and forward error
       against the float64 plain version, and against B5's own x;
   (j) on the three_humanoids state of (f): hold B8 (tree_solve) on B7's
@@ -56,7 +58,8 @@ Phases:
       torch.cholesky_solve.
   Then the elliptic cone at impratio 10, set with override_model:
   (m) hold B2's elliptic rows against the plain rows on the humanoid's and
-      three_humanoids' states;
+      three_humanoids' states, over two launches, and print their launch
+      shapes;
   (n) on the humanoid's state, hold B3e (glue with the cone) and
       B4-elliptic (newton_solve with the cone) against their plain
       versions and the plain versions' own spread (see ELLIPTIC), and
@@ -116,6 +119,24 @@ TOL_OBJ = 1.0
 NITER_MAX = 4
 NITER_SLACK = 2
 NITER_MARGIN = 0.01
+# Those per-world criteria of B3 and B4 (phases c and i: the step
+# tolerances, the objective within TOL_OBJ units, solver_niter within
+# NITER_MAX) are a rounding lottery in a few worlds: when the linesearch's
+# last polish step lands exactly on a root, the rule that keeps a step
+# strictly inside its bracket (the JAX package's too,
+# pallas/solver_kernels.py:439) bisects away from it and the solve stops
+# early, in whichever version an ulp decides (ROADMAP §C). A world that
+# misses one of them is held as the whole-step comparisons hold theirs
+# (_check_excused): its solve stopped in fewer iterations than the plain
+# solve, or its objective lies at most TOL_OBJ units above the plain
+# solve's, on the same inputs. There may be at most LOTTERY_WORLDS such
+# worlds: the most worlds, in one of 40 states of the humanoid main path
+# (8192 worlds each), in which the plain solve after a 1-ulp change of qfx
+# misses these criteria against the plain solve itself: 22, at states
+# 100-139 (`utils/solve_spread.py 40` on an NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md §6; 124 such worlds in all, B3's own 137, 23 at most in
+# one state).
+LOTTERY_WORLDS = 22
 PROFILE_STEPS = 10
 # three_humanoids (phases f-h): the benchmark suite's configuration
 NCONMAX3 = 100
@@ -184,8 +205,8 @@ ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 P7_STEPS = 25
 P8_STEPS = 4
 P9_PREP, P9_STEPS = 2, 3
-# B3 and B4 run one warp per world: their ptxas report may show at most
-# this much stack and no spill stores
+# B2, B3 and B4 run one warp per world: their ptxas report may show at
+# most this much stack and no spill stores
 MAX_STACK_B3 = 1024
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
@@ -225,6 +246,69 @@ def _compare(name, out, ref, tol, keys, worlds=None, scale=None) -> float:
     if not rel <= t:
       raise RuntimeError(f'{name}: {k} differs from the plain version: '
                          f'{rel:.3e} > {t:g}')
+  return worst
+
+
+def _worlds_over(out, ref, tol, keys):
+  """Per world, whether a field of keys lies over its tolerance (tol[k] of
+  max(1, max |plain|) over the batch, as _compare); and those scales."""
+  import torch
+  W = ref[keys[0]].shape[0]
+  over = torch.zeros(W, dtype=torch.bool, device=ref[keys[0]].device)
+  scale = {}
+  for k in keys:
+    scale[k] = max(1.0, float(ref[k].abs().max()))
+    err = (out[k].float() - ref[k].float()).abs().reshape(W, -1).amax(1)
+    over |= err / scale[k] > tol[k]
+  return over, scale
+
+
+def _hold_lottery(label, miss, gap, niter, niter_p):
+  """Hold the worlds `miss` (bool over worlds) that missed a per-world
+  criterion of a solve (see LOTTERY_WORLDS), given each world's
+  objective less the plain solve's (units) and both solver_niter."""
+  idx = miss.nonzero()[:, 0]
+  print(f'  {label}: {idx.numel()} worlds miss a per-world criterion '
+        f'(allowed {LOTTERY_WORLDS}): {idx.tolist()}, objective less the '
+        f'plain solve\'s {[float(f"{g:.3g}") for g in gap[idx].tolist()]} '
+        f'units, solver_niter {niter[idx].tolist()}, plain '
+        f'{niter_p[idx].tolist()}')
+  if idx.numel() > LOTTERY_WORLDS:
+    raise RuntimeError(f'{label}: {idx.numel()} worlds miss the per-world '
+                       f'criteria (allowed {LOTTERY_WORLDS})')
+  if bool((miss & (gap > TOL_OBJ) & (niter >= niter_p)).any()):
+    raise RuntimeError(f'{label}: a world that misses the per-world '
+                       f'criteria has a higher objective than the plain '
+                       f'solve reaches in as many iterations')
+
+
+def _hold_solve(label, m, out, ref, tol, n_in) -> float:
+  """Hold a solve's outputs (B3's or B4's) against the plain version's
+  per world: each field of tol at its tolerance, the float64 objective on
+  the solve's inputs n_in (qM, efc_J, D, aref, frictionloss,
+  qfrc_smooth) within TOL_OBJ units of tolerance * meaninertia * nv, and
+  solver_niter within NITER_MAX; a world that misses one of them held by
+  _hold_lottery. Returns the max abs error of the other worlds."""
+  from mujoco_warp_tpu_torch import solver
+  from mujoco_warp_tpu_torch.io import efc_layout
+  f64 = lambda x: x.double()
+  qfs = f64(n_in[5])
+  qsm = solver.cho_solve(solver.cholesky(f64(n_in[0])), qfs)
+  ne, nf, _, _, _ = efc_layout(m, 0)
+  objective = lambda qacc: solver.objective(
+      *[f64(x) for x in n_in[:5]], qfs, qsm, f64(qacc), ne, nf)
+  unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * max(1, m.nv)
+  gap = (objective(out['qacc']) - objective(ref['qacc'])) / unit
+  dn = (out['solver_niter'] - ref['solver_niter']).abs()
+  over, scale = _worlds_over(out, ref, tol, list(tol))
+  miss = over | (gap.abs() > TOL_OBJ) | (dn > NITER_MAX)
+  _hold_lottery(label, miss, gap, out['solver_niter'], ref['solver_niter'])
+  worst = _compare(label, out, ref, tol, list(tol), worlds=~miss,
+                   scale=scale)
+  print(f'  {label} objective gap / (tolerance * meaninertia * nv): max '
+        f'{float(gap[~miss].abs().max()):.3e} over the other worlds (tol '
+        f'{TOL_OBJ:g}); solver_niter |diff| histogram '
+        f'{dn.bincount().tolist()}')
   return worst
 
 
@@ -326,8 +410,13 @@ def _record(records, name, launches, err, source, replaces, run, plain,
             nbytes, flops, library=None):
   """Time a kernel (20 launches), its plain version (3) and, where one
   PyTorch call computes the same function, that call (20); append the
-  kernel's record with its bound."""
-  ms = _cuda_ms(run, 20)
+  kernel's record with its bound. The kernel's time is the card's busy
+  time per launch (torch.profiler; the host's time between launches
+  left out, which CUDA events around the launches would count where the
+  wrapper takes longer than its kernel); both are printed."""
+  from mujoco_warp_tpu_torch.utils.compare_trees import device_ms
+  wall_ms = _cuda_ms(run, 20)
+  ms = device_ms(run, 20) or wall_ms
   plain_ms = _cuda_ms(plain, 3)
   library_ms = _cuda_ms(library, 20) if library else None
   bound_b = nbytes / PEAK_BYTES * 1e3
@@ -339,7 +428,8 @@ def _record(records, name, launches, err, source, replaces, run, plain,
       bound_by='bytes' if bound_b >= bound_f else 'operations',
       library_ms=library_ms))
   lib = f', library {library_ms:.4f} ms' if library else ''
-  print(f'  {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}), bound '
+  print(f'  {name}: {ms:.4f} ms on the card, {wall_ms:.4f} ms a launch '
+        f'from the host (plain {plain_ms:.3f} ms{lib}), bound '
         f'{max(bound_b, bound_f):.4f} ms by '
         f'{records[-1]["bound_by"]} ({nbytes / 1e6:.1f} MB, '
         f'{flops / 1e9:.3f} GFLOP)')
@@ -428,19 +518,20 @@ def _check_solve(name, a, b, x, x_plain, x64) -> float:
 
 def _check_newton(label, m, out, ref, n_in, hb) -> float:
   """Hold kernel B4's outputs to the criteria B3's solve is held to (see
-  TOL_B3): the step tolerances, the solve's objective and solver_niter;
-  qLD against solver.cholesky. With hb, qacc_euler = (qM + diag(hb))^-1
-  (qfrc_smooth + qfrc_constraint) is a linear image of qfrc_constraint
-  through an ill-conditioned inverse (the hands' inertias are ~1e-3), so
-  it is held at qfrc_constraint's tolerance and, per world, by the
-  residual of that system with the kernel's own qfrc_constraint
-  (TOL_RES). Returns the max abs error."""
+  TOL_B3): per world the step tolerances, the solve's objective and
+  solver_niter, a world that misses them held by _hold_lottery (see
+  LOTTERY_WORLDS); qLD against solver.cholesky. With hb, qacc_euler =
+  (qM + diag(hb))^-1 (qfrc_smooth + qfrc_constraint) is a linear image
+  of qfrc_constraint through an ill-conditioned inverse (the hands'
+  inertias are ~1e-3), so it is held at qfrc_constraint's tolerance and,
+  per world, by the residual of that system with the kernel's own
+  qfrc_constraint (TOL_RES). Returns the max abs error."""
   import torch
   from mujoco_warp_tpu_torch import solver
   tol = dict(qacc=TOL_B3_OTHER, qacc_smooth=TOL_B3_OTHER,
              qacc_euler=TOL_B3_OTHER if hb is None else 5e-4,
              qfrc_constraint=5e-4, efc_force=5e-4)
-  worst = _compare(label, out, ref, tol, list(tol))
+  worst = _hold_solve(label, m, out, ref, tol, n_in)
   if hb is not None:
     a = n_in[0].double() + torch.diag(hb.double())
     rhs = n_in[5].double() + out['qfrc_constraint'].double()
@@ -454,21 +545,6 @@ def _check_newton(label, m, out, ref, n_in, hb) -> float:
   worst = max(worst, _compare(label, {'qLD': out['qLD']},
                               {'qLD': solver.cholesky(n_in[0])}, TOL_B1,
                               ['qLD']))
-  f64 = lambda x: x.double()
-  qfs = f64(n_in[5])
-  qsm = solver.cho_solve(solver.cholesky(f64(n_in[0])), qfs)
-  objective = lambda qacc: solver.objective(
-      *[f64(x) for x in n_in[:5]], qfs, qsm, f64(qacc), 0, 0)
-  unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * max(1, m.nv)
-  gap = ((objective(out['qacc']) - objective(ref['qacc'])) / unit).abs()
-  dn = (out['solver_niter'] - ref['solver_niter']).abs()
-  print(f'  {label} objective gap max {float(gap.max()):.3e} (tol '
-        f'{TOL_OBJ:g}); solver_niter |diff| histogram '
-        f'{dn.bincount().tolist()}')
-  if not float(gap.max()) <= TOL_OBJ:
-    raise RuntimeError(f'{label}: misses the plain version\'s objective')
-  if int(dn.max()) > NITER_MAX:
-    raise RuntimeError(f'{label}: solver_niter differs by {int(dn.max())}')
   if hb is None and not torch.equal(out['qacc_euler'], out['qacc']):
     raise RuntimeError(f'{label}: qacc_euler != qacc without hb')
   return worst
@@ -494,15 +570,18 @@ def _flops_newton(nv, nact, it, nu=0) -> float:
                 4 * nact * nv + it * per_iter).sum())
 
 
-WARP_KERNELS = (('glue', 'glue_kernel'), ('newton', 'newton_kernel'))
+# the kernels that run one warp per world: (source, kernel, C entry)
+WARP_KERNELS = (('glue', 'glue_kernel', ''), ('newton', 'newton_kernel', ''),
+                ('contact', 'contact_kernel', ''),
+                ('contact', 'contact_ell_kernel', 'ell_'))
 
 
 def _check_warp_kernels_ptxas():
-  """B3 and B4 run one warp per world with their state in shared memory:
-  ptxas must report no spill stores and at most MAX_STACK_B3 bytes of
-  stack for them."""
+  """B2, B3 and B4 run one warp per world with their state in shared
+  memory: ptxas must report no spill stores and at most MAX_STACK_B3
+  bytes of stack for them."""
   from mujoco_warp_tpu_torch.kernels import _build
-  for source, kernel in WARP_KERNELS:
+  for source, kernel, _ in WARP_KERNELS:
     info = {k: v for k, v in _build.ptxas_info(source).items()
             if k.startswith(f'_Z{len(kernel)}{kernel}')}
     if len(info) != 1:
@@ -517,15 +596,18 @@ def _check_warp_kernels_ptxas():
       raise RuntimeError(f'{kernel}: spills or stack past {MAX_STACK_B3} B')
 
 
-def _print_warp_shapes():
-  """The launch shape of B3's and B4's last launches."""
+def _print_warp_shapes(label, kernels):
+  """The launch shape of the last launch of each warp kernel named in
+  `kernels`, keyed by its source and C entry."""
   from mujoco_warp_tpu_torch.kernels import _build
-  for source, kernel in WARP_KERNELS:
-    grid, block, smem, per_sm = _build.shapes[(source, '')]
-    print(f'  {kernel} launch: grid {grid}, block {block} threads '
-          f'({block // 32} worlds), {smem} B dynamic shared memory '
-          f'({smem // (block // 32)} B a world); {per_sm} blocks '
-          f'({per_sm * block // 32} worlds) resident per SM')
+  for source, kernel, entry in WARP_KERNELS:
+    if kernel not in kernels:
+      continue
+    grid, block, smem, per_sm = _build.shapes[(source, entry)]
+    print(f'  {kernel} ({source}, entry {entry!r}) launch, {label}: grid '
+          f'{grid}, block {block} threads ({block // 32} worlds), {smem} B '
+          f'dynamic shared memory ({smem // (block // 32)} B a world); '
+          f'{per_sm} blocks ({per_sm * block // 32} worlds) resident per SM')
 
 
 def _check_repeat(label, fn):
@@ -945,6 +1027,8 @@ def _three_humanoids(card) -> list:
   c_out = kc.contact(m, *c_in, NCONMAX3)
   c_ref = kc.plain(m, *c_in, NCONMAX3)
   errs['contact'] = _check_contact('B2', m, c_out, c_ref)
+  _check_repeat('B2', lambda: kc.contact(m, *c_in, NCONMAX3))
+  _print_warp_shapes('three_humanoids', ('contact_kernel',))
 
   parent = m.dof_parentid
   qM, qfs = pre.qM, pre.qfrc_smooth
@@ -1267,6 +1351,8 @@ def _elliptic_humanoid(card, m0, d0) -> list:
   c_out = kc.contact(m, *c_in, NCONMAX)
   c_ref = kc.plain(m, *c_in, NCONMAX)
   errs['contact'] = _check_contact('B2 elliptic', m, c_out, c_ref)
+  _check_repeat('B2 elliptic', lambda: kc.contact(m, *c_in, NCONMAX))
+  _print_warp_shapes('humanoid', ('contact_ell_kernel',))
 
   # ---- (n) B3e and B4-elliptic against their plain versions ----
   cone = solver.cone_inputs(m, mt.Contact(
@@ -1396,6 +1482,9 @@ def _elliptic_three(card) -> list:
   c_out = kc.contact(m, *c_in, NCONMAX3)
   c_ref = kc.plain(m, *c_in, NCONMAX3)
   err = _check_contact('B2 elliptic three_humanoids', m, c_out, c_ref)
+  _check_repeat('B2 elliptic three_humanoids',
+                lambda: kc.contact(m, *c_in, NCONMAX3))
+  _print_warp_shapes('three_humanoids', ('contact_ell_kernel',))
 
   # ---- (o) P9: counted and timed, then one step against the plain ----
   d9, res9, steps = _run_path('step_elliptic_three_humanoids', m, d,
@@ -1573,6 +1662,7 @@ def main() -> int:
   c_out = kc.contact(m, *c_in, NCONMAX)
   c_ref = kc.plain(m, *c_in, NCONMAX)
   errs['contact'] = _check_contact('B2', m, c_out, c_ref)
+  _check_repeat('B2', lambda: kc.contact(m, *c_in, NCONMAX))
 
   qfx = d.qfrc_applied + support.xfrc_accumulate(
       m, d.xfrc_applied, sm_out['xipos'], sm_out['subtree_com'],
@@ -1584,7 +1674,8 @@ def main() -> int:
   g_ref = forward.glue(m, *g_in)
   keys = [k for k in kg.OUTPUTS if k != 'solver_niter']
   tol3 = {k: TOL_B3.get(k, TOL_B3_OTHER) for k in keys}
-  errs['glue'] = _compare('B3', g_out, g_ref, tol3, keys)
+  errs['glue'] = _hold_solve('B3', m, g_out, g_ref, tol3,
+                             g_in[:5] + (g_ref['qfrc_smooth'],))
   # float32's own floor: both versions against the plain one in float64
   g_f64 = forward.glue(m, *[x.double() if x.is_floating_point() else x
                             for x in g_in])
@@ -1593,21 +1684,6 @@ def main() -> int:
     dev = lambda g: float((g[k].double() - g_f64[k]).abs().max()) / s
     print(f'  B3 {k:18s} off the float64 plain version: kernel '
           f'{dev(g_out):.3e}, plain {dev(g_ref):.3e} (scale {s:.1f})')
-  f64 = lambda x: x.double()
-  qfs = f64(g_ref['qfrc_smooth'])
-  qsm = solver.cho_solve(solver.cholesky(f64(g_in[0])), qfs)
-  ne, nf, _, _, _ = mt.efc_layout(m, NCONMAX)
-  objective = lambda qacc: solver.objective(
-      *[f64(x) for x in g_in[:5]], qfs, qsm, f64(qacc), ne, nf)
-  unit = (float(m.opt.tolerance) * float(m.stat.meaninertia) *
-          max(1, m.nv))
-  gap = ((objective(g_out['qacc']) - objective(g_ref['qacc'])) /
-         unit).abs()
-  print(f'  B3 objective gap / (tolerance * meaninertia * nv): max '
-        f'{float(gap.max()):.3e} (tol {TOL_OBJ:g})')
-  if not float(gap.max()) <= TOL_OBJ:
-    raise RuntimeError('B3: the kernel\'s solution misses the plain '
-                       'version\'s objective')
   g_ulp = forward.glue(m, *g_in[:8], _next_ulp(g_in[8]), g_in[9])
 
   def niter_share(a, b, label):
@@ -1620,9 +1696,6 @@ def main() -> int:
   share_ulp = niter_share(g_ulp, g_ref, 'plain vs plain(qfx + 1 ulp)')
   mean = lambda g: float(g['solver_niter'].float().mean())
   print(f'  B3 solver_niter mean {mean(g_out):.3f} vs plain {mean(g_ref):.3f}')
-  dn_max = int((g_out['solver_niter'] - g_ref['solver_niter']).abs().max())
-  if dn_max > NITER_MAX:
-    raise RuntimeError(f'B3: solver_niter differs by {dn_max} > {NITER_MAX}')
   if share < share_ulp - NITER_MARGIN:
     raise RuntimeError(f'B3: solver_niter differs by more than '
                        f'{NITER_SLACK} in too many worlds')
@@ -1669,7 +1742,8 @@ def main() -> int:
         f'{"bit-equal" if not same else "differs in " + str(same)}')
   if same:
     raise RuntimeError('B4 differs from B3\'s solve')
-  _print_warp_shapes()
+  _print_warp_shapes('humanoid', ('glue_kernel', 'newton_kernel',
+                                    'contact_kernel'))
   # B6 on B5's factor of qM, a CG-like right-hand side (the gradient at
   # the warm start without its constraint part)
   qM = g_in[0]

@@ -7,10 +7,11 @@
 // launch(const Params*, cudaStream_t) returns a cudaError_t,
 // params_size() the size of its Params struct, and error_string(int) the
 // message of an error code. A source with several kernels prefixes each
-// kernel's launch and params_size with its name (PORT_C_ENTRY). B1, B2,
-// B3e, B4-elliptic and B9-B12 run one thread per world; B3 and B4 one
-// warp per world (PORT_C_WARP_INTERFACE, which also gives launch_shape);
-// B5-B8 (batch_linalg.cu) one block per world.
+// kernel's launch and params_size with its name (PORT_C_ENTRY,
+// PORT_C_WARP_ENTRY). B1, B3e, B4-elliptic and B9-B12 run one thread per
+// world; B2, B3 and B4 one warp per world (PORT_C_WARP_INTERFACE and
+// PORT_C_WARP_ENTRY, which also give launch_shape); B5-B8
+// (batch_linalg.cu) one block per world.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,40 +55,56 @@
 
 // A kernel that runs one world per warp, `warps` worlds per block, with
 // `per_world` bytes of dynamic shared memory per world (an expression in
-// p): launch, params_size, error_string, and launch_shape(p, s), which
-// writes the launch's grid, block and shared bytes to s[0..2] and the
-// blocks resident per SM to s[3]. The launch asks for the largest shared
-// memory carveout, which the occupancy assumes.
-#define PORT_C_WARP_INTERFACE(Params, kernel, warps, per_world)           \
-  extern "C" int params_size() { return (int)sizeof(Params); }           \
-  PORT_C_ERROR_STRING                                                    \
-  static cudaError_t kernel##_setup(const Params* p, int* s) {           \
+// p): <prefix>launch, <prefix>params_size, and <prefix>launch_shape(p,
+// s), which writes the launch's grid, block and shared bytes to s[0..2]
+// and the blocks resident per SM to s[3]. The launch asks for the largest
+// shared memory carveout, which the occupancy assumes; it sets the
+// kernel's shared-memory attributes only when a launch needs more bytes
+// than the last setting allowed, not on every launch.
+#define PORT_C_WARP_ENTRY(prefix, Params, kernel, warps, per_world)       \
+  extern "C" int prefix##params_size() { return (int)sizeof(Params); }   \
+  static void kernel##_shape(const Params* p, int* s) {                  \
     s[0] = (p->nworld + (warps) - 1) / (warps);                          \
     s[1] = 32 * (warps);                                                 \
     s[2] = (warps) * (int)(per_world);                                   \
+  }                                                                      \
+  static cudaError_t kernel##_setup(int bytes) {                         \
+    static int allowed = -1;                                             \
+    if (bytes <= allowed) return cudaSuccess;                            \
     cudaError_t err = cudaFuncSetAttribute(                              \
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s[2]);      \
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);     \
     if (err == cudaSuccess)                                              \
       err = cudaFuncSetAttribute(                                        \
           kernel, cudaFuncAttributePreferredSharedMemoryCarveout,        \
           (int)cudaSharedmemCarveoutMaxShared);                          \
+    if (err == cudaSuccess) allowed = bytes;                             \
     return err;                                                          \
   }                                                                      \
-  extern "C" int launch_shape(const Params* p, int* s) {                 \
-    cudaError_t err = kernel##_setup(p, s);                              \
+  extern "C" int prefix##launch_shape(const Params* p, int* s) {         \
+    kernel##_shape(p, s);                                                \
+    cudaError_t err = kernel##_setup(s[2]);                              \
     if (err == cudaSuccess)                                              \
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(               \
           &s[3], kernel, s[1], (size_t)s[2]);                            \
     return (int)err;                                                     \
   }                                                                      \
-  extern "C" int launch(const Params* p, void* stream) {                 \
+  extern "C" int prefix##launch(const Params* p, void* stream) {         \
     if (p->nworld <= 0) return (int)cudaSuccess;                         \
     int s[3];                                                            \
-    cudaError_t err = kernel##_setup(p, s);                              \
+    kernel##_shape(p, s);                                                \
+    cudaError_t err = kernel##_setup(s[2]);                              \
     if (err != cudaSuccess) return (int)err;                             \
     PORT_LAUNCH(kernel, s[0], s[1], (size_t)s[2], stream, *p);           \
     return (int)cudaGetLastError();                                      \
   }
+
+// the warp kernel of a source with one kernel, or its first: the entry
+// without a prefix, and error_string
+#define PORT_C_WARP_INTERFACE(Params, kernel, warps, per_world)           \
+  PORT_C_ERROR_STRING                                                    \
+  PORT_C_WARP_ENTRY(, Params, kernel, warps, per_world)
+
+#define FULL_MASK 0xffffffffu
 
 constexpr float kMinVal = 1e-15f;
 

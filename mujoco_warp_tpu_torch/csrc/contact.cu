@@ -1,13 +1,12 @@
-// Kernel B2: collision and constraint rows for one world per thread —
-// narrowphase over the static candidate pairs (plane, sphere and capsule
-// primitives), order-keeping compaction of the contacts into the pool,
-// and the efc rows: dof friction, joint limits and contacts of the
-// pyramidal cone (contact_kernel) or of the elliptic cone
-// (contact_ell_kernel); both are contact_world<ELL>(), so the pyramidal
-// instantiation is the code it was before the elliptic rows came in.
-// The JAX package builds elliptic rows with XLA (its contact kernel
-// takes the pyramidal cone alone, contact_kernels.py:57); this kernel
-// builds them as mujoco_warp_tpu/constraint.py:479-517 does.
+// Kernel B2: collision and constraint rows, one warp per world (WARPS
+// worlds a block) — narrowphase over the static candidate pairs (plane,
+// sphere and capsule primitives), order-keeping compaction of the
+// contacts into the pool, and the efc rows: dof friction, joint limits
+// and contacts of the pyramidal cone (contact_kernel) or of the elliptic
+// cone (contact_ell_kernel); both run contact_warp<ELL>(). The JAX
+// package builds elliptic rows with XLA (its contact kernel takes the
+// pyramidal cone alone, contact_kernels.py:57); this kernel builds them
+// as mujoco_warp_tpu/constraint.py:479-517 does.
 //
 // Replaces: mujoco_warp_tpu/pallas/contact_kernels.py, contact_efc
 // (:1643; body built by make_contact_kernel :1061). Plain version:
@@ -20,21 +19,33 @@
 // 14 KB per world, 115 MB at 8192 worlds, 34 us at 3.35 TB/s. The
 // narrowphase of 177 candidates is about 20k flops per world.
 //
-// What this first cut does about it: nothing yet. One thread per world
-// writes its rows in the batch-first [W, rows, nv] layout, so no store
-// is coalesced, and rows that do not exist are written as zeros. A warp
-// per world, or a world-fastest layout shared with kernel B3, is later
-// work.
-//
-// Contacts keep candidate order: a candidate with dist < margin is
-// appended to the pool in the order of the pair list, so slot k and efc
-// block k match the JAX package (collision_driver.finalize). Candidates
-// past nconmax are dropped and counted in ncollision.
+// The design, one warp per world:
+// - narrowphase: lane l takes the candidates 32k + l; a warp scan of each
+//   lane's count of contacts within the margin (a plane-capsule pair has
+//   two, its end caps in order) gives every contact its slot, so slot k
+//   is the k-th candidate with dist < margin in pair order, as in the JAX
+//   package (collision_driver.finalize); candidates past nconmax are
+//   dropped and counted in ncollision. The slots stay in shared memory
+//   (PoolMem);
+// - lanes over slots (impedances, the empty slots' fields) and over rows
+//   (the static rows' scalars, the empty slots' rows); every row of
+//   efc_J is written by lanes over dofs, so its stores are coalesced, and
+//   the empty slots' rows are one zero run at the end of the world's
+//   block;
+// - each contact's rows: lane n on dof n (n + 32, ... where nv > 32);
+//   efc_vel[r] = sum_n J[r, n] qvel[n] runs in dof order as one chain on
+//   lane r, from the rows' entries in shared memory.
+// Every output keeps the bits of the one-thread-per-world design this
+// replaced (the same arithmetic per element; two products are rounded
+// explicitly where that design's loops kept them apart).
 
 #include "common.cuh"
 
-#define MAXCON 128
-#define MAXSTRIDE 10
+// nconmax is capped at 128 by the wrapper (kernels/contact.py, MAXCON):
+// a world's PoolMem is then at most 10 KB of shared memory
+#define MAXSTRIDE 10         // rows of a pyramidal contact (condim <= 6)
+#define WARPS 4              // worlds (warps) per block
+#define MIN_BLOCKS 8         // blocks per SM: 64 registers, no spills
 
 struct Params {
   const float* qpos;
@@ -153,36 +164,51 @@ DEV void closest_segment_segment(const float* a0, const float* a1,
   }
 }
 
-struct Pool {
-  int count;                 // candidates with dist < margin
-  int pair[MAXCON];          // pair of each filled slot
+// A world's scratch in shared memory: per pool slot the pair, dist, pos
+// and frame of its contact and its impedance (k, b, imp); and the entries
+// of one contact's rows over 32 dofs (row r at v[33 r], padded against
+// bank conflicts)
+struct PoolMem {
+  int* pair;
+  float* dist;
+  float* pos;
+  float* frame;
+  float* kbi;
+  float* v;
 };
 
-// append one candidate contact to the pool if it is within the margin
-DEV void emit(const Params& p, int w, Pool& pool, int pr, float dist,
-              const float* pos, const float* n) {
-  const float* pf = p.pair_float + 18 * pr;
-  const int* pi = p.pair_int + 8 * pr;
-  if (!(dist < pf[14])) return;
-  const int s = pool.count++;
-  if (s >= p.nconmax) return;
-  pool.pair[s] = pr;
-  const size_t c = (size_t)w * p.nconmax + s;
-  p.con_dist[c] = dist;
-  for (int i = 0; i < 3; ++i) p.con_pos[3 * c + i] = pos[i];
-  make_frame(n, p.con_frame + 9 * c);
-  p.con_includemargin[c] = pf[15];
-  for (int i = 0; i < 5; ++i) p.con_friction[5 * c + i] = pf[i];
-  for (int i = 0; i < 2; ++i) p.con_solref[2 * c + i] = pf[5 + i];
-  for (int i = 0; i < 2; ++i) p.con_solreffriction[2 * c + i] = pf[7 + i];
-  for (int i = 0; i < 5; ++i) p.con_solimp[5 * c + i] = pf[9 + i];
-  p.con_dim[c] = pi[6];
-  p.con_geom[2 * c] = pi[2];
-  p.con_geom[2 * c + 1] = pi[3];
+__host__ __device__ inline int pool_words(int nconmax, int stride) {
+  return 17 * nconmax + 33 * stride;
+}
+
+DEV PoolMem pool_at(float* base, int nconmax) {
+  PoolMem s;
+  s.pair = reinterpret_cast<int*>(base);
+  s.dist = base + nconmax;
+  s.pos = s.dist + nconmax;
+  s.frame = s.pos + 3 * nconmax;
+  s.kbi = s.frame + 9 * nconmax;
+  s.v = s.kbi + 3 * nconmax;
+  return s;
+}
+
+// the contacts of one candidate pair before the margin test: the plane-
+// capsule pair gives its two end caps in order, the others one contact
+struct Cand {
+  int n;
+  float dist[2], pos[2][3], nrm[2][3];
+};
+
+DEV void cand(Cand& c, int e, float dist, const float* pos, const float* n) {
+  c.dist[e] = dist;
+  for (int i = 0; i < 3; ++i) {
+    c.pos[e][i] = pos[i];
+    c.nrm[e][i] = n[i];
+  }
 }
 
 // narrowphase of one candidate pair (collision_primitive colliders)
-DEV void collide(const Params& p, int w, Pool& pool, int pr) {
+DEV void collide(const Params& p, int w, int pr, Cand& c) {
   const int* pi = p.pair_int + 8 * pr;
   const int t1 = pi[0], t2 = pi[1], g1 = pi[2], g2 = pi[3];
   const float* p1 = p.geom_xpos + ((size_t)w * p.ngeom + g1) * 3;
@@ -198,21 +224,27 @@ DEV void collide(const Params& p, int w, Pool& pool, int pr) {
       float d[3] = {p2[0] - p1[0], p2[1] - p1[1], p2[2] - p1[2]};
       float dist = dot3(d, n) - s2[0];
       for (int i = 0; i < 3; ++i) pos[i] = p2[i] - n[i] * (s2[0] + 0.5f * dist);
-      emit(p, w, pool, pr, dist, pos, n);
+      cand(c, 0, dist, pos, n);
+      c.n = 1;
     } else {                                   // capsule: both end caps
       float ax[3];
       zaxis(m2, ax);
+      // ax s2[1] is rounded before the sign multiplies it, as in the
+      // one-thread design whose loop over the caps ran with a run-time
+      // sign; unrolled, the sign would fold and the product contract
+#pragma unroll
       for (int e = 0; e < 2; ++e) {
         float sg = e == 0 ? 1.0f : -1.0f, end[3], d[3];
         for (int i = 0; i < 3; ++i) {
-          end[i] = p2[i] + sg * (ax[i] * s2[1]);
+          end[i] = p2[i] + sg * __fmul_rn(ax[i], s2[1]);
           d[i] = end[i] - p1[i];
         }
         float dist = dot3(d, n) - s2[0];
         for (int i = 0; i < 3; ++i)
           pos[i] = end[i] - n[i] * (s2[0] + 0.5f * dist);
-        emit(p, w, pool, pr, dist, pos, n);
+        cand(c, e, dist, pos, n);
       }
+      c.n = 2;
     }
     return;
   }
@@ -243,11 +275,43 @@ DEV void collide(const Params& p, int w, Pool& pool, int pr) {
     closest_segment_segment(a, a1, b, b1, pa, pb);
     for (int i = 0; i < 3; ++i) nraw[i] = pb[i] - pa[i];
     float dist = sphere_like(nraw, s1[0], s2[0], pa, pos, n);
-    emit(p, w, pool, pr, dist, pos, n);
+    cand(c, 0, dist, pos, n);
+    c.n = 1;
     return;
   }
   float dist = sphere_like(nraw, s1[0], s2[0], ref, pos, n);
-  emit(p, w, pool, pr, dist, pos, n);
+  cand(c, 0, dist, pos, n);
+  c.n = 1;
+}
+
+// slot s of world w's pool, if below nconmax, takes a contact of pair pr
+DEV void store(const Params& p, const PoolMem& pool, int w, int s,
+               int pr, float dist, const float* pos, const float* n) {
+  if (s >= p.nconmax) return;
+  const float* pf = p.pair_float + 18 * pr;
+  const int* pi = p.pair_int + 8 * pr;
+  const size_t c = (size_t)w * p.nconmax + s;
+  float f[9];
+  make_frame(n, f);
+  pool.pair[s] = pr;
+  pool.dist[s] = dist;
+  p.con_dist[c] = dist;
+  for (int i = 0; i < 3; ++i) {
+    pool.pos[3 * s + i] = pos[i];
+    p.con_pos[3 * c + i] = pos[i];
+  }
+  for (int i = 0; i < 9; ++i) {
+    pool.frame[9 * s + i] = f[i];
+    p.con_frame[9 * c + i] = f[i];
+  }
+  p.con_includemargin[c] = pf[15];
+  for (int i = 0; i < 5; ++i) p.con_friction[5 * c + i] = pf[i];
+  for (int i = 0; i < 2; ++i) p.con_solref[2 * c + i] = pf[5 + i];
+  for (int i = 0; i < 2; ++i) p.con_solreffriction[2 * c + i] = pf[7 + i];
+  for (int i = 0; i < 5; ++i) p.con_solimp[5 * c + i] = pf[9 + i];
+  p.con_dim[c] = pi[6];
+  p.con_geom[2 * c] = pi[2];
+  p.con_geom[2 * c + 1] = pi[3];
 }
 
 // finish one efc row whose Jacobian is already written
@@ -266,7 +330,8 @@ DEV void row(const Params& p, size_t r, float pos, float margin, float D,
 }
 
 template <bool ELL>
-DEV void contact_world(const Params& p, int w) {
+DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
+                      int lane) {
   const int nv = p.nv, K = p.nconmax, S = p.stride;
   const float* qpos = p.qpos + (size_t)w * p.nq;
   const float* qvel = p.qvel + (size_t)w * nv;
@@ -275,15 +340,43 @@ DEV void contact_world(const Params& p, int w) {
   float* J = p.efc_J + (size_t)w * p.njmax * nv;
   const size_t r0 = (size_t)w * p.njmax;
 
-  // ---- narrowphase + order-keeping compaction ----
-  Pool pool;
-  pool.count = 0;
-  for (int pr = 0; pr < p.npair; ++pr) collide(p, w, pool, pr);
-  const int ncon = min(pool.count, K);
-  p.ncollision[w] = pool.count;
-  p.ncon[w] = ncon;
-  for (int s = ncon; s < K; ++s) {
+  // ---- narrowphase + order-keeping compaction, 32 candidates a round ----
+  int count = 0;               // candidates with dist < margin so far
+  for (int k0 = 0; k0 < p.npair; k0 += 32) {
+    const int pr = k0 + lane;
+    Cand c;
+    c.n = 0;
+    if (pr < p.npair) collide(p, w, pr, c);
+    const float margin = pr < p.npair ? p.pair_float[18 * pr + 14] : 0.0f;
+    const bool keep0 = c.n > 0 && c.dist[0] < margin;
+    const bool keep1 = c.n > 1 && c.dist[1] < margin;
+    const int mine = (int)keep0 + (int)keep1;
+    int incl = mine;             // inclusive scan over the lanes
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(FULL_MASK, incl, d);
+      if (lane >= d) incl += up;
+    }
+    const int s = count + incl - mine;
+    if (keep0) store(p, pool, w, s, pr, c.dist[0], c.pos[0], c.nrm[0]);
+    if (keep1)
+      store(p, pool, w, s + (int)keep0, pr, c.dist[1], c.pos[1], c.nrm[1]);
+    count += __shfl_sync(FULL_MASK, incl, 31);
+  }
+  const int ncon = min(count, K);
+  const int nrow_static = p.nf_rows + p.nl_rows;
+  __syncwarp();
+
+  // ---- per slot: efc address, impedance, the empty slots' fields ----
+  for (int s = lane; s < K; s += 32) {
     const size_t c = (size_t)w * K + s;
+    p.con_efc_address[c] = s < ncon ? nrow_static + S * s : -1;
+    if (s < ncon) {
+      const float* pf = p.pair_float + 18 * pool.pair[s];
+      float* kb = pool.kbi + 3 * s;
+      kbi(pf + 5, pf + 9, pool.dist[s] - pf[15], p.timestep, p.refsafe,
+          kb, kb + 1, kb + 2);
+      continue;
+    }
     p.con_dist[c] = 1e10f;
     for (int i = 0; i < 3; ++i) p.con_pos[3 * c + i] = 0.0f;
     for (int i = 0; i < 9; ++i) p.con_frame[9 * c + i] = 0.0f;
@@ -296,71 +389,87 @@ DEV void contact_world(const Params& p, int w) {
     p.con_geom[2 * c] = -1;
     p.con_geom[2 * c + 1] = -1;
   }
-  const int nrow_static = p.nf_rows + p.nl_rows;
-  for (int s = 0; s < K; ++s)
-    p.con_efc_address[(size_t)w * K + s] = s < ncon ? nrow_static + S * s : -1;
 
-  int nf_act = 0, nl_act = 0, nefc = 0;
-  float k, b, imp;
-
-  // ---- dof friction rows ----
-  for (int i = 0; i < p.nf_rows; ++i) {
-    const float* f = p.fr_float + 9 * i;
-    const int dof = p.fr_int[i];
-    const bool on = p.fr_on != 0;
-    for (int n = 0; n < nv; ++n) J[(size_t)i * nv + n] = 0.0f;
-    if (on) J[(size_t)i * nv + dof] = 1.0f;
-    const float vel = qvel[dof];
-    kbi(f, f + 2, 0.0f, p.timestep, p.refsafe, &k, &b, &imp);
-    const float act = on ? 1.0f : 0.0f;
-    const float D = 1.0f / fmaxf(f[7] * (1.0f - imp) / imp, kMinVal) * act;
-    row(p, r0 + i, 0.0f, 0.0f, D, vel, (-k * imp * 0.0f - b * vel) * act,
-        f[8] * act, kFrictionDof, dof, on);
-    nf_act += on;
-  }
-
-  // ---- joint limit rows ----
-  for (int i = 0; i < p.nl_rows; ++i) {
-    const int* li = p.lim_int + 3 * i;
-    const float* lf = p.lim_float + 11 * i;
-    const int r = p.nf_rows + i;
-    const float q = qpos[li[0]];
-    const float dmin = q - lf[0], dmax = lf[1] - q;
-    const float pos = fminf(dmin, dmax) - lf[2];
-    const bool on = (pos < 0.0f) && p.lim_on != 0;
-    const float sign = dmin < dmax ? 1.0f : -1.0f;
-    for (int n = 0; n < nv; ++n) J[(size_t)r * nv + n] = 0.0f;
-    if (on) J[(size_t)r * nv + li[1]] = sign;
-    const float vel = sign * qvel[li[1]];
-    kbi(lf + 3, lf + 5, pos, p.timestep, p.refsafe, &k, &b, &imp);
-    const float act = on ? 1.0f : 0.0f;
-    const float D = 1.0f / fmaxf(lf[10] * (1.0f - imp) / imp, kMinVal) * act;
-    row(p, r0 + r, pos + lf[2], lf[2], D, vel,
-        (-k * imp * pos - b * vel) * act, 0.0f, kLimitJoint, li[2], on);
-    nl_act += on;
-  }
-
-  // ---- contact rows, S per pool slot ----
-  for (int s = 0; s < K; ++s) {
-    const int base = nrow_static + S * s;
-    const size_t c = (size_t)w * K + s;
-    if (s >= ncon) {
-      for (int r = 0; r < S; ++r) {
-        for (int n = 0; n < nv; ++n) J[(size_t)(base + r) * nv + n] = 0.0f;
-        row(p, r0 + base + r, 1e10f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
-            kFrictionless, s, false);
-      }
-      continue;
+  // ---- dof friction and joint limit rows: scalars a row per lane ----
+  int nl_act = 0;
+  for (int i0 = 0; i0 < nrow_static; i0 += 32) {
+    const int i = i0 + lane;
+    bool lim_act = false;
+    float k, b, imp;
+    if (i < p.nf_rows) {
+      const float* f = p.fr_float + 9 * i;
+      const int dof = p.fr_int[i];
+      const bool on = p.fr_on != 0;
+      const float vel = qvel[dof];
+      kbi(f, f + 2, 0.0f, p.timestep, p.refsafe, &k, &b, &imp);
+      const float act = on ? 1.0f : 0.0f;
+      const float D = 1.0f / fmaxf(f[7] * (1.0f - imp) / imp, kMinVal) * act;
+      row(p, r0 + i, 0.0f, 0.0f, D, vel, (-k * imp * 0.0f - b * vel) * act,
+          f[8] * act, kFrictionDof, dof, on);
+    } else if (i < nrow_static) {
+      const int* li = p.lim_int + 3 * (i - p.nf_rows);
+      const float* lf = p.lim_float + 11 * (i - p.nf_rows);
+      const float q = qpos[li[0]];
+      const float dmin = q - lf[0], dmax = lf[1] - q;
+      const float pos = fminf(dmin, dmax) - lf[2];
+      const bool on = (pos < 0.0f) && p.lim_on != 0;
+      const float sign = dmin < dmax ? 1.0f : -1.0f;
+      const float vel = sign * qvel[li[1]];
+      kbi(lf + 3, lf + 5, pos, p.timestep, p.refsafe, &k, &b, &imp);
+      const float act = on ? 1.0f : 0.0f;
+      const float D = 1.0f / fmaxf(lf[10] * (1.0f - imp) / imp, kMinVal) *
+                      act;
+      row(p, r0 + i, pos + lf[2], lf[2], D, vel,
+          (-k * imp * pos - b * vel) * act, 0.0f, kLimitJoint, li[2], on);
+      lim_act = on;
     }
+    nl_act += __popc(__ballot_sync(FULL_MASK, lim_act));
+  }
+  const int nf_act = p.fr_on != 0 ? p.nf_rows : 0;
+  // their Jacobian rows, lanes over dofs: one nonzero where the row acts
+  for (int i = 0; i < nrow_static; ++i) {
+    int dof;
+    float one;
+    if (i < p.nf_rows) {
+      dof = p.fr_int[i];
+      one = p.fr_on != 0 ? 1.0f : 0.0f;
+    } else {
+      const int* li = p.lim_int + 3 * (i - p.nf_rows);
+      const float* lf = p.lim_float + 11 * (i - p.nf_rows);
+      const float q = qpos[li[0]];
+      const float dmin = q - lf[0], dmax = lf[1] - q;
+      const bool on = (fminf(dmin, dmax) - lf[2] < 0.0f) && p.lim_on != 0;
+      dof = li[1];
+      one = on ? (dmin < dmax ? 1.0f : -1.0f) : 0.0f;
+    }
+    for (int n = lane; n < nv; n += 32)
+      J[(size_t)i * nv + n] = n == dof ? one : 0.0f;
+  }
+
+  // ---- the empty slots' rows: scalars a row per lane, J one zero run ----
+  const int rows_end = nrow_static + S * K;
+  const int empty = nrow_static + S * ncon;
+  for (int r = empty + lane; r < rows_end; r += 32)
+    row(p, r0 + r, 1e10f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, kFrictionless,
+        (r - nrow_static) / S, false);
+  for (size_t e = (size_t)empty * nv + lane; e < (size_t)rows_end * nv;
+       e += 32)
+    J[e] = 0.0f;
+
+  // ---- contact rows, S per filled slot: lane n on dof n ----
+  int nefc = 0;
+  constexpr int RMAX = ELL ? 6 : MAXSTRIDE;
+  for (int s = 0; s < ncon; ++s) {
+    const int base = nrow_static + S * s;
     const int pr = pool.pair[s];
     const int* pi = p.pair_int + 8 * pr;
     const float* pf = p.pair_float + 18 * pr;
     const int b1 = pi[4], b2 = pi[5], dim = pi[6];
     const float incl = pf[15];
-    const float posv = p.con_dist[c] - incl;
+    const float posv = pool.dist[s] - incl;
     const bool active = posv < 0.0f;
-    const float* f = p.con_frame + 9 * c;
-    const float* cpos = p.con_pos + 3 * c;
+    const float* f = pool.frame + 9 * s;
+    const float* cpos = pool.pos + 3 * s;
     const float* com1 = com + 3 * p.body_rootid[b1];
     const float* com2 = com + 3 * p.body_rootid[b2];
     float off1[3], off2[3], q1[3][3], q2[3][3];
@@ -372,97 +481,126 @@ DEV void contact_world(const Params& p, int w) {
       cross3(f + 3 * fr, off1, q1[fr]);
       cross3(f + 3 * fr, off2, q2[fr]);
     }
-    kbi(pf + 5, pf + 9, posv, p.timestep, p.refsafe, &k, &b, &imp);
-    float vel[MAXSTRIDE];
-    for (int r = 0; r < S; ++r) vel[r] = 0.0f;
     const float* mask1 = p.body_dof_mask + (size_t)b1 * nv;
     const float* mask2 = p.body_dof_mask + (size_t)b2 * nv;
-    for (int n = 0; n < nv; ++n) {
-      const float* A = cdof + 6 * n;
-      const float* L = A + 3;
-      const float m1 = mask1[n], m2 = mask2[n];
-      // jp: translation rows of the normal and tangents; jr: rotation
-      float jp[3], jr[3];
-      for (int fr = 0; fr < 3; ++fr) {
-        const float fl = dot3(f + 3 * fr, L);
-        jp[fr] = m2 * (fl - dot3(q2[fr], A)) - m1 * (fl - dot3(q1[fr], A));
-        jr[fr] = (m2 - m1) * dot3(f + 3 * fr, A);
-      }
-      const float jdir[5] = {jp[1], jp[2], jr[0], jr[1], jr[2]};
-      for (int r = 0; r < S; ++r) {
-        float v;
-        bool exists;
-        if constexpr (ELL) {       // row 0 the normal, then jdir[r - 1]
-          v = r == 0 ? jp[0] : jdir[r - 1];
-          exists = active && r < max(dim, 1);
-        } else {
-          const int kidx = r / 2;
-          const float sign = (r % 2 == 0) ? 1.0f : -1.0f;
-          const bool fl_row = dim == 1 && r == 0;
-          exists = active && (fl_row || (dim > 1 && r < 2 * (dim - 1)));
-          v = fl_row ? jp[0] : jp[0] + sign * pf[kidx] * jdir[kidx];
+    float vel = 0.0f;            // row `lane`'s, for lane < S
+    for (int n0 = 0; n0 < nv; n0 += 32) {
+      const int n = n0 + lane;
+      if (n < nv) {
+        const float* A = cdof + 6 * n;
+        const float* L = A + 3;
+        const float m1 = mask1[n], m2 = mask2[n];
+        // jp: translation rows of the normal and tangents; jr: rotation
+        float jp[3], jr[3];
+        for (int fr = 0; fr < 3; ++fr) {
+          const float fl = dot3(f + 3 * fr, L);
+          jp[fr] = m2 * (fl - dot3(q2[fr], A)) - m1 * (fl - dot3(q1[fr], A));
+          jr[fr] = (m2 - m1) * dot3(f + 3 * fr, A);
         }
-        J[(size_t)(base + r) * nv + n] = exists ? v : 0.0f;
-        vel[r] += v * qvel[n];
+        const float jdir[5] = {jp[1], jp[2], jr[0], jr[1], jr[2]};
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+          if (r >= S) break;
+          float v;
+          bool exists;
+          if constexpr (ELL) {     // row 0 the normal, then jdir[r - 1]
+            v = r == 0 ? jp[0] : jdir[r - 1];
+            exists = active && r < max(dim, 1);
+          } else {
+            const int kidx = r / 2;
+            const float sign = (r % 2 == 0) ? 1.0f : -1.0f;
+            const bool fl_row = dim == 1 && r == 0;
+            exists = active && (fl_row || (dim > 1 && r < 2 * (dim - 1)));
+            v = fl_row ? jp[0] : jp[0] + sign * pf[kidx] * jdir[kidx];
+          }
+          J[(size_t)(base + r) * nv + n] = exists ? v : 0.0f;
+          pool.v[33 * r + lane] = v;
+        }
       }
+      __syncwarp();
+      if (lane < S) {            // efc_vel in dof order, one chain a row
+        const float* vr = pool.v + 33 * lane;
+        const int len = min(32, nv - n0);
+        for (int j = 0; j < len; ++j) vel += vr[j] * qvel[n0 + j];
+      }
+      __syncwarp();
     }
-    if constexpr (ELL) {
-      // row 0: the standard impedance on invw; row r >= 1: D_0 impratio
-      // (mu_r / mu_1)^2 and aref = -b_f vel_r, b_f from solreffriction
-      // when that is set
-      const float d0 = 1.0f / fmaxf(pf[16] * (1.0f - imp) / imp, kMinVal);
-      const float* srf = pf + 7;
-      const bool use_srf = fabsf(srf[0]) > 1e-12f || fabsf(srf[1]) > 1e-12f;
-      const float b_f = use_srf ?
-          2.0f / fmaxf(fminf(fmaxf(pf[10], 0.0001f), 0.9999f) * srf[0],
-                       kMinVal) : b;
-      for (int r = 0; r < S; ++r) {
-        const bool exists = active && r < max(dim, 1);
+    const int r = lane;
+    bool exists = false;
+    if (r < S) {
+      const float k = pool.kbi[3 * s], b = pool.kbi[3 * s + 1];
+      const float imp = pool.kbi[3 * s + 2];
+      if constexpr (ELL) {
+        // row 0: the standard impedance on invw; row r >= 1: D_0 impratio
+        // (mu_r / mu_1)^2 and aref = -b_f vel_r, b_f from solreffriction
+        // when that is set
+        const float d0 = 1.0f / fmaxf(pf[16] * (1.0f - imp) / imp, kMinVal);
+        const float* srf = pf + 7;
+        const bool use_srf = fabsf(srf[0]) > 1e-12f || fabsf(srf[1]) > 1e-12f;
+        const float b_f = use_srf ?
+            2.0f / fmaxf(fminf(fmaxf(pf[10], 0.0001f), 0.9999f) * srf[0],
+                         kMinVal) : b;
+        exists = active && r < max(dim, 1);
         const float act = exists ? 1.0f : 0.0f;
         float D, aref;
         if (r == 0) {
           D = d0;
-          aref = -k * imp * posv - b * vel[0];
+          aref = -k * imp * posv - b * vel;
         } else {
           const float ratio = pf[min(r - 1, 4)] / fmaxf(pf[0], kMinVal);
           D = d0 * p.impratio * (ratio * ratio);
-          aref = -b_f * vel[r];
+          aref = -b_f * vel;
         }
-        row(p, r0 + base + r, posv + incl, incl, D * act, vel[r], aref * act,
+        row(p, r0 + base + r, posv + incl, incl, D * act, vel, aref * act,
             0.0f, dim == 1 ? kFrictionless : kElliptic, s, exists);
-        nefc += exists;
+      } else {
+        const float iw = dim == 1 ? pf[16] : pf[17];
+        const float dval = 1.0f / fmaxf(iw * (1.0f - imp) / imp, kMinVal);
+        exists = active && ((dim == 1 && r == 0) ||
+                            (dim > 1 && r < 2 * (dim - 1)));
+        const float act = exists ? 1.0f : 0.0f;
+        // -k imp posv rounded, then one fma with b vel: the one-thread
+        // design computed the first product once outside its loop over
+        // the rows
+        const float aref = __fmaf_rn(-b, vel, __fmul_rn(-k * imp, posv));
+        row(p, r0 + base + r, posv + incl, incl, dval * act, vel,
+            aref * act, 0.0f,
+            dim == 1 ? kFrictionless : kPyramidal, s, exists);
       }
-      continue;
     }
-    const float iw = dim == 1 ? pf[16] : pf[17];
-    const float dval = 1.0f / fmaxf(iw * (1.0f - imp) / imp, kMinVal);
-    for (int r = 0; r < S; ++r) {
-      const bool exists = active && ((dim == 1 && r == 0) ||
-                                     (dim > 1 && r < 2 * (dim - 1)));
-      const float act = exists ? 1.0f : 0.0f;
-      row(p, r0 + base + r, posv + incl, incl, dval * act, vel[r],
-          (-k * imp * posv - b * vel[r]) * act, 0.0f,
-          dim == 1 ? kFrictionless : kPyramidal, s, exists);
-      nefc += exists;
-    }
+    nefc += __popc(__ballot_sync(FULL_MASK, exists));
   }
-  p.ne[w] = 0;
-  p.nf[w] = nf_act;
-  p.nl[w] = nl_act;
-  p.nefc[w] = nefc + nf_act + nl_act;
+  if (lane == 0) {
+    p.ncollision[w] = count;
+    p.ncon[w] = ncon;
+    p.ne[w] = 0;
+    p.nf[w] = nf_act;
+    p.nl[w] = nl_act;
+    p.nefc[w] = nefc + nf_act + nl_act;
+  }
 }
 
-__global__ void contact_kernel(const Params p) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+template <bool ELL>
+DEV void contact_block(const Params& p) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, wb = threadIdx.x >> 5;
+  const int w = blockIdx.x * WARPS + wb;
   if (w >= p.nworld) return;
-  contact_world<false>(p, w);
+  const int words = pool_words(p.nconmax, p.stride);
+  contact_warp<ELL>(p, pool_at(smem + wb * words, p.nconmax), w, lane);
 }
 
-__global__ void contact_ell_kernel(const Params p) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= p.nworld) return;
-  contact_world<true>(p, w);
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+contact_kernel(const Params p) {
+  contact_block<false>(p);
 }
 
-PORT_C_INTERFACE(Params, contact_kernel, 32)
-PORT_C_ENTRY(ell_, Params, contact_ell_kernel, 32, nworld)
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+contact_ell_kernel(const Params p) {
+  contact_block<true>(p);
+}
+
+PORT_C_WARP_INTERFACE(Params, contact_kernel, WARPS,
+                      4 * pool_words(p->nconmax, p->stride))
+PORT_C_WARP_ENTRY(ell_, Params, contact_ell_kernel, WARPS,
+                  4 * pool_words(p->nconmax, p->stride))

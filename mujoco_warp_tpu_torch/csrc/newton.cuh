@@ -634,7 +634,6 @@ DEV void newton_solve(const Solve& p, const ConeIn& ci, const float* qfs,
 // factor's columns, the substitutions' steps, the linesearch's
 // reductions), not the bytes or the flops.
 
-#define FULL_MASK 0xffffffffu
 #define WARPS 4    // worlds (warps) per block
 #define JCAP 32    // acting rows of efc_J kept in shared memory
 #define MAXLSK 16  // cap of ls_k (the wrappers pass solver.LS_K = 10)

@@ -34,6 +34,10 @@ _tables: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 # of the last launch of a kernel that reports its shape (`launch_shape`:
 # the warp-per-world ones)
 shapes: dict = {}
+# (library, entry) -> its C functions; (library, entry, scalar parameters)
+# -> launch shape
+_entries: dict = {}
+_shapes_seen: dict = {}
 
 
 def _nvcc() -> str:
@@ -151,23 +155,50 @@ def _fill(params, values: dict) -> None:
     setattr(params, field, v.data_ptr() if hasattr(v, 'data_ptr') else v)
 
 
+def _entry(lib, name: str, entry: str, params_type):
+  """(launch, launch_shape or None) of a kernel's C entry, looked up and
+  its parameter struct's size checked once per library and entry."""
+  fns = _entries.get((lib, entry))
+  if fns is None:
+    size_fn = getattr(lib, entry + 'params_size')
+    size_fn.argtypes, size_fn.restype = [], ctypes.c_int
+    if size_fn() != ctypes.sizeof(params_type):
+      raise RuntimeError(f'{name}: parameter struct mismatch '
+                         f'({size_fn()} vs {ctypes.sizeof(params_type)} '
+                         f'bytes)')
+    launch_fn = getattr(lib, entry + 'launch')
+    launch_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    launch_fn.restype = ctypes.c_int
+    shape_fn = getattr(lib, entry + 'launch_shape', None)
+    if shape_fn is not None:
+      shape_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+      shape_fn.restype = ctypes.c_int
+    fns = _entries[(lib, entry)] = (launch_fn, shape_fn)
+  return fns
+
+
+def _scalars(params) -> tuple:
+  """The int and float fields of a parameter struct (nested ones too):
+  with the kernel, they fix its launch shape."""
+  out = []
+  for field, ftype in params._fields_:
+    if isinstance(ftype, type) and issubclass(ftype, ctypes.Structure):
+      out.extend(_scalars(getattr(params, field)))
+    elif ftype is not ctypes.c_void_p:
+      out.append(getattr(params, field))
+  return tuple(out)
+
+
 def launch(name: str, params_type, values: dict, device,
            entry: str = '') -> None:
   """Fill the parameter struct from `values` (tensors become device
   pointers, None a null pointer) and launch the kernel on the current
   stream of `device`; raise on a launch error. A source with several
   kernels names each one's C functions `<entry>launch` and
-  `<entry>params_size`."""
+  `<entry>params_size`. A kernel with `<entry>launch_shape` has its shape
+  recorded in `shapes`, queried once per set of scalar parameters."""
   lib = library(name)
-  size_fn = getattr(lib, entry + 'params_size')
-  size_fn.argtypes, size_fn.restype = [], ctypes.c_int
-  launch_fn = getattr(lib, entry + 'launch')
-  launch_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-  launch_fn.restype = ctypes.c_int
-  if size_fn() != ctypes.sizeof(params_type):
-    raise RuntimeError(f'{name}: parameter struct mismatch '
-                       f'({size_fn()} vs {ctypes.sizeof(params_type)} '
-                       f'bytes)')
+  launch_fn, shape_fn = _entry(lib, name, entry, params_type)
   params = params_type()
   _fill(params, values)
   stream = torch.cuda.current_stream(device).cuda_stream
@@ -175,12 +206,15 @@ def launch(name: str, params_type, values: dict, device,
   if err:
     raise RuntimeError(f'{name} kernel launch failed: '
                        f'{lib.error_string(err).decode()}')
-  shape_fn = getattr(lib, entry + 'launch_shape', None)
   if shape_fn is not None:
-    shape = (ctypes.c_int * 4)()
-    if shape_fn(ctypes.byref(params), shape):
-      raise RuntimeError(f'{name}: launch_shape failed')
-    shapes[(name, entry)] = tuple(shape)
+    key = (lib, entry, _scalars(params))
+    shape = _shapes_seen.get(key)
+    if shape is None:
+      buf = (ctypes.c_int * 4)()
+      if shape_fn(ctypes.byref(params), buf):
+        raise RuntimeError(f'{name}: launch_shape failed')
+      shape = _shapes_seen[key] = tuple(buf)
+    shapes[(name, entry)] = shape
 
 
 def model_tables(m, name: str, make):

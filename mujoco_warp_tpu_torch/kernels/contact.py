@@ -1,7 +1,10 @@
 """Kernel B2: narrowphase over the static candidate pairs, order-keeping
 compaction into the contact pool, and the efc rows (dof friction, joint
 limits, contacts of the pyramidal or the elliptic cone) in one CUDA
-kernel, `csrc/contact.cu`.
+kernel, `csrc/contact.cu`: one warp per world, 4 worlds a block, the
+pool's slots in shared memory; its two entries (the pyramidal rows and,
+`ell_`, the elliptic rows) record their launch shapes in
+`_build.shapes[('contact', entry)]`.
 
 Replaces the TPU kernel `contact_efc` / `make_contact_kernel`
 (`mujoco_warp_tpu/pallas/contact_kernels.py:1643`, `:1061`) for plane,
@@ -23,7 +26,7 @@ from ..io import efc_layout
 from ..types import ConeType, DisableBit, Model
 from . import _build
 
-MAXCON = 128     # compile-time cap of csrc/contact.cu
+MAXCON = 128     # cap of nconmax: csrc/contact.cu's pool is <= 10 KB a world
 
 launches = 0     # kernel launches since the count was last reset
 

@@ -5,20 +5,30 @@ bit.
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py inputs FILE
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py run ROOT FILE OUT
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py compare OUT OUT...
+    python3 mujoco_warp_tpu_torch/utils/compare_trees.py turns A B DIR
 
 `inputs` steps the humanoid (8192 worlds, nconmax 24, seeded qpos noise)
 through this checkout's kernels and saves the inputs of B1 (smooth), B2
 (contact), B3 (glue) and B4 (newton, without and with the integration
-diagonal hb); B1's inputs on three_humanoids (8192 worlds, nconmax 100,
-after THREE_STEPS steps); and, on the humanoid with the elliptic cone
-(ELLIPTIC, ELL_STEPS steps on from the pyramidal state), the inputs of
-B3e (glue with the cone) and B4-elliptic (newton with the cone).
+diagonal hb); B1's and B2's inputs on three_humanoids (8192 worlds,
+nconmax 100, after THREE_STEPS steps); on the humanoid with the elliptic
+cone (ELLIPTIC, ELL_STEPS steps on from the pyramidal state), the inputs
+of B2 (its elliptic rows), B3e (glue with the cone) and B4-elliptic
+(newton with the cone); and B2's inputs on three_humanoids with the
+elliptic cone (ELL3_STEPS steps from its seeded state). So B2 runs at
+all four of its shapes.
 `run` imports `mujoco_warp_tpu_torch` from the checkout at ROOT, builds
 its kernels there, runs each kernel on the saved inputs and saves the
-outputs and each kernel's time (CUDA events over 20 launches, after one).
+outputs and each kernel's time: the card's busy time per launch over 20
+launches after one (device_ms), and CUDA events around 20 launches,
+which count the host's time too where a wrapper takes longer than its
+kernel.
 `compare` prints, for the first file against each other, every output
 that is not bit-equal and the times side by side; it exits 1 if any
-output differs. It needs a card.
+output differs. `turns` saves the inputs (with this checkout) to DIR,
+runs the checkouts A and B in turns A, B, B, A, each in its own process,
+prints each kernel's times in the four turns and compares every turn's
+outputs with the first's. It needs a card.
 """
 
 import json
@@ -33,18 +43,25 @@ NCONMAX = 24
 SEED = 0
 PREP_STEPS = 100
 THREE_STEPS = 10
+NCONMAX3 = 100
 ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 ELL_STEPS = 5
+ELL3_STEPS = 2
+
+
+def contact_inputs(m, d):
+  """B2's inputs at the state d (B1's outputs) and B1's outputs."""
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  return (sm['qpos'], d.qvel, sm['geom_xpos'], sm['geom_xmat'],
+          sm['subtree_com'], sm['cdof']), sm
 
 
 def glue_inputs(m, d):
   """B2's inputs and B3's (B3e's) at the state d, and the contacts."""
   from mujoco_warp_tpu_torch import support
   from mujoco_warp_tpu_torch.kernels import contact as kc
-  from mujoco_warp_tpu_torch.kernels import smooth as ks
-  sm = ks.smooth(m, d.qpos, d.qvel)
-  c_in = (sm['qpos'], d.qvel, sm['geom_xpos'], sm['geom_xmat'],
-          sm['subtree_com'], sm['cdof'])
+  c_in, sm = contact_inputs(m, d)
   con = kc.contact(m, *c_in, NCONMAX)
   qfx = d.qfrc_applied + support.xfrc_accumulate(
       m, d.xfrc_applied, sm['xipos'], sm['subtree_com'], sm['cdof']) - \
@@ -53,6 +70,31 @@ def glue_inputs(m, d):
           con['efc_frictionloss'], sm['qpos'], d.qvel, d.ctrl, qfx,
           d.qacc_warmstart)
   return c_in, con, g_in
+
+
+def device_ms(fn, reps: int = 20) -> float:
+  """The card's busy time per call of fn, in ms, without the host's time
+  between calls: over reps calls after one (torch.profiler), each device
+  kernel's mean time times its launches per call. A profile can miss
+  some of a kernel's events (seen on the card), so a plain sum over the
+  calls would undercount. 0.0 if the profiler saw no device work. Needs
+  a card."""
+  import torch
+  fn()
+  torch.cuda.synchronize()
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  per_name = {}
+  for e in prof.events():
+    if e.device_type == torch.autograd.DeviceType.CUDA:
+      n, us = per_name.get(e.name, (0, 0.0))
+      per_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+  return sum(us / n * max(1, round(n / reps))
+             for n, us in per_name.values()) / 1e3
 
 
 def make_inputs(path: str) -> None:
@@ -75,16 +117,23 @@ def make_inputs(path: str) -> None:
       qpos=d.qpos, qvel=d.qvel, ctrl=d.ctrl, time=d.time,
       qacc_warmstart=d.qacc_warmstart)
   de = bench.rollout(me, de, ELL_STEPS)
-  _, con_e, ge_in = glue_inputs(me, de)
+  ce_in, con_e, ge_in = glue_inputs(me, de)
   cone = solver.cone_inputs(me, mt.Contact(
       **{k: con_e[k] for k in kc.CONTACT_FIELDS}))
   qfs_e = kg.glue(me, *ge_in, cone=cone)['qfrc_smooth']
   m3 = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
-  d3 = mt.make_batch(m3, mt.make_data(m3, nconmax=100), NWORLD,
+  d3 = mt.make_batch(m3, mt.make_data(m3, nconmax=NCONMAX3), NWORLD,
                      qpos_noise=0.01, generator=gen)
   d3 = bench.rollout(m3, d3, THREE_STEPS)
+  m3e = mt.override_model(m3, ELLIPTIC)
+  gen3 = torch.Generator(device='cuda').manual_seed(SEED)
+  d3e = mt.make_batch(m3e, mt.make_data(m3e, nconmax=NCONMAX3), NWORLD,
+                      qpos_noise=0.01, generator=gen3)
+  d3e = bench.rollout(m3e, d3e, ELL3_STEPS)
   torch.save(dict(s_in=(d.qpos, d.qvel), s3_in=(d3.qpos, d3.qvel),
-                  c_in=c_in, g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9]),
+                  c_in=c_in, c3_in=contact_inputs(m3, d3)[0], ce_in=ce_in,
+                  ce3_in=contact_inputs(m3e, d3e)[0],
+                  g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9]),
                   ge_in=ge_in, ne_in=ge_in[:5] + (qfs_e, ge_in[9]),
                   cone=cone), path)
 
@@ -107,18 +156,24 @@ def run(root: str, path: str, out: str) -> None:
   m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
   m3 = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
   me = mt.override_model(m, ELLIPTIC)
+  m3e = mt.override_model(m3, ELLIPTIC)
   hb = m.opt.timestep * m.dof_damping
   cone = inp['cone']
   calls = dict(
       smooth=lambda: ks.smooth(m, *inp['s_in']),
       smooth_three_humanoids=lambda: ks.smooth(m3, *inp['s3_in']),
       contact=lambda: kc.contact(m, *inp['c_in'], NCONMAX),
+      contact_three_humanoids=lambda: kc.contact(m3, *inp['c3_in'],
+                                                 NCONMAX3),
+      contact_ell=lambda: kc.contact(me, *inp['ce_in'], NCONMAX),
+      contact_ell_three_humanoids=lambda: kc.contact(m3e, *inp['ce3_in'],
+                                                     NCONMAX3),
       glue=lambda: kg.glue(m, *inp['g_in']),
       newton=lambda: kn.newton_solve(m, *inp['n_in']),
       newton_hb=lambda: kn.newton_solve(m, *inp['n_in'], hb=hb),
       glue_ell=lambda: kg.glue(me, *inp['ge_in'], cone=cone),
       newton_ell=lambda: kn.newton_solve(me, *inp['ne_in'], cone=cone))
-  outs, ms = {}, {}
+  outs, ms, wall = {}, {}, {}
   for name, fn in calls.items():
     outs[name] = fn()
     torch.cuda.synchronize()
@@ -129,9 +184,10 @@ def run(root: str, path: str, out: str) -> None:
       fn()
     end.record()
     torch.cuda.synchronize()
-    ms[name] = start.elapsed_time(end) / 20
-  torch.save(dict(outs=outs, ms=ms, root=root), out)
-  print(json.dumps({'root': root, 'ms': ms}))
+    wall[name] = start.elapsed_time(end) / 20
+    ms[name] = device_ms(fn)
+  torch.save(dict(outs=outs, ms=ms, wall=wall, root=root), out)
+  print(json.dumps({'root': root, 'ms': ms, 'wall_ms': wall}))
 
 
 def compare(paths) -> int:
@@ -150,6 +206,29 @@ def compare(paths) -> int:
   return 1 if bad else 0
 
 
+def turns(a: str, b: str, out_dir: str) -> int:
+  """Inputs from this checkout, then A, B, B, A in their own processes;
+  every turn's outputs compared with the first's."""
+  import subprocess
+  import torch
+  os.makedirs(out_dir, exist_ok=True)
+  inputs = os.path.join(out_dir, 'inputs.pt')
+  make_inputs(inputs)
+  torch.cuda.empty_cache()
+  outs = []
+  for i, root in enumerate((a, b, b, a)):
+    outs.append(os.path.join(out_dir, f'turn{i}.pt'))
+    subprocess.run([sys.executable, os.path.abspath(__file__), 'run', root,
+                    inputs, outs[-1]], check=True)
+  ms = [torch.load(p)['ms'] for p in outs]
+  print(f'{"kernel":28s} ' + ' '.join(f'{r:>10s}' for r in ('A', 'B', 'B',
+                                                             'A')) +
+        ' (ms on the card a launch)')
+  for name in ms[0]:
+    print(f'{name:28s} ' + ' '.join(f'{t[name]:10.4f}' for t in ms))
+  return compare(outs)
+
+
 def main(argv) -> int:
   if argv[:1] == ['inputs'] and len(argv) == 2:
     make_inputs(argv[1])
@@ -159,6 +238,8 @@ def main(argv) -> int:
     return 0
   if argv[:1] == ['compare'] and len(argv) >= 3:
     return compare(argv[1:])
+  if argv[:1] == ['turns'] and len(argv) == 4:
+    return turns(*argv[1:])
   print(__doc__, file=sys.stderr)
   return 2
 

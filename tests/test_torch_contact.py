@@ -15,7 +15,7 @@ import mujoco_warp_tpu as mjwt
 from mujoco_warp_tpu import collision_driver as jcd
 from mujoco_warp_tpu import constraint as jcon
 from mujoco_warp_tpu import smooth as jsmooth
-from mujoco_warp_tpu_torch import smooth
+from mujoco_warp_tpu_torch import collision_driver, smooth
 from mujoco_warp_tpu_torch.kernels import contact as kc
 
 from torch_parity import assert_close, build, states
@@ -45,18 +45,18 @@ def _port(m, q, v, nconmax):
                       nconmax)
 
 
-@pytest.mark.parametrize('scene', ['humanoid', 'hopper', 'hopper_friction',
-                                   'spheres', 'ball_chain'])
-def test_contact_matches_jax(scene):
-  _, jm, m, q, v = _case(scene)
-  jd = mjwt.make_data(jm, nconmax=NCONMAX[scene])
-  nconmax = jd.contact.dist.shape[0]      # 0 without collision candidates
+def _jax_rows(jm, q, v, nconmax):
+  """The JAX package's collision + make_constraint rows of the worlds
+  (q, v), and the pool's size (0 without collision candidates)."""
+  jd = mjwt.make_data(jm, nconmax=nconmax)
   batch = jax.vmap(lambda qq, vv: jd.replace(qpos=qq, qvel=vv))(
       jnp.asarray(q), jnp.asarray(v))
   ref = jax.jit(jax.vmap(lambda dd: jcon.make_constraint(jm, jcd.collision(
       jm, jsmooth.com_pos(jm, jsmooth.kinematics(jm, dd))))))(batch)
-  _, out = _port(m, q, v, nconmax)
-  assert (np.asarray(ref.ncon).sum() > 0) == (scene != 'ball_chain')
+  return ref, jd.contact.dist.shape[0]
+
+
+def _assert_matches_jax(out, ref):
   for name in ('ncon', 'ncollision', 'nl', 'nf', 'nefc'):
     np.testing.assert_array_equal(out[name].numpy(),
                                   np.asarray(getattr(ref, name)), name)
@@ -78,6 +78,52 @@ def test_contact_matches_jax(scene):
   for name in ROWS:
     assert_close(out[name].numpy(), np.asarray(getattr(ref, name)), name,
                  TOL)
+
+
+@pytest.mark.parametrize('scene', ['humanoid', 'hopper', 'hopper_friction',
+                                   'spheres', 'ball_chain'])
+def test_contact_matches_jax(scene):
+  _, jm, m, q, v = _case(scene)
+  ref, nconmax = _jax_rows(jm, q, v, NCONMAX[scene])
+  _, out = _port(m, q, v, nconmax)
+  assert (np.asarray(ref.ncon).sum() > 0) == (scene != 'ball_chain')
+  _assert_matches_jax(out, ref)
+
+
+def test_contact_nconmax_between_end_caps_matches_jax():
+  """An nconmax that ends the pool between the two end caps of one
+  plane-capsule pair (kernel B2's warp scan gives each cap its own slot):
+  the first cap is kept, the second dropped and counted in ncollision."""
+  _, jm, m, q, v = _case('humanoid')
+  _, full = _port(m, q, v, NCONMAX['humanoid'])
+  geom, ncon = full['geom'].numpy(), full['ncon'].numpy()
+  cuts = [(w, k + 1) for w in range(len(ncon)) for k in range(ncon[w] - 1)
+          if (geom[w, k] == geom[w, k + 1]).all()]
+  assert cuts, 'no plane-capsule pair with both caps in contact'
+  w, cut = max(cuts, key=lambda c: c[1])
+  ref, _ = _jax_rows(jm, q, v, cut)
+  _, out = _port(m, q, v, cut)
+  assert int(out['ncon'][w]) == cut < int(out['ncollision'][w])
+  assert (out['geom'][w, cut - 1].numpy() == geom[w, cut]).all()
+  _assert_matches_jax(out, ref)
+
+
+def test_contact_three_humanoids_matches_jax():
+  """three_humanoids' 1614 candidates at nconmax 100: contacts from
+  candidates past the first 32 (the later rounds of kernel B2's
+  narrowphase, the slots carried across rounds)."""
+  mjm, jm, m = build('three_humanoids')
+  q, v = states(mjm, 3, 100, qpos_noise=0.02)
+  ref, _ = _jax_rows(jm, q, v, 100)
+  _, out = _port(m, q, v, 100)
+  pairs = collision_driver.candidate_params(m)
+  index = {}
+  for i, g in enumerate(zip(pairs['g1'].tolist(), pairs['g2'].tolist())):
+    index.setdefault(g, i)
+  first = [index[tuple(out['geom'][w, k].tolist())]
+           for w in range(q.shape[0]) for k in range(int(out['ncon'][w]))]
+  assert m.nxn_candidates == 1614 and max(first) >= 32, first
+  _assert_matches_jax(out, ref)
 
 
 def test_contact_overflow_counts_ncollision():

@@ -12,6 +12,9 @@ it also runs on a machine with the card and without them:
         tests/test_torch_kernels.py
 """
 
+import ctypes
+import types
+
 import pytest
 import torch
 
@@ -119,6 +122,47 @@ def test_ptxas_report_is_read_per_kernel(monkeypatch):
       '_Z15glue_ell_kernel9EllParams': dict(
           stack=16400, spill_stores=8, spill_loads=12, registers=64,
           smem=64)}
+
+
+class _FakeLibrary:
+  """A kernel library's C interface for the entry `prefix`, counting its
+  calls."""
+
+  def __init__(self, params_type, prefix):
+    self.calls = dict(params_size=0, launch=0, launch_shape=0)
+    self.error_string = lambda err: b'fake'
+
+    def count(name, fn):
+      def call(*args):
+        self.calls[name] += 1
+        return fn(*args)
+      return call
+
+    def shape(params, out):
+      out[:] = [7, 128, 4, 3]
+      return 0
+    setattr(self, prefix + 'params_size',
+            count('params_size', lambda: ctypes.sizeof(params_type)))
+    setattr(self, prefix + 'launch', count('launch', lambda p, stream: 0))
+    setattr(self, prefix + 'launch_shape', count('launch_shape', shape))
+
+
+def test_launch_looks_up_entries_and_shapes_once(monkeypatch):
+  """_build.launch checks a library's entry once and queries a warp
+  kernel's launch shape (an occupancy query on the card) once per set of
+  scalar parameters, then reuses it; every launch still launches."""
+  params_type = _build.struct('FakeParams', ('x',), ('h',), ('nworld', 'n'))
+  fake = _FakeLibrary(params_type, 'e_')
+  monkeypatch.setattr(_build, 'library', lambda name: fake)
+  monkeypatch.setattr(torch.cuda, 'current_stream',
+                      lambda device=None: types.SimpleNamespace(cuda_stream=0))
+  monkeypatch.setattr(_build, 'shapes', {})
+  x = torch.zeros(3)
+  for n in (5, 5, 5, 6, 5):
+    _build.launch('fake', params_type, dict(x=x, h=0.5, nworld=8, n=n),
+                  'cpu', entry='e_')
+  assert fake.calls == dict(params_size=1, launch=5, launch_shape=2)
+  assert _build.shapes == {('fake', 'e_'): (7, 128, 4, 3)}
 
 
 def test_wrappers_refuse_models_past_their_caps():
@@ -239,6 +283,89 @@ def test_contact_kernel_matches_plain(cuda):
   for name in ref:
     # aref = -b vel - k imp pos carries vel's rounding times b (~135)
     _close(out[name], ref[name], name, 2e-3 if name == 'efc_aref' else 2e-5)
+
+
+CONES = ('pyramidal', 'elliptic')
+CONTACT_MODELS = {'humanoid': (models.HUMANOID_NPZ, NCONMAX, 60),
+                  'three_humanoids': (models.THREE_HUMANOIDS_NPZ, 100, 20)}
+
+
+def _contact_inputs(device, model, cone, nworld=256):
+  """(Model, B2's inputs, nconmax) at a state in contact: the humanoid
+  after 60 steps, three_humanoids (nv 81) after 20, with either cone."""
+  npz, nconmax, nstep = CONTACT_MODELS[model]
+  m, d = _state(device, nworld, nstep, npz, nconmax,
+                elliptic=cone == 'elliptic')
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  return m, (sm['qpos'], d.qvel, sm['geom_xpos'], sm['geom_xmat'],
+             sm['subtree_com'], sm['cdof']), nconmax
+
+
+def _contact_matches_plain(m, c_in, nconmax):
+  """Kernel B2 against its plain version at this nconmax; both outputs."""
+  out = kc.contact(m, *c_in, nconmax)
+  torch.cuda.synchronize()
+  ref = kc.plain(m, *c_in, nconmax)
+  for name in ref:
+    # aref = -b vel - k imp pos carries vel's rounding times b (~135)
+    _close(out[name], ref[name], name, 2e-3 if name == 'efc_aref' else 2e-5)
+  return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cone', CONES)
+@pytest.mark.parametrize('cut', ['1', '2', '7', 'end_caps'])
+def test_contact_kernel_pool_cuts_match_plain(cuda, cone, cut):
+  """Both entries of B2 where nconmax cuts the pool: 1, 2, an odd 7, and
+  between the two end caps of one plane-capsule pair (the slot after the
+  cut would hold the pair's second cap)."""
+  m, c_in, nconmax = _contact_inputs(cuda, 'humanoid', cone)
+  full, _ = _contact_matches_plain(m, c_in, nconmax)
+  if cut == 'end_caps':
+    geom, ncon = full['geom'], full['ncon']
+    same = (geom[:, 1:] == geom[:, :-1]).all(2) & (
+        torch.arange(1, nconmax, device=cuda) < ncon[:, None])
+    assert bool(same.any()), 'no pair with both caps in contact'
+    k = int(same.nonzero()[:, 1].max()) + 1
+  else:
+    k = int(cut)
+  out, ref = _contact_matches_plain(m, c_in, k)
+  assert torch.equal(out['ncollision'], full['ncollision'])
+  assert torch.equal(out['ncon'], torch.clamp(full['ncon'], max=k))
+  assert torch.equal(out['geom'], full['geom'][:, :k])
+  assert int((full['ncon'] > k).sum()) > 0, 'the cut drops no contact'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cone', CONES)
+def test_contact_kernel_three_humanoids_matches_plain(cuda, cone):
+  """Both entries of B2 at nv 81 (lanes over dofs in three rounds) and
+  1614 candidates (51 rounds of the narrowphase), nconmax 100."""
+  m, c_in, nconmax = _contact_inputs(cuda, 'three_humanoids', cone)
+  _, ref = _contact_matches_plain(m, c_in, nconmax)
+  assert int(ref['ncon'].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', sorted(CONTACT_MODELS))
+def test_contact_kernel_is_deterministic_and_fits_its_design(cuda, model):
+  """Both entries of B2 give the same bits in two launches; they launch 4
+  worlds (warps) a block with 17 nconmax + 33 stride words of shared
+  memory a world (the launch shape recorded in _build.shapes), and ptxas
+  gives them no spill stores and at most 1 KB of stack."""
+  for cone, entry in zip(CONES, ('', 'ell_')):
+    m, c_in, nconmax = _contact_inputs(cuda, model, cone)
+    a, b = kc.contact(m, *c_in, nconmax), kc.contact(m, *c_in, nconmax)
+    for name in a:
+      assert torch.equal(a[name], b[name]), (cone, name)
+    stride = mt.efc_layout(m, nconmax)[3]
+    grid, block, smem, per_sm = _build.shapes[('contact', entry)]
+    assert (grid, block) == (256 // 4, 128), (grid, block)
+    assert smem == 4 * 4 * (17 * nconmax + 33 * stride) and per_sm >= 1
+  for kernel in ('contact_kernel', 'contact_ell_kernel'):
+    info, = [v for k, v in _build.ptxas_info('contact').items()
+             if k.startswith(f'_Z{len(kernel)}{kernel}')]
+    assert info['spill_stores'] == 0 and info['stack'] <= 1024, info
 
 
 @pytest.mark.cuda
