@@ -5,8 +5,9 @@
 Phases:
   (a) print the card's name and power limit; build the CUDA kernels from
       mujoco_warp_tpu_torch/csrc (one nvcc per source, in parallel); hold
-      B2's two entries, B3 and B4 (one warp per world) to no spill stores
-      and at most MAX_STACK_B3 bytes of stack in ptxas's report;
+      B2's two entries, B3, B4, B3e and B4-elliptic (one warp per world)
+      to no spill stores and at most MAX_STACK_B3 bytes of stack in
+      ptxas's report;
   (b) load the humanoid from its committed .npz and make 8192 worlds with
       seeded qpos noise, nconmax=24;
   (c) step 100 times, then hold each kernel (B1 smooth, B2 contact, B3
@@ -62,8 +63,9 @@ Phases:
       shapes;
   (n) on the humanoid's state, hold B3e (glue with the cone) and
       B4-elliptic (newton_solve with the cone) against their plain
-      versions and the plain versions' own spread (see ELLIPTIC), and
-      B4-elliptic bit-equal to B3e's solve on the same qfrc_smooth;
+      versions and the plain versions' own spread (see ELLIPTIC),
+      B4-elliptic bit-equal to B3e's solve on the same qfrc_smooth, and
+      each over two launches; print their launch shapes;
   (o) from counts at 0, run and time P7 (the humanoid's glue step: B1,
       B2, B3e once a step), P8 (one forward_batched and RK4 steps:
       B4-elliptic once and four times a step) and P9 (three_humanoids'
@@ -205,8 +207,8 @@ ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 P7_STEPS = 25
 P8_STEPS = 4
 P9_PREP, P9_STEPS = 2, 3
-# B2, B3 and B4 run one warp per world: their ptxas report may show at
-# most this much stack and no spill stores
+# B2, B3, B4, B3e and B4-elliptic run one warp per world: their ptxas
+# report may show at most this much stack and no spill stores
 MAX_STACK_B3 = 1024
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
@@ -572,14 +574,16 @@ def _flops_newton(nv, nact, it, nu=0) -> float:
 
 # the kernels that run one warp per world: (source, kernel, C entry)
 WARP_KERNELS = (('glue', 'glue_kernel', ''), ('newton', 'newton_kernel', ''),
+                ('glue', 'glue_ell_kernel', 'ell_'),
+                ('newton', 'newton_ell_kernel', 'ell_'),
                 ('contact', 'contact_kernel', ''),
                 ('contact', 'contact_ell_kernel', 'ell_'))
 
 
 def _check_warp_kernels_ptxas():
-  """B2, B3 and B4 run one warp per world with their state in shared
-  memory: ptxas must report no spill stores and at most MAX_STACK_B3
-  bytes of stack for them."""
+  """B2, B3, B4, B3e and B4-elliptic run one warp per world with their
+  state in shared memory: ptxas must report no spill stores and at most
+  MAX_STACK_B3 bytes of stack for them."""
   from mujoco_warp_tpu_torch.kernels import _build
   for source, kernel, _ in WARP_KERNELS:
     info = {k: v for k, v in _build.ptxas_info(source).items()
@@ -1381,6 +1385,9 @@ def _elliptic_humanoid(card, m0, d0) -> list:
         f'{"bit-equal" if not same else "differs in " + str(same)}')
   if same:
     raise RuntimeError('B4-elliptic differs from B3e\'s solve')
+  _check_repeat('B3e', lambda: kg.glue(m, *g_in, cone=cone))
+  _check_repeat('B4-elliptic', lambda: kn.newton_solve(m, *n_in, cone=cone))
+  _print_warp_shapes('humanoid', ('glue_ell_kernel', 'newton_ell_kernel'))
 
   # P7 against the all-plain step
   _compare_step('P7 step', m, d7, TOL_STEP_QACC, ('qacc', 'qvel'),

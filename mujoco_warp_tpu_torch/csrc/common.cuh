@@ -8,8 +8,8 @@
 // params_size() the size of its Params struct, and error_string(int) the
 // message of an error code. A source with several kernels prefixes each
 // kernel's launch and params_size with its name (PORT_C_ENTRY,
-// PORT_C_WARP_ENTRY). B1, B3e, B4-elliptic and B9-B12 run one thread per
-// world; B2, B3 and B4 one warp per world (PORT_C_WARP_INTERFACE and
+// PORT_C_WARP_ENTRY). B1 and B9-B12 run one thread per world; B2, B3,
+// B4, B3e and B4-elliptic one warp per world (PORT_C_WARP_INTERFACE and
 // PORT_C_WARP_ENTRY, which also give launch_shape); B5-B8
 // (batch_linalg.cu) one block per world.
 #pragma once

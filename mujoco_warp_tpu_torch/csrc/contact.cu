@@ -571,7 +571,8 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
     nefc += __popc(__ballot_sync(FULL_MASK, exists));
   }
   if (lane == 0) {
-    p.ncollision[w] = count;
+    // nconmax 0: no pool, no collision (collision_driver.collision)
+    p.ncollision[w] = K > 0 ? count : 0;
     p.ncon[w] = ncon;
     p.ne[w] = 0;
     p.nf[w] = nf_act;

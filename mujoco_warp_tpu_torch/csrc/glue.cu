@@ -2,38 +2,36 @@
 // slide/hinge joints, joint springs and dampers, qfrc_smooth, the
 // Cholesky factor of qM and qacc_smooth, the whole Newton solve, the
 // integration-diagonal re-solve (mode 1: Euler with implicit joint
-// damping) and the semi-implicit Euler advance of qvel and qpos. B3
-// (glue_kernel) solves with the pyramidal cone in one warp per world
-// (glue_warp), B3e (glue_ell_kernel) with the elliptic cone of the
-// contacts' friction and dim in one thread per world (glue_world<true>).
+// damping) and the semi-implicit Euler advance of qvel and qpos. Both run
+// one warp per world (glue_warp<ELL>): B3 (glue_kernel) solves with the
+// pyramidal cone, B3e (glue_ell_kernel) with the elliptic cone of the
+// contacts' friction and dim.
 //
 // Replaces: mujoco_warp_tpu/pallas/solver_kernels.py, make_glue_kernel
 // -> run (:1207; bodies _glue_kernel / _glue_ell_kernel / _glue_core
 // :939 / :954 / :966, the solve _newton_core :103). Plain version:
 // mujoco_warp_tpu_torch/forward.py, glue() (with solver.newton). The
-// solves are warp_newton() and newton_solve<true>() of newton.cuh, which
-// kernels B4 and B4-elliptic (newton.cu) run too.
+// solve is warp_newton<ELL>() of newton.cuh, which kernels B4 and
+// B4-elliptic (newton.cu) run too.
 //
 // What bounds it on the H100: the solve's dependent arithmetic, not the
 // bytes. Per world it reads qM and the acting rows of efc_J (27x27 +
 // about 20x27 floats on the humanoid) once; each Newton iteration then
-// assembles H = qM + J^T D J over the active rows, factors it (about
-// nv^3/6 = 3.3k multiply-adds) and runs a 16-point linesearch: a few tens
-// of thousands of flops per iteration, most of them in dependent chains.
+// assembles H = qM + J^T D J over the active rows (with the elliptic
+// cone, plus an S x S block per contact in the middle zone), factors it
+// (about nv^3/6 = 3.3k multiply-adds) and runs a 16-point linesearch: a
+// few tens of thousands of flops per iteration, most of them in
+// dependent chains.
 //
-// What B3's design does about it: a warp per world puts the chains' inner
+// What the design does about it: a warp per world puts the chains' inner
 // loops across 32 lanes (a row of H, a column of the factor, a row's dot
-// product, a linesearch point per partial sum), keeps qM, H, the acting
-// rows and their efc_J in shared memory (about 13 KB a world on the
-// humanoid; nothing in local memory), so that 16 worlds fit on an SM, and
-// stops each warp at its own world's convergence (see newton.cuh). The
+// product, a linesearch point per partial sum; the cone's work one
+// contact per lane), keeps qM, H, the acting rows, their efc_J and the
+// cone's table in shared memory (about 13-15 KB a world on the humanoid;
+// nothing in local memory), so that 12-16 worlds fit on an SM, and stops
+// each warp at its own world's convergence (see newton.cuh). The
 // actuation runs one actuator per lane, the passive forces and the
-// advance one dof, then one joint, per lane. B3e keeps the one-thread
-// design: H and the rows' state in local memory, J read through the cache
-// from the batch-first [W, ...] layout; per contact it adds a few tens of
-// flops to each constraint update and linesearch point and, in the middle
-// zone, an S x S block to the Hessian, built on the fly from the
-// contact's rows (S <= 6) rather than stored.
+// advance one dof, then one joint, per lane.
 
 #include "newton.cuh"
 
@@ -90,102 +88,15 @@ struct Params {
   int actuation_on;
 };
 
-// B3e's parameters: B3's and the contacts of the elliptic cone
-struct EllParams {
-  Params base;
-  const float* con_friction;  // (nconmax, 5)
-  const int* con_dim;         // (nconmax) 0 in an empty slot
-  float impratio;
-  int efc_base;               // first contact row
-  int stride;                 // rows per contact
-  int nconmax;
-};
+using EllParams = ConeParams<Params>;   // B3e's
 
 enum { kFree = 0, kBall = 1 };
 
+// world w in its warp, with the elliptic cone of the contacts ci (ELL;
+// unread otherwise); sm its shared memory
 template <bool ELL>
-DEV void glue_world(const Params& p, const ConeIn& ci, int w) {
-  const int nv = p.nv, nq = p.nq, nu = p.nu;
-  const float h = p.timestep;
-  const float* qpos = p.qpos_in + (size_t)w * nq;
-  const float* qvel = p.qvel_in + (size_t)w * nv;
-  const size_t vw = (size_t)w * nv;
-
-  // ---- actuation (forward.fwd_actuation) ----
-  float qfa[MAXNV];
-  for (int i = 0; i < nv; ++i) qfa[i] = 0.0f;
-  for (int u = 0; u < nu; ++u) {
-    float f = 0.0f;
-    if (p.actuation_on) {
-      const float* a = p.act_float + 11 * u;
-      const int qa = p.act_int[2 * u], da = p.act_int[2 * u + 1];
-      const float len = qpos[qa] * a[0], vel = qvel[da] * a[0];
-      const float c = fminf(fmaxf(p.ctrl[(size_t)w * nu + u], a[1]), a[2]);
-      const float gain = a[3] + a[4] * len + a[5] * vel;
-      const float bias = a[6] + a[7] * len + a[8] * vel;
-      f = fminf(fmaxf(gain * c + bias, a[9]), a[10]);
-      qfa[da] += f * a[0];
-    }
-    p.actuator_force[(size_t)w * nu + u] = f;
-  }
-
-  // ---- passive springs and dampers, qfrc_smooth ----
-  float qfs[MAXNV];
-  for (int i = 0; i < nv; ++i) {
-    const float* d = p.dof_float + 6 * i;
-    if (p.actuation_on) qfa[i] = fminf(fmaxf(qfa[i], d[3]), d[4]);
-    const float spring = -d[1] * (qpos[p.dof_int[i]] - d[2]);
-    const float damper = -d[0] * qvel[i];
-    const float pas = spring + damper;
-    qfs[i] = pas + qfa[i] + p.qfx[vw + i];
-    p.qfrc_actuator[vw + i] = qfa[i];
-    p.qfrc_spring[vw + i] = spring;
-    p.qfrc_damper[vw + i] = damper;
-    p.qfrc_passive[vw + i] = pas;
-    p.qfrc_smooth[vw + i] = qfs[i];
-  }
-
-  // ---- qM factor, qacc_smooth, Newton solve, forces, re-solve ----
-  Solve s = world_solve(p, w);
-  if (p.mode == 1) {
-    s.hdiag = p.dof_float + 5;
-    s.hdiag_stride = 6;
-  }
-  float qacce[MAXNV];
-  newton_solve<ELL>(s, ci, qfs, qacce);
-
-  // ---- semi-implicit Euler advance (forward.integrate_pos) ----
-  float* qvel_out = p.qvel + vw;
-  for (int i = 0; i < nv; ++i) qvel_out[i] = qvel[i] + h * qacce[i];
-  float* qpos_out = p.qpos + (size_t)w * nq;
-  for (int i = 0; i < nq; ++i) qpos_out[i] = qpos[i];
-  for (int j = 0; j < p.njnt; ++j) {
-    const int type = p.jnt_int[3 * j];
-    int qa = p.jnt_int[3 * j + 1], da = p.jnt_int[3 * j + 2];
-    if (type == kFree) {
-      for (int i = 0; i < 3; ++i)
-        qpos_out[qa + i] = qpos[qa + i] + h * qvel_out[da + i];
-      qa += 3;
-      da += 3;
-    } else if (type != kBall) {
-      qpos_out[qa] = qpos[qa] + h * qvel_out[da];
-      continue;
-    }
-    const float* wv = qvel_out + da;
-    const float n = sqrtf(fmaxf(wv[0] * wv[0] + wv[1] * wv[1] +
-                                wv[2] * wv[2], 1e-30f));
-    const float half = 0.5f * n * h;
-    const float s = sinf(half);
-    float dq[4] = {cosf(half), wv[0] / n * s, wv[1] / n * s, wv[2] / n * s};
-    float q[4];
-    qmul(qpos + qa, dq, q);
-    qnormalize(q);
-    for (int i = 0; i < 4; ++i) qpos_out[qa + i] = q[i];
-  }
-}
-
-// B3: world w in its warp; sm its shared memory
-DEV void glue_warp(const Params& p, const WarpMem& sm, int w, int lane) {
+DEV void glue_warp(const Params& p, const ConeIn& ci, const WarpMem& sm,
+                   int w, int lane) {
   const int nv = p.nv, nq = p.nq, nu = p.nu;
   const bool own = lane < nv;
   const float h = p.timestep;
@@ -237,7 +148,7 @@ DEV void glue_warp(const Params& p, const WarpMem& sm, int w, int lane) {
     s.hdiag = p.dof_float + 5;
     s.hdiag_stride = 6;
   }
-  const float qacce = warp_newton(s, sm, qfs, lane);
+  const float qacce = warp_newton<ELL>(s, ci, sm, qfs, lane);
 
   // ---- semi-implicit Euler advance (forward.integrate_pos) ----
   const float v = own ? qvel[lane] + h * qacce : 0.0f;
@@ -272,22 +183,33 @@ DEV void glue_warp(const Params& p, const WarpMem& sm, int w, int lane) {
   }
 }
 
-__global__ void __launch_bounds__(WARPS * 32, 16 / WARPS)
-glue_kernel(const Params p) {
+// the world of the block's warp; with the elliptic cone (ELL) P is
+// EllParams
+template <bool ELL, class P>
+DEV void glue_block(const P& p) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, wb = threadIdx.x >> 5;
   const int w = blockIdx.x * WARPS + wb;
   if (w >= p.nworld) return;
-  const int words = warp_mem_words(p.nv, p.nu, p.nj);
-  glue_warp(p, warp_mem(smem + wb * words, p.nv, p.nu, p.nj), w, lane);
+  ConeIn ci{};
+  if constexpr (ELL) ci = world_cone(p, w);
+  const int words = warp_mem_words(p.nv, p.nu, p.nj, ci.C, ci.S);
+  glue_warp<ELL>(p, ci, warp_mem(smem + wb * words, p.nv, p.nu, p.nj, ci.C,
+                                 ci.S), w, lane);
 }
 
-__global__ void glue_ell_kernel(const EllParams p) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= p.base.nworld) return;
-  glue_world<true>(p.base, world_cone(p, w), w);
+__global__ void __launch_bounds__(WARPS * 32, 16 / WARPS)
+glue_kernel(const Params p) {
+  glue_block<false>(p);
+}
+
+__global__ void __launch_bounds__(WARPS * 32, ELL_BLOCKS)
+glue_ell_kernel(const EllParams p) {
+  glue_block<true>(p);
 }
 
 PORT_C_WARP_INTERFACE(Params, glue_kernel, WARPS,
                       4 * warp_mem_words(p->nv, p->nu, p->nj))
-PORT_C_ENTRY(ell_, EllParams, glue_ell_kernel, 32, base.nworld)
+PORT_C_WARP_ENTRY(ell_, EllParams, glue_ell_kernel, WARPS,
+                  4 * warp_mem_words(p->nv, p->nu, p->nj, p->nconmax,
+                                     p->stride))

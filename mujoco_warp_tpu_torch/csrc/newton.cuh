@@ -8,30 +8,26 @@
 // qfrc_smooth + qfrc_constraint. Plain version:
 // mujoco_warp_tpu_torch/solver.py, newton() (the cone: class Cone).
 //
-// The pyramidal cone (B3, B4) runs warp_newton(): one warp per world,
-// lane i owning dof i (nv <= 32), the world's matrices and acting rows in
-// shared memory (WarpMem), every sum over dofs or rows a warp reduction
-// in a fixed order, so that two launches give the same bits. The
-// elliptic cone (B3e, B4-elliptic) runs newton_solve<true>(): one thread
-// per world, H and the rows' state in local memory, J read through the
-// cache from the batch-first [W, ...] layout; it adds the cone's code
-// (:139-178 precompute, :213-245 forces, :283-346 Hessian blocks,
-// :351-390 linesearch terms) behind `if constexpr`.
+// All four run warp_newton<ELL>(): one warp per world, lane i owning dof
+// i (nv <= 32), the world's matrices and acting rows in shared memory
+// (WarpMem), every sum over dofs, rows or contacts a warp reduction in a
+// fixed order, so that two launches give the same bits. The elliptic
+// cone (ELL: B3e, B4-elliptic) adds, behind `if constexpr`, a table of
+// its contacts in shared memory and the cone's code (:139-178
+// precompute, :213-245 forces, :283-346 Hessian blocks, :351-390
+// linesearch terms), one lane per contact.
 //
-// Both loop until their own world converges: a converged world stops,
-// as the TPU kernel freezes it with alpha = 0 (:480). The rows that
-// cannot act (D = 0 and frictionloss = 0: inactive limits, empty contact
-// slots) are skipped, which changes no result.
+// Each warp loops until its own world converges: a converged world
+// stops, as the TPU kernel freezes it with alpha = 0 (:480). The rows
+// that cannot act (D = 0 and frictionloss = 0: inactive limits, empty
+// contact slots) are skipped, which changes no result.
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 
 #define MAXNV 32
 #define MAXNJ 256
 #define MAXS 6               // rows of an elliptic contact (condim <= 6)
-#define MAXCONE (MAXNJ / 2)  // elliptic contacts: each has >= 2 rows
 
 // one world's solve: where its inputs and outputs lie, and the settings
 struct Solve {
@@ -109,8 +105,19 @@ struct ConeIn {
   int C;
 };
 
-// world w's ConeIn from an elliptic kernel's Params (B3e's and
-// B4-elliptic's name these fields alike)
+// an elliptic kernel's parameters (B3e's, B4-elliptic's): its pyramidal
+// kernel's P and the contacts of the elliptic cone
+template <class P>
+struct ConeParams : P {
+  const float* con_friction;  // (nconmax, 5)
+  const int* con_dim;         // (nconmax) 0 in an empty slot
+  float impratio;
+  int efc_base;               // first contact row
+  int stride;                 // rows per contact
+  int nconmax;
+};
+
+// world w's ConeIn from a ConeParams
 template <class P>
 DEV ConeIn world_cone(const P& p, int w) {
   ConeIn c;
@@ -123,44 +130,6 @@ DEV ConeIn world_cone(const P& p, int w) {
   return c;
 }
 
-// the efc rows that can act this step, with their solver state
-struct Rows {
-  int n;
-  int idx[MAXNJ];
-  unsigned char cls[MAXNJ];  // 0 equality, 1 friction, 2 one-sided,
-                             // 3 a row of an elliptic contact
-  float D[MAXNJ], fl[MAXNJ], rf[MAXNJ];
-  float jaref[MAXNJ], jv[MAXNJ], force[MAXNJ];
-  bool quad[MAXNJ];
-};
-
-// The elliptic contacts whose normal row acts: for each, the Rows index
-// of its row r (-1: the row cannot act, and then contributes nothing:
-// its D and its scale vanish together), the scales s (row 0: mu =
-// friction[0] / sqrt(impratio); row r >= 1: friction[min(r - 1, 4)]), mu
-// and Dm = D_0 / (mu^2 (1 + mu^2)).
-struct Cone {
-  int n;
-  int S;
-  short k[MAXCONE][MAXS];
-  float s[MAXCONE][MAXS];
-  float mu[MAXCONE], dm[MAXCONE];
-};
-struct NoCone {};
-template <bool ELL>
-using ConeOf = std::conditional_t<ELL, Cone, NoCone>;
-
-// u = x s over contact j's rows (x indexed by Rows); returns sum_r>=1 u^2
-DEV float cone_u(const Cone& K, int j, const float* x, float* u) {
-  float t2 = 0.0f;
-  for (int r = 0; r < K.S; ++r) {
-    const int k = K.k[j][r];
-    u[r] = k >= 0 ? x[k] * K.s[j][r] : 0.0f;
-    if (r > 0) t2 += u[r] * u[r];
-  }
-  return t2;
-}
-
 enum { kTop = 0, kBottom = 1, kMiddle = 2 };
 
 // the zone of a contact at normal N and tangential norm T (cone_zones)
@@ -170,443 +139,8 @@ DEV int cone_zone(float N, float T, float mu) {
   return kMiddle;
 }
 
-// lower Cholesky factor in place (row-major, lower triangle read and
-// written); pivots below kMinVal are floored (solver.cholesky)
-DEV void cholesky(float* A, int n) {
-  for (int j = 0; j < n; ++j) {
-    float s = A[j * n + j];
-    for (int k = 0; k < j; ++k) s -= A[j * n + k] * A[j * n + k];
-    const float inv = rsqrtf(fmaxf(s, kMinVal));
-    A[j * n + j] = s * inv;
-    for (int i = j + 1; i < n; ++i) {
-      float t = A[i * n + j];
-      for (int k = 0; k < j; ++k) t -= A[i * n + k] * A[j * n + k];
-      A[i * n + j] = t * inv;
-    }
-  }
-}
-
-// solve L L^T x = b with L from cholesky(); x may alias b
-DEV void cho_solve(const float* L, int n, const float* b, float* x) {
-  float y[MAXNV];
-  for (int j = 0; j < n; ++j) {
-    float t = b[j];
-    for (int k = 0; k < j; ++k) t -= L[j * n + k] * y[k];
-    y[j] = t / L[j * n + j];
-  }
-  for (int j = n - 1; j >= 0; --j) {
-    float t = y[j];
-    for (int k = j + 1; k < n; ++k) t -= L[k * n + j] * x[k];
-    x[j] = t / L[j * n + j];
-  }
-}
-
-DEV void matvec(const float* M, int n, const float* x, float* out) {
-  for (int i = 0; i < n; ++i) {
-    float s = 0.0f;
-    for (int j = 0; j < n; ++j) s += M[i * n + j] * x[j];
-    out[i] = s;
-  }
-}
-
-// J x over the rows that can act
-DEV void rows_dot(const Rows& R, const float* J, int nv, const float* x,
-                  float* out) {
-  for (int k = 0; k < R.n; ++k) {
-    const float* Jr = J + (size_t)R.idx[k] * nv;
-    float s = 0.0f;
-    for (int i = 0; i < nv; ++i) s += Jr[i] * x[i];
-    out[k] = s;
-  }
-}
-
-// force, quad and the constraint cost of jaref (update_constraint); a
-// row of an elliptic contact gets its cone force (ELL)
-template <bool ELL>
-DEV float update_constraint(Rows& R, const ConeOf<ELL>& K) {
-  float cost = 0.0f;
-  for (int k = 0; k < R.n; ++k) {
-    const float x = R.jaref[k], D = R.D[k], fl = R.fl[k], rf = R.rf[k];
-    const int c = R.cls[k];
-    const bool lin_neg = c == 1 && x <= -rf;
-    const bool lin_pos = c == 1 && x >= rf;
-    const bool quad = c == 0 || (c == 1 && !lin_neg && !lin_pos) ||
-                      (c == 2 && x < 0.0f);
-    float f = 0.0f, cst = 0.0f;
-    if (quad) { f = -D * x; cst = 0.5f * D * x * x; }
-    if (lin_neg) { f = fl; cst = -fl * (0.5f * rf + x); }
-    if (lin_pos) { f = -fl; cst = -fl * (0.5f * rf - x); }
-    R.force[k] = f;
-    R.quad[k] = quad;
-    cost += cst;
-  }
-  if constexpr (ELL) {
-    // per contact: the middle zone's cone-surface force, the bottom
-    // zone's quadratic rows, nothing in the top zone (:213-245)
-    float ccost = 0.0f;
-    for (int j = 0; j < K.n; ++j) {
-      float u[MAXS];
-      const float T = sqrtf(fmaxf(cone_u(K, j, R.jaref, u), 0.0f));
-      const float N = u[0], mu = K.mu[j];
-      const int z = cone_zone(N, T, mu);
-      if (z == kMiddle) {
-        const float nmt = N - mu * T;
-        const float f_norm = -K.dm[j] * nmt * mu;
-        const float t_safe = fmaxf(T, kMinVal);
-        for (int r = 0; r < K.S; ++r) {
-          const int k = K.k[j][r];
-          if (k < 0) continue;
-          R.force[k] = r == 0 ? f_norm
-                              : -(f_norm / t_safe) * (u[r] * K.s[j][r]);
-        }
-        ccost += 0.5f * K.dm[j] * nmt * nmt;
-      } else if (z == kBottom) {
-        for (int r = 0; r < K.S; ++r) {
-          const int k = K.k[j][r];
-          if (k < 0) continue;
-          const float x = R.jaref[k];
-          R.force[k] = -R.D[k] * x;
-          R.quad[k] = true;
-          ccost += 0.5f * R.D[k] * x * x;
-        }
-      }
-    }
-    cost += ccost;
-  }
-  return cost;
-}
-
-// grad = ma - qfrc_smooth - J^T force
-DEV void gradient(const Rows& R, const float* J, int nv, const float* ma,
-                  const float* qfs, float* grad) {
-  for (int i = 0; i < nv; ++i) grad[i] = ma[i] - qfs[i];
-  for (int k = 0; k < R.n; ++k) {
-    const float f = R.force[k];
-    if (f == 0.0f) continue;
-    const float* Jr = J + (size_t)R.idx[k] * nv;
-    for (int i = 0; i < nv; ++i) grad[i] -= Jr[i] * f;
-  }
-}
-
-// Newton direction H^-1 grad with H = qM + J^T diag(D quad) J; for the
-// elliptic cone (ELL) also the blocks J_c^T C J_c of the contacts in the
-// middle zone, built on the fly, and the relative Tikhonov floor
-// 1e-7 tr(H) / nv on the diagonal (:283-346)
-template <bool ELL>
-DEV void newton_dir(const Rows& R, const ConeOf<ELL>& K, const float* J,
-                    const float* qM, int nv, const float* grad, float* H,
-                    float* out) {
-  for (int i = 0; i < nv; ++i)
-    for (int j = 0; j <= i; ++j) H[i * nv + j] = qM[i * nv + j];
-  for (int k = 0; k < R.n; ++k) {
-    if (!R.quad[k]) continue;
-    const float* Jr = J + (size_t)R.idx[k] * nv;
-    const float D = R.D[k];
-    for (int i = 0; i < nv; ++i) {
-      const float di = D * Jr[i];
-      if (di == 0.0f) continue;
-      for (int j = 0; j <= i; ++j) H[i * nv + j] += di * Jr[j];
-    }
-  }
-  if constexpr (ELL) {
-    for (int c = 0; c < K.n; ++c) {
-      float u[MAXS];
-      const float T = sqrtf(fmaxf(cone_u(K, c, R.jaref, u), 0.0f));
-      const float N = u[0], mu = K.mu[c];
-      if (cone_zone(N, T, mu) != kMiddle) continue;
-      const float t_safe = fmaxf(T, kMinVal);
-      const float t3 = fmaxf(T * t_safe * t_safe, kMinVal);
-      const float mu_over_t = mu / t_safe, mnt3 = mu * N / t3;
-      const float diag_add = mu * mu - mu * N / t_safe;
-      for (int r = 0; r < K.S; ++r) {
-        const int kr = K.k[c][r];
-        if (kr < 0) continue;
-        // w = sum_s C[r][s] J_s, then H += J_r w^T (lower triangle)
-        float w[MAXNV];
-        for (int i = 0; i < nv; ++i) w[i] = 0.0f;
-        for (int q = 0; q < K.S; ++q) {
-          const int kq = K.k[c][q];
-          if (kq < 0) continue;
-          float hc;
-          if (r == 0 && q == 0) hc = 1.0f;
-          else if (r == 0) hc = -mu_over_t * u[q];
-          else if (q == 0) hc = -mu_over_t * u[r];
-          else hc = mnt3 * u[r] * u[q] + (r == q ? diag_add : 0.0f);
-          const float cc = hc * (K.dm[c] * K.s[c][r] * K.s[c][q]);
-          const float* Jq = J + (size_t)R.idx[kq] * nv;
-          for (int i = 0; i < nv; ++i) w[i] += cc * Jq[i];
-        }
-        const float* Jr = J + (size_t)R.idx[kr] * nv;
-        for (int i = 0; i < nv; ++i) {
-          const float ji = Jr[i];
-          if (ji == 0.0f) continue;
-          for (int j = 0; j <= i; ++j) H[i * nv + j] += ji * w[j];
-        }
-      }
-    }
-    float tr = 0.0f;
-    for (int i = 0; i < nv; ++i) tr += H[i * nv + i] * (1.0f / nv);
-    const float eps = 1e-7f * tr;
-    for (int i = 0; i < nv; ++i) H[i * nv + i] += eps;
-  }
-  cholesky(H, nv);
-  cho_solve(H, nv, grad, out);
-}
-
-// first and second derivative of the cost along the search direction;
-// the elliptic contacts' terms per contact (ELL, :351-390)
-template <bool ELL>
-DEV float phi_d(const Rows& R, const ConeOf<ELL>& K, float alpha, float g0,
-                float h0, float* d2) {
-  float s1 = 0.0f, s2 = 0.0f;
-  for (int k = 0; k < R.n; ++k) {
-    const float jv = R.jv[k], x = R.jaref[k] + alpha * jv;
-    const int c = R.cls[k];
-    const bool lin_neg = c == 1 && x <= -R.rf[k];
-    const bool lin_pos = c == 1 && x >= R.rf[k];
-    const bool quad = c == 0 || (c == 1 && !lin_neg && !lin_pos) ||
-                      (c == 2 && x < 0.0f);
-    if (quad) { s1 += R.D[k] * x * jv; s2 += R.D[k] * jv * jv; }
-    if (lin_neg) s1 -= R.fl[k] * jv;
-    if (lin_pos) s1 += R.fl[k] * jv;
-  }
-  if constexpr (ELL) {
-    float c1 = 0.0f, c2 = 0.0f;
-    for (int j = 0; j < K.n; ++j) {
-      float xb[MAXS], jvb[MAXS], ub[MAXS], v[MAXS];
-      float t2 = 0.0f, uv = 0.0f, vfr2 = 0.0f;
-      for (int r = 0; r < K.S; ++r) {
-        const int k = K.k[j][r];
-        jvb[r] = k >= 0 ? R.jv[k] : 0.0f;
-        xb[r] = k >= 0 ? R.jaref[k] + alpha * jvb[r] : 0.0f;
-        ub[r] = xb[r] * K.s[j][r];
-        v[r] = jvb[r] * K.s[j][r];
-        if (r > 0) {
-          t2 += ub[r] * ub[r];
-          uv += ub[r] * v[r];
-          vfr2 += v[r] * v[r];
-        }
-      }
-      const float mu = K.mu[j], N = ub[0];
-      const float T = sqrtf(fmaxf(t2, kMinVal));
-      const int z = cone_zone(N, T, mu);
-      if (z == kMiddle) {
-        const float t1 = uv / T, tt2 = (vfr2 - t1 * t1) / T;
-        const float nmt = N - mu * T, n1mt1 = v[0] - mu * t1;
-        c1 += K.dm[j] * nmt * n1mt1;
-        c2 += K.dm[j] * (n1mt1 * n1mt1 - nmt * mu * tt2);
-      } else if (z == kBottom) {
-        for (int r = 0; r < K.S; ++r) {
-          const int k = K.k[j][r];
-          if (k < 0) continue;
-          c1 += R.D[k] * xb[r] * jvb[r];
-          c2 += R.D[k] * jvb[r] * jvb[r];
-        }
-      }
-    }
-    *d2 = h0 + s2 + c2;
-    return g0 + alpha * h0 + s1 + c1;
-  }
-  *d2 = h0 + s2;
-  return g0 + alpha * h0 + s1;
-}
-
-// bracket of ls_k log-spaced alphas, secant, then ls_polish safeguarded
-// Newton / bisection steps (_newton_core linesearch :398-444)
-template <bool ELL>
-DEV float linesearch(const Solve& p, const Rows& R, const ConeOf<ELL>& K,
-                     float g0, float h0) {
-  float p2;
-  const float p1_0 = phi_d<ELL>(R, K, 0.0f, g0, h0, &p2);
-  const float alpha0 = fmaxf(-p1_0 / fmaxf(p2, kMinVal), 0.0f);
-  float lo = 0.0f, p1_lo = p1_0, hi = INFINITY, p1_hi = INFINITY;
-  for (int s = 0; s < p.ls_k; ++s) {
-    const float a = alpha0 * p.ls_scales[s];
-    const float p1a = phi_d<ELL>(R, K, a, g0, h0, &p2);
-    if (p1a < 0.0f) {
-      lo = a; p1_lo = p1a;
-    } else if (!isfinite(hi)) {
-      hi = a; p1_hi = p1a;
-    }
-  }
-  const float diff = p1_hi - p1_lo;
-  const float secant = lo - p1_lo * (hi - lo) /
-                                (fabsf(diff) < kMinVal ? 1.0f : diff);
-  const float a_max = alpha0 * p.ls_scales[p.ls_k - 1];
-  float p2m;
-  const float p1m = phi_d<ELL>(R, K, a_max, g0, h0, &p2m);
-  const float tail = a_max - p1m / fmaxf(p2m, kMinVal);
-  float alpha = isfinite(hi) ? secant : fmaxf(tail, a_max);
-  const float cap = 10.0f * a_max;
-  for (int it = 0; it < p.ls_polish; ++it) {
-    float p2a;
-    const float p1a = phi_d<ELL>(R, K, alpha, g0, h0, &p2a);
-    if (p1a < 0.0f) lo = fmaxf(lo, alpha); else hi = fminf(hi, alpha);
-    const float step = alpha - p1a / fmaxf(p2a, kMinVal);
-    if (step > lo && step < hi) alpha = step;
-    else alpha = isfinite(hi) ? 0.5f * (lo + hi) : fmaxf(step, lo);
-    alpha = fminf(fmaxf(alpha, 0.0f), cap);
-  }
-  return p1_0 >= 0.0f ? 0.0f : alpha;
-}
-
-// The whole solve of one world for qfrc_smooth qfs (nv, the thread's own
-// array), with the elliptic cone of the contacts ci (ELL; unread
-// otherwise). Writes every output of s; qacce (nv, the thread's own
-// array) also receives qacc_euler, for the caller's advance.
-template <bool ELL>
-DEV void newton_solve(const Solve& p, const ConeIn& ci, const float* qfs,
-                      float* qacce) {
-  const int nv = p.nv, nj = p.nj;
-  const float* qM = p.qM;
-  const float* J = p.J;
-
-  // ---- qM factor and qacc_smooth ----
-  float* qld = p.qLD;
-  for (int i = 0; i < nv; ++i)
-    for (int j = 0; j < nv; ++j) qld[i * nv + j] = j <= i ? qM[i * nv + j]
-                                                          : 0.0f;
-  cholesky(qld, nv);
-  float qacc_smooth[MAXNV];
-  cho_solve(qld, nv, qfs, qacc_smooth);
-
-  // ---- the elliptic contacts whose normal row acts (ELL, :139-178) ----
-  ConeOf<ELL> K;
-  short slot[ELL ? MAXCONE : 1];  // K's index of each contact, or -1
-  if constexpr (ELL) {
-    K.n = 0;
-    K.S = ci.S;
-    for (int c = 0; c < ci.C; ++c) {
-      slot[c] = -1;
-      const float D0 = p.D[ci.base + c * ci.S];
-      if (ci.dim[c] < 2 || D0 == 0.0f) continue;
-      const int j = K.n++;
-      slot[c] = j;
-      const float* fr = ci.friction + 5 * c;
-      const float mu = fr[0] / sqrtf(fmaxf(ci.impratio, kMinVal));
-      const float mu2 = mu * mu;
-      K.mu[j] = mu;
-      K.dm[j] = D0 / fmaxf(mu2 * (1.0f + mu2), kMinVal);
-      for (int r = 0; r < ci.S; ++r) {
-        K.k[j][r] = -1;
-        K.s[j][r] = r == 0 ? mu : fr[min(r - 1, 4)];
-      }
-    }
-  }
-
-  // ---- the rows that can act ----
-  Rows R;
-  R.n = 0;
-  for (int r = 0; r < nj; ++r) {
-    const float D = p.D[r], fl = p.fl[r];
-    p.efc_force[r] = 0.0f;
-    if (D == 0.0f && fl == 0.0f) continue;
-    const int k = R.n++;
-    R.idx[k] = r;
-    R.cls[k] = r < p.ne ? 0 : (r < p.ne + p.nf ? 1 : 2);
-    R.D[k] = D;
-    R.fl[k] = fl;
-    R.rf[k] = fl / fmaxf(D, kMinVal);
-    if constexpr (ELL) {
-      if (r >= ci.base) {
-        const int j = slot[(r - ci.base) / ci.S];
-        if (j >= 0) {
-          R.cls[k] = 3;
-          K.k[j][(r - ci.base) % ci.S] = k;
-        }
-      }
-    }
-  }
-
-  // ---- Newton solve (_newton_core init :446-466, loop :468-504) ----
-  const float rescale = fmaxf(p.meaninertia, kMinVal) * (float)max(1, nv);
-  float qacc[MAXNV], ma[MAXNV], grad[MAXNV], search[MAXNV], mv[MAXNV];
-  float H[MAXNV * MAXNV];
-  for (int i = 0; i < nv; ++i)
-    qacc[i] = p.use_ws ? p.warmstart[i] : qacc_smooth[i];
-  matvec(qM, nv, qacc, ma);
-  rows_dot(R, J, nv, qacc, R.jaref);
-  for (int k = 0; k < R.n; ++k) R.jaref[k] -= p.aref[R.idx[k]];
-  auto gauss = [&]() {
-    float s = 0.0f;
-    for (int i = 0; i < nv; ++i)
-      s += (ma[i] - qfs[i]) * (qacc[i] - qacc_smooth[i]);
-    return 0.5f * s;
-  };
-  auto norm = [&](const float* x) {
-    float s = 0.0f;
-    for (int i = 0; i < nv; ++i) s += x[i] * x[i];
-    return sqrtf(s);
-  };
-  float cost = update_constraint<ELL>(R, K) + gauss();
-  gradient(R, J, nv, ma, qfs, grad);
-  newton_dir<ELL>(R, K, J, qM, nv, grad, H, search);
-  for (int i = 0; i < nv; ++i) search[i] = -search[i];
-  bool done = norm(grad) / rescale < p.tolerance;
-  int niter = 0;
-  while (!done) {
-    rows_dot(R, J, nv, search, R.jv);
-    matvec(qM, nv, search, mv);
-    float g0 = 0.0f, h0 = 0.0f;
-    for (int i = 0; i < nv; ++i) {
-      g0 += search[i] * (ma[i] - qfs[i]);
-      h0 += search[i] * mv[i];
-    }
-    const float alpha = linesearch<ELL>(p, R, K, g0, h0);
-    for (int i = 0; i < nv; ++i) {
-      qacc[i] += alpha * search[i];
-      ma[i] += alpha * mv[i];
-    }
-    for (int k = 0; k < R.n; ++k) R.jaref[k] += alpha * R.jv[k];
-    const float newcost = update_constraint<ELL>(R, K) + gauss();
-    gradient(R, J, nv, ma, qfs, grad);
-    const float improvement = (cost - newcost) / rescale;
-    const float gradnorm = norm(grad) / rescale;
-    ++niter;
-    done = improvement < p.tolerance || gradnorm < p.tolerance ||
-           niter >= p.iterations;
-    if (!done) {
-      newton_dir<ELL>(R, K, J, qM, nv, grad, H, search);
-      for (int i = 0; i < nv; ++i) search[i] = -search[i];
-    }
-    cost = newcost;
-  }
-  *p.solver_niter = niter;
-
-  // ---- constraint force, qfrc_constraint ----
-  update_constraint<ELL>(R, K);
-  float qfc[MAXNV];
-  for (int i = 0; i < nv; ++i) qfc[i] = 0.0f;
-  for (int k = 0; k < R.n; ++k) {
-    const float f = R.force[k];
-    p.efc_force[R.idx[k]] = f;
-    const float* Jr = J + (size_t)R.idx[k] * nv;
-    for (int i = 0; i < nv; ++i) qfc[i] += Jr[i] * f;
-  }
-
-  // ---- integration diagonal: (qM + diag(hdiag)) qacc_euler = qfs + qfc ----
-  if (p.hdiag) {
-    for (int i = 0; i < nv; ++i) {
-      for (int j = 0; j <= i; ++j) H[i * nv + j] = qM[i * nv + j];
-      H[i * nv + i] += p.hdiag[i * p.hdiag_stride];
-      qacce[i] = qfs[i] + qfc[i];
-    }
-    cholesky(H, nv);
-    cho_solve(H, nv, qacce, qacce);
-  } else {
-    for (int i = 0; i < nv; ++i) qacce[i] = qacc[i];
-  }
-  for (int i = 0; i < nv; ++i) {
-    p.qacc[i] = qacc[i];
-    p.qfrc_constraint[i] = qfc[i];
-    p.qacc_smooth[i] = qacc_smooth[i];
-    p.qacc_euler[i] = qacce[i];
-  }
-}
-
-
 // ---------------------------------------------------------------------------
-// The pyramidal solve, one warp per world.
+// The solve, one warp per world.
 //
 // Lane i keeps dof i's qacc, ma, grad, search, mv, qfrc_smooth and
 // qacc_smooth in registers. Shared memory holds, per world (WarpMem), qM
@@ -628,13 +162,31 @@ DEV void newton_solve(const Solve& p, const ConeIn& ci, const float* qfs,
 // point at 0 comes first, since the bracket scales multiply its alpha0.
 // Every sum runs in a fixed order, without atomics.
 //
-// On the H100 at 8192 humanoid worlds: 16 worlds resident per SM (4
-// blocks of 4, registers and shared memory both near their limit). The
-// time is about four waves of the slowest world's dependent chain (the
-// factor's columns, the substitutions' steps, the linesearch's
-// reductions), not the bytes or the flops.
+// The elliptic cone (ELL) keeps a table of the world's C contacts in
+// shared memory (WarpMem's c* arrays, C x S of them sized from the
+// launch's nconmax and stride S): for each contact whose normal row acts
+// its rows' compacted indices (-1: a row that cannot act), scales, mu, Dm
+// and the zone of the last constraint update; its rows get class 3,
+// which the row passes give nothing. The cone's work then runs one lane
+// per contact: the constraint update (zone, the middle zone's
+// cone-surface forces and S x S Hessian coefficients, the bottom zone's
+// quadratic rows), and its terms at each linesearch point, added to the
+// lane's partial sums. Lane i adds each middle-zone contact's block
+// J_c^T C J_c to row i of H; the relative Tikhonov floor 1e-7 tr(H) / nv
+// comes from a warp sum of the diagonal.
+//
+// On the H100 at 8192 humanoid worlds: 16 pyramidal worlds resident per
+// SM (4 blocks of 4, registers and shared memory both near their limit);
+// 12 elliptic ones (ELL_BLOCKS = 3 blocks of 4: the cone's code takes
+// about 152 registers a thread, its table 432 more words of shared memory
+// a world; the cone's Hessian blocks go into H's rows in shared memory:
+// added to the register array h they needed more registers than that
+// and spilled). The time is four to five waves of the slowest world's
+// dependent chain (the factor's columns, the substitutions' steps, the
+// linesearch's reductions), not the bytes or the flops.
 
 #define WARPS 4    // worlds (warps) per block
+#define ELL_BLOCKS 3  // blocks resident per SM the elliptic kernels ask for
 #define JCAP 32    // acting rows of efc_J kept in shared memory
 #define MAXLSK 16  // cap of ls_k (the wrappers pass solver.LS_K = 10)
 
@@ -661,17 +213,28 @@ struct WarpMem {
   float* jv;
   float* force;
   int* idx;      // efc row
-  int* cls;      // 0 equality, 1 friction, 2 one-sided
+  int* cls;      // 0 equality, 1 friction, 2 one-sided, 3 elliptic cone
   int* quad;
+  // the elliptic cone's contacts (C of them, S rows each; ELL only)
+  int* ck;       // C x S: the acting-row index of each row, or -1
+  float* cs;     // C x S: the rows' scales
+  float* cmu;    // C
+  float* cdm;    // C
+  int* cz;       // C: -1 (not a cone contact) or the last update's zone
+  float* cc;     // C x S x S: the middle zone's Hessian coefficients
 };
 
-// floats (and ints) of one world's WarpMem
-__host__ __device__ inline int warp_mem_words(int nv, int naux, int nj) {
+// floats (and ints) of one world's WarpMem; C contacts of S rows for the
+// elliptic cone (0 without it)
+__host__ __device__ inline int warp_mem_words(int nv, int naux, int nj,
+                                              int C = 0, int S = 0) {
   const int ld = nv | 1;
-  return 2 * nv * ld + 64 + naux + (nj < JCAP ? nj : JCAP) * ld + 9 * nj;
+  return 2 * nv * ld + 64 + naux + (nj < JCAP ? nj : JCAP) * ld + 9 * nj +
+         C * (3 + 2 * S + S * S);
 }
 
-DEV WarpMem warp_mem(float* base, int nv, int naux, int nj) {
+DEV WarpMem warp_mem(float* base, int nv, int naux, int nj, int C = 0,
+                     int S = 0) {
   const int ld = nv | 1;
   WarpMem s;
   float* p = base;
@@ -689,7 +252,13 @@ DEV WarpMem warp_mem(float* base, int nv, int naux, int nj) {
   s.force = p; p += nj;
   s.idx = (int*)p; p += nj;
   s.cls = (int*)p; p += nj;
-  s.quad = (int*)p;
+  s.quad = (int*)p; p += nj;
+  s.ck = (int*)p; p += C * S;
+  s.cs = p; p += C * S;
+  s.cmu = p; p += C;
+  s.cdm = p; p += C;
+  s.cz = (int*)p; p += C;
+  s.cc = p;
   return s;
 }
 
@@ -728,13 +297,16 @@ DEV float warp_factor_solve(const WarpMem& sm, int n, int ld, float b,
   return lane < n ? t : 0.0f;
 }
 
-// The whole pyramidal solve of one world in its warp (newton_solve<false>
-// in this layout) for the lane's qfrc_smooth qfs (0 past nv). Writes every
-// output of s; returns the lane's qacc_euler, for the caller's advance.
-DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
-                      int lane) {
+// The whole solve of one world in its warp for the lane's qfrc_smooth qfs
+// (0 past nv), with the elliptic cone of the contacts ci (ELL; unread
+// otherwise). Writes every output of s; returns the lane's qacc_euler,
+// for the caller's advance.
+template <bool ELL>
+DEV float warp_newton(const Solve& p, const ConeIn& ci, const WarpMem& sm,
+                      float qfs, int lane) {
   const int nv = p.nv, nj = p.nj, ld = nv | 1;
   const bool own = lane < nv;
+  const int S = ci.S;
 
   // ---- qM in shared memory (all loads in flight at once: each lane
   // loads in bounds, and keeps what it needs) ----
@@ -758,6 +330,27 @@ DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
   for (int e = lane; e < nv * nv; e += 32) {
     const int i = e / nv, j = e - i * nv;
     p.qLD[e] = j <= i ? sm.L[i * ld + j] : 0.0f;
+  }
+
+  // ---- the elliptic contacts whose normal row acts (:139-178), one lane
+  // per contact: scales s (row 0: mu = friction[0] / sqrt(impratio); row
+  // r >= 1: friction[min(r - 1, 4)]), mu and Dm = D_0 / (mu^2 (1 +
+  // mu^2)); the rows' indices follow from the compaction ----
+  if constexpr (ELL) {
+    for (int c = lane; c < ci.C; c += 32) {
+      const float D0 = __ldg(p.D + ci.base + c * S);
+      const float* fr = ci.friction + 5 * c;
+      const float mu = __ldg(fr) / sqrtf(fmaxf(ci.impratio, kMinVal));
+      const float mu2 = mu * mu;
+      sm.cz[c] = __ldg(ci.dim + c) >= 2 && D0 != 0.0f ? kTop : -1;
+      sm.cmu[c] = mu;
+      sm.cdm[c] = D0 / fmaxf(mu2 * (1.0f + mu2), kMinVal);
+      for (int r = 0; r < S; ++r) {
+        sm.ck[c * S + r] = -1;
+        sm.cs[c * S + r] = r == 0 ? mu : __ldg(fr + min(r - 1, 4));
+      }
+    }
+    __syncwarp();
   }
 
   // ---- the rows that can act, compacted in row order ----
@@ -784,6 +377,12 @@ DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
       sm.D[k] = D;
       sm.fl[k] = fl;
       sm.rf[k] = fl / fmaxf(D, kMinVal);
+      if constexpr (ELL) {
+        if (r >= ci.base && sm.cz[(r - ci.base) / S] >= 0) {
+          sm.cls[k] = 3;
+          sm.ck[r - ci.base] = k;    // contact (r - base) / S, its row
+        }                            // (r - base) % S
+      }
     }
     n += __popc(ballot);
   }
@@ -873,6 +472,66 @@ DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
       cost += cst;
     }
     __syncwarp();
+    if constexpr (ELL) {
+      // per contact: the middle zone's cone-surface force and Hessian
+      // coefficients C[r][q] Dm s_r s_q (:283-329), the bottom zone's
+      // quadratic rows, nothing in the top zone (:213-245)
+      for (int c = lane; c < ci.C; c += 32) {
+        if (sm.cz[c] < 0) continue;
+        const int* kc = sm.ck + c * S;
+        const float* sc = sm.cs + c * S;
+        float u[MAXS], t2 = 0.0f;
+#pragma unroll
+        for (int r = 0; r < MAXS; ++r) {
+          if (r >= S) break;
+          const int k = kc[r];
+          u[r] = k >= 0 ? sm.jaref[k] * sc[r] : 0.0f;
+          if (r > 0) t2 += u[r] * u[r];
+        }
+        const float T = sqrtf(fmaxf(t2, 0.0f)), N = u[0];
+        const float mu = sm.cmu[c], dm = sm.cdm[c];
+        const int z = cone_zone(N, T, mu);
+        sm.cz[c] = z;
+        if (z == kMiddle) {
+          const float nmt = N - mu * T;
+          const float f_norm = -dm * nmt * mu;
+          const float t_safe = fmaxf(T, kMinVal);
+          const float t3 = fmaxf(T * t_safe * t_safe, kMinVal);
+          const float mu_over_t = mu / t_safe, mnt3 = mu * N / t3;
+          const float diag_add = mu * mu - mu * N / t_safe;
+          float* cc = sm.cc + c * S * S;
+#pragma unroll
+          for (int r = 0; r < MAXS; ++r) {
+            if (r >= S) break;
+            const int k = kc[r];
+            if (k >= 0)
+              sm.force[k] = r == 0 ? f_norm
+                                   : -(f_norm / t_safe) * (u[r] * sc[r]);
+#pragma unroll
+            for (int q = 0; q < MAXS; ++q) {
+              if (q >= S) break;
+              float hc;
+              if (r == 0 && q == 0) hc = 1.0f;
+              else if (r == 0) hc = -mu_over_t * u[q];
+              else if (q == 0) hc = -mu_over_t * u[r];
+              else hc = mnt3 * u[r] * u[q] + (r == q ? diag_add : 0.0f);
+              cc[r * S + q] = hc * (dm * sc[r] * sc[q]);
+            }
+          }
+          cost += 0.5f * dm * nmt * nmt;
+        } else if (z == kBottom) {
+          for (int r = 0; r < S; ++r) {
+            const int k = kc[r];
+            if (k < 0) continue;
+            const float x = sm.jaref[k];
+            sm.force[k] = -sm.D[k] * x;
+            sm.quad[k] = 1;
+            cost += 0.5f * sm.D[k] * x * x;
+          }
+        }
+      }
+      __syncwarp();
+    }
     return warp_sum(cost);
   };
   // H^-1 grad with H = qM + J^T diag(D quad) J, row i built in lane i
@@ -903,12 +562,89 @@ DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
 #pragma unroll
       for (int j = 0; j < MAXNV; ++j)
         if (j < nv) Hi[j] = h[j];
+      if constexpr (ELL) {
+        // each middle-zone contact's block J_c^T C J_c, added to the row
+        // in shared memory (h is dead here): row i gains sum_q (sum_r
+        // J_r[i] C[r][q]) J_q
+        for (int c = 0; c < ci.C; ++c) {
+          if (sm.cz[c] != kMiddle) continue;
+          const int* kc = sm.ck + c * S;
+          const float* cc = sm.cc + c * S * S;
+          float ji[MAXS];
+#pragma unroll
+          for (int r = 0; r < MAXS; ++r) {
+            const int kr = r < S ? kc[r] : -1;
+            ji[r] = kr < 0 ? 0.0f : kr < nc ? sm.Jc[kr * ld + lane]
+                                            : __ldg(jrow(kr) + lane);
+          }
+          for (int q = 0; q < S; ++q) {
+            const int kq = kc[q];
+            if (kq < 0) continue;
+            float a = 0.0f;
+#pragma unroll
+            for (int r = 0; r < MAXS; ++r)
+              if (r < S) a += ji[r] * cc[r * S + q];
+            const float* Jq = kq < nc ? sm.Jc + kq * ld : jrow(kq);
+            for (int j = 0; j < nv; ++j) Hi[j] += a * Jq[j];
+          }
+        }
+      }
     }
     __syncwarp();
+    if constexpr (ELL) {
+      // the relative Tikhonov floor 1e-7 tr(H) / nv (:330-343)
+      const float tr = warp_sum(own ? sm.L[lane * ld + lane] * (1.0f / nv)
+                                    : 0.0f);
+      if (own) sm.L[lane * ld + lane] += 1e-7f * tr;
+      __syncwarp();
+    }
     return warp_factor_solve(sm, nv, ld, grad, lane);
   };
-  // the lane's rows' share of the cost's first (returned) and second
-  // derivative along the search direction at alpha
+  // contact c's share of the cost's first (returned) and second
+  // derivative along the search direction at alpha (ELL, :351-390)
+  auto cone_line = [&](int c, float alpha, float* d2) {
+    const int* kc = sm.ck + c * S;
+    const float* sc = sm.cs + c * S;
+    float xb[MAXS], jvb[MAXS], ub[MAXS], v[MAXS];
+    float t2 = 0.0f, uv = 0.0f, vfr2 = 0.0f;
+#pragma unroll
+    for (int r = 0; r < MAXS; ++r) {
+      if (r >= S) break;
+      const int k = kc[r];
+      jvb[r] = k >= 0 ? sm.jv[k] : 0.0f;
+      xb[r] = k >= 0 ? sm.jaref[k] + alpha * jvb[r] : 0.0f;
+      ub[r] = xb[r] * sc[r];
+      v[r] = jvb[r] * sc[r];
+      if (r > 0) {
+        t2 += ub[r] * ub[r];
+        uv += ub[r] * v[r];
+        vfr2 += v[r] * v[r];
+      }
+    }
+    const float mu = sm.cmu[c], dm = sm.cdm[c], N = ub[0];
+    const float T = sqrtf(fmaxf(t2, kMinVal));
+    const int z = cone_zone(N, T, mu);
+    float d1 = 0.0f;
+    *d2 = 0.0f;
+    if (z == kMiddle) {
+      const float t1 = uv / T, tt2 = (vfr2 - t1 * t1) / T;
+      const float nmt = N - mu * T, n1mt1 = v[0] - mu * t1;
+      d1 = dm * nmt * n1mt1;
+      *d2 = dm * (n1mt1 * n1mt1 - nmt * mu * tt2);
+    } else if (z == kBottom) {
+#pragma unroll
+      for (int r = 0; r < MAXS; ++r) {
+        if (r >= S) break;
+        const int k = kc[r];
+        if (k < 0) continue;
+        d1 += sm.D[k] * xb[r] * jvb[r];
+        *d2 += sm.D[k] * jvb[r] * jvb[r];
+      }
+    }
+    return d1;
+  };
+  // the lane's rows' (and contacts') share of the cost's first (returned)
+  // and second derivative along the search direction at alpha
   auto phi_rows = [&](float alpha, float* s2) {
     float s1 = 0.0f;
     *s2 = 0.0f;
@@ -924,6 +660,14 @@ DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
       if (lin_neg) s1 -= sm.fl[k] * jv;
       if (lin_pos) s1 += sm.fl[k] * jv;
     }
+    if constexpr (ELL) {
+      for (int c = lane; c < ci.C; c += 32) {
+        if (sm.cz[c] < 0) continue;
+        float c2;
+        s1 += cone_line(c, alpha, &c2);
+        *s2 += c2;
+      }
+    }
     return s1;
   };
   auto phi_d = [&](float alpha, float g0, float h0, float* d2) {
@@ -933,7 +677,7 @@ DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
     return g0 + alpha * h0 + s1;
   };
   // bracket of ls_k log-spaced alphas, secant, then ls_polish safeguarded
-  // Newton / bisection steps (linesearch<false>, the same rules)
+  // Newton / bisection steps (_newton_core :398-444)
   auto linesearch = [&](float g0, float h0) {
     float p2;
     const float p1_0 = phi_d(0.0f, g0, h0, &p2);
@@ -962,6 +706,18 @@ DEV float warp_newton(const Solve& p, const WarpMem& sm, float qfs,
         }
         if (lin_neg) s1[s] -= fl * jv;
         if (lin_pos) s1[s] += fl * jv;
+      }
+    }
+    if constexpr (ELL) {
+      for (int c = lane; c < ci.C; c += 32) {
+        if (sm.cz[c] < 0) continue;
+#pragma unroll
+        for (int s = 0; s < MAXLSK; ++s) {
+          if (s >= p.ls_k) break;
+          float c2;
+          s1[s] += cone_line(c, a[s], &c2);
+          if (s == p.ls_k - 1) s2m += c2;
+        }
       }
     }
     float lo = 0.0f, p1_lo = p1_0, hi = INFINITY, p1_hi = INFINITY;

@@ -17,9 +17,10 @@
   smooth.crb               B12  (pallas/smooth_kernels.crb_batched)
 
 B2 runs one warp per world (both its entries, the pyramidal and the
-elliptic rows). B3 and B4 share the solve's device code, csrc/newton.cuh
-(one warp per world; B3e and B4-elliptic one thread per world); B9-B12
-are instantiations of B1's kernel that run some of its stages.
+elliptic rows). B3, B4, B3e and B4-elliptic share the solve's device
+code, csrc/newton.cuh (one warp per world, with the elliptic cone for B3e
+and B4-elliptic); B9-B12 are instantiations of B1's kernel that run some
+of its stages.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, counting launches in its module's

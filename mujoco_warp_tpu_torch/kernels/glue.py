@@ -2,10 +2,10 @@
 `csrc/glue.cu`: affine actuation, joint springs and dampers,
 qfrc_smooth, the qM factor and qacc_smooth, the whole Newton solve, the
 integration-diagonal re-solve (mode 1) and the semi-implicit Euler
-advance. B3 solves with the pyramidal cone, one warp per world (4 worlds
-a block, each world's state in shared memory); B3e, launched when `glue`
-is given the contacts' `solver.cone_inputs`, with the elliptic cone, one
-thread per world.
+advance, one warp per world (4 worlds a block, each world's state in
+shared memory). B3 solves with the pyramidal cone; B3e, launched when
+`glue` is given the contacts' `solver.cone_inputs`, with the elliptic
+cone (a table of the contacts in shared memory, one lane per contact).
 
 They replace the TPU kernel `make_glue_kernel` / `run`
 (`mujoco_warp_tpu/pallas/solver_kernels.py:1207`, `_glue_core` :966;
@@ -44,6 +44,7 @@ _INTS = ('nworld', 'nq', 'nv', 'nu', 'njnt', 'nj', 'ne', 'nf', 'iterations',
          'ls_k', 'ls_polish', 'use_ws', 'mode', 'actuation_on')
 Params = _build.struct('GlueParams', _PTRS, _FLOATS, _INTS)
 # B3e: B3's parameters and the contacts of the elliptic cone
+# (ConeParams<Params> of csrc/newton.cuh)
 CONE_PTRS = ('con_friction', 'con_dim')
 CONE_FLOATS = ('impratio',)
 CONE_INTS = ('efc_base', 'stride', 'nconmax')

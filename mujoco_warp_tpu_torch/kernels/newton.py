@@ -1,10 +1,10 @@
 """Kernels B4 and B4-elliptic: the Newton solve of `forward_batched` in
 one CUDA kernel, `csrc/newton.cu`: the qM factor and qacc_smooth, the
 whole Newton solve from a given qfrc_smooth, the forces and, with `hb`,
-the re-solve (qM + diag(hb)) qacc_euler = qfrc_smooth + qfrc_constraint.
-B4 solves with the pyramidal cone, one warp per world; B4-elliptic,
+the re-solve (qM + diag(hb)) qacc_euler = qfrc_smooth + qfrc_constraint,
+one warp per world. B4 solves with the pyramidal cone; B4-elliptic,
 launched when `newton_solve` is given the contacts' `solver.cone_inputs`,
-with the elliptic cone, one thread per world.
+with the elliptic cone.
 
 They replace the TPU kernel `newton_solve_batched`
 (`mujoco_warp_tpu/pallas/solver_kernels.py:534`, bodies `_newton_kernel`

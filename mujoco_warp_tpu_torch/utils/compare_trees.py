@@ -4,8 +4,10 @@ bit.
 
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py inputs FILE
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py run ROOT FILE OUT
-    python3 mujoco_warp_tpu_torch/utils/compare_trees.py compare OUT OUT...
-    python3 mujoco_warp_tpu_torch/utils/compare_trees.py turns A B DIR
+    python3 mujoco_warp_tpu_torch/utils/compare_trees.py compare OUT OUT... \
+        [--redesigned NAME,...]
+    python3 mujoco_warp_tpu_torch/utils/compare_trees.py turns A B DIR \
+        [--redesigned NAME,...]
 
 `inputs` steps the humanoid (8192 worlds, nconmax 24, seeded qpos noise)
 through this checkout's kernels and saves the inputs of B1 (smooth), B2
@@ -25,10 +27,16 @@ which count the host's time too where a wrapper takes longer than its
 kernel.
 `compare` prints, for the first file against each other, every output
 that is not bit-equal and the times side by side; it exits 1 if any
-output differs. `turns` saves the inputs (with this checkout) to DIR,
-runs the checkouts A and B in turns A, B, B, A, each in its own process,
-prints each kernel's times in the four turns and compares every turn's
-outputs with the first's. It needs a card.
+output differs. `--redesigned` names kernels whose design one checkout
+changed, so that their bits may differ (REDESIGNABLE: B3e `glue_ell`,
+B4-elliptic `newton_ell`): their differences are printed with the
+largest absolute one, and every file's outputs of them are held instead
+by chip_smoke.py's ELLIPTIC count rules (`_check_ell_solve`) against
+the plain version on the saved inputs; it exits 1 if one misses them,
+or if any other kernel's output differs. `turns` saves the inputs (with
+this checkout) to DIR, runs the checkouts A and B in turns A, B, B, A,
+each in its own process, prints each kernel's times in the four turns
+and compares every turn's outputs with the first's. It needs a card.
 """
 
 import json
@@ -47,6 +55,9 @@ NCONMAX3 = 100
 ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 ELL_STEPS = 5
 ELL3_STEPS = 2
+# kernels that `--redesigned` may name: they are held by chip_smoke's
+# ELLIPTIC count rules instead of bit for bit
+REDESIGNABLE = ('glue_ell', 'newton_ell')
 
 
 def contact_inputs(m, d):
@@ -186,11 +197,39 @@ def run(root: str, path: str, out: str) -> None:
     torch.cuda.synchronize()
     wall[name] = start.elapsed_time(end) / 20
     ms[name] = device_ms(fn)
-  torch.save(dict(outs=outs, ms=ms, wall=wall, root=root), out)
+  torch.save(dict(outs=outs, ms=ms, wall=wall, root=root, inputs=path),
+             out)
   print(json.dumps({'root': root, 'ms': ms, 'wall_ms': wall}))
 
 
-def compare(paths) -> int:
+def hold_elliptic(name: str, inputs: str):
+  """fn(label, outs) that holds B3e's (`glue_ell`) or B4-elliptic's
+  (`newton_ell`) outputs by chip_smoke.py's ELLIPTIC count rules against
+  this checkout's plain version on the saved inputs; it raises if they
+  miss them."""
+  sys.path.insert(0, HERE)
+  import torch
+  import chip_smoke
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import forward, models, solver
+  inp = torch.load(inputs)
+  me = mt.override_model(mt.load_model(models.HUMANOID_NPZ, device='cuda'),
+                         ELLIPTIC)
+  cone, ulp = inp['cone'], chip_smoke._next_ulp
+  if name == 'glue_ell':
+    g = inp['ge_in']
+    ref = forward.glue(me, *g, cone=cone)
+    perturbed = forward.glue(me, *g[:8], ulp(g[8]), g[9], cone=cone)
+    return lambda label, out: chip_smoke._check_ell_solve(
+        label, me, out, ref, perturbed, g[:5], cone, out['qfrc_smooth'])
+  n = inp['ne_in']
+  ref = solver.newton_solve(me, *n, cone=cone)
+  perturbed = solver.newton_solve(me, *n[:5], ulp(n[5]), n[6], cone=cone)
+  return lambda label, out: chip_smoke._check_ell_solve(
+      label, me, out, ref, perturbed, n[:5], cone, n[5])
+
+
+def compare(paths, redesigned=()) -> int:
   import torch
   first = torch.load(paths[0])
   bad = 0
@@ -199,14 +238,29 @@ def compare(paths) -> int:
     for name, outs in first['outs'].items():
       diff = [k for k, v in outs.items()
               if not torch.equal(v, other['outs'][name][k])]
-      bad += len(diff)
+      if name not in redesigned:
+        bad += len(diff)
+      largest = max((float((outs[k].double() - other['outs'][name][k]
+                            .double()).abs().max()) for k in diff),
+                    default=0.0)
       print(f'{name}: {first["root"]} against {other["root"]}: '
-            f'{"bit-equal" if not diff else "differ in " + str(diff)}; '
+            f'{"bit-equal" if not diff else "differ in " + str(diff)}'
+            f'{f" (largest |diff| {largest:.3g})" if diff else ""}; '
             f'ms {first["ms"][name]:.4f} vs {other["ms"][name]:.4f}')
+  for name in redesigned:
+    hold = hold_elliptic(name, first['inputs'])
+    for path in paths:
+      run_out = torch.load(path)
+      try:
+        hold(f'{name} [{run_out["root"]}]', run_out['outs'][name])
+      except RuntimeError as e:
+        print(f'{name} [{run_out["root"]}]: misses the ELLIPTIC count '
+              f'rules: {e}')
+        bad += 1
   return 1 if bad else 0
 
 
-def turns(a: str, b: str, out_dir: str) -> int:
+def turns(a: str, b: str, out_dir: str, redesigned=()) -> int:
   """Inputs from this checkout, then A, B, B, A in their own processes;
   every turn's outputs compared with the first's."""
   import subprocess
@@ -226,10 +280,17 @@ def turns(a: str, b: str, out_dir: str) -> int:
         ' (ms on the card a launch)')
   for name in ms[0]:
     print(f'{name:28s} ' + ' '.join(f'{t[name]:10.4f}' for t in ms))
-  return compare(outs)
+  return compare(outs, redesigned)
 
 
 def main(argv) -> int:
+  redesigned = ()
+  if len(argv) >= 2 and argv[-2] == '--redesigned':
+    redesigned = tuple(argv[-1].split(','))
+    argv = argv[:-2]
+    if not set(redesigned) <= set(REDESIGNABLE):
+      print(f'--redesigned: one of {REDESIGNABLE}', file=sys.stderr)
+      return 2
   if argv[:1] == ['inputs'] and len(argv) == 2:
     make_inputs(argv[1])
     return 0
@@ -237,9 +298,9 @@ def main(argv) -> int:
     run(*argv[1:])
     return 0
   if argv[:1] == ['compare'] and len(argv) >= 3:
-    return compare(argv[1:])
+    return compare(argv[1:], redesigned)
   if argv[:1] == ['turns'] and len(argv) == 4:
-    return turns(*argv[1:])
+    return turns(*argv[1:], redesigned)
   print(__doc__, file=sys.stderr)
   return 2
 

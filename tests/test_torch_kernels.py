@@ -338,6 +338,20 @@ def test_contact_kernel_pool_cuts_match_plain(cuda, cone, cut):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('cone', CONES)
+def test_contact_kernel_at_nconmax_0_matches_plain(cuda, cone):
+  """Both entries of B2 at nconmax 0 on the humanoid (177 candidate
+  pairs, some within the margin): no pool and no collision, ncollision 0
+  as the plain version and the JAX package's `collision` give it."""
+  m, c_in, nconmax = _contact_inputs(cuda, 'humanoid', cone)
+  full, _ = _contact_matches_plain(m, c_in, nconmax)
+  assert int(full['ncollision'].sum()) > 0, 'no candidate within the margin'
+  out, ref = _contact_matches_plain(m, c_in, 0)
+  assert int(ref['ncollision'].abs().sum()) == 0
+  assert torch.equal(out['ncollision'], ref['ncollision'])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cone', CONES)
 def test_contact_kernel_three_humanoids_matches_plain(cuda, cone):
   """Both entries of B2 at nv 81 (lanes over dofs in three rounds) and
   1614 candidates (51 rounds of the narrowphase), nconmax 100."""
@@ -649,22 +663,30 @@ def test_glue_kernel_mode_1_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_warp_kernels_are_deterministic_and_fit_their_design(cuda):
-  """B3 (modes 0 and 1) and B4 (with hb) give the same bits in two
-  launches; they launch 4 worlds (warps) a block, and ptxas gives them
-  no spill stores and at most 1 KB of stack."""
+  """B3 (modes 0 and 1), B4 (with hb), B3e and B4-elliptic give the same
+  bits in two launches; they launch 4 worlds (warps) a block, and ptxas
+  gives them no spill stores and at most 1 KB of stack."""
   m, d = _state(cuda, 256, 60)
   _, _, _, g_in = _stages(m, d)
   hb = m.opt.timestep * m.dof_damping
   n_in = _newton_inputs(m, d)
+  me, de = _state(cuda, 256, 60, elliptic=True)
+  _, _, con, ge_in = _stages(me, de)
+  cone = _cone(me, con)
+  ne_in = ge_in[:6] + (kg.glue(*ge_in, cone=cone)['qfrc_smooth'], ge_in[10])
   for fn in (lambda: kg.glue(*g_in), lambda: kg.glue(_eulerdamp_on(m),
                                                       *g_in[1:]),
-             lambda: kn.newton_solve(*n_in, hb=hb)):
+             lambda: kn.newton_solve(*n_in, hb=hb),
+             lambda: kg.glue(*ge_in, cone=cone),
+             lambda: kn.newton_solve(*ne_in, hb=hb, cone=cone)):
     a, b = fn(), fn()
     for name in a:
       assert torch.equal(a[name], b[name]), name
-  for source, kernel in (('glue', 'glue_kernel'),
-                         ('newton', 'newton_kernel')):
-    grid, block, smem, per_sm = _build.shapes[(source, '')]
+  for source, kernel, entry in (('glue', 'glue_kernel', ''),
+                                ('newton', 'newton_kernel', ''),
+                                ('glue', 'glue_ell_kernel', 'ell_'),
+                                ('newton', 'newton_ell_kernel', 'ell_')):
+    grid, block, smem, per_sm = _build.shapes[(source, entry)]
     assert (grid, block) == (256 // 4, 128) and smem > 0 and per_sm >= 1
     info, = [v for k, v in _build.ptxas_info(source).items()
              if k.startswith(f'_Z{len(kernel)}{kernel}')]
