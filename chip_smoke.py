@@ -5,9 +5,9 @@
 Phases:
   (a) print the card's name and power limit; build the CUDA kernels from
       mujoco_warp_tpu_torch/csrc (one nvcc per source, in parallel); hold
-      B2's two entries, B3, B4, B3e and B4-elliptic (one warp per world)
-      to no spill stores and at most MAX_STACK_B3 bytes of stack in
-      ptxas's report;
+      B1 and its four entries (B9-B12), B2's two entries, B3, B4, B3e,
+      B4-elliptic, B5 and B6 (one warp per world) to no spill stores and
+      at most MAX_STACK_B3 bytes of stack in ptxas's report;
   (b) load the humanoid from its committed .npz and make 8192 worlds with
       seeded qpos noise, nconmax=24;
   (c) step 100 times, then hold each kernel (B1 smooth, B2 contact, B3
@@ -207,7 +207,7 @@ ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 P7_STEPS = 25
 P8_STEPS = 4
 P9_PREP, P9_STEPS = 2, 3
-# B2, B3, B4, B3e and B4-elliptic run one warp per world: their ptxas
+# the kernels that run one warp per world (WARP_KERNELS): their ptxas
 # report may show at most this much stack and no spill stores
 MAX_STACK_B3 = 1024
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
@@ -572,26 +572,30 @@ def _flops_newton(nv, nact, it, nu=0) -> float:
                 4 * nact * nv + it * per_iter).sum())
 
 
-# the kernels that run one warp per world: (source, kernel, C entry)
+# the kernels that run one warp per world: (source, kernel, C entry); a
+# template instantiation is named with its argument
 WARP_KERNELS = (('glue', 'glue_kernel', ''), ('newton', 'newton_kernel', ''),
                 ('glue', 'glue_ell_kernel', 'ell_'),
                 ('newton', 'newton_ell_kernel', 'ell_'),
                 ('contact', 'contact_kernel', ''),
-                ('contact', 'contact_ell_kernel', 'ell_'))
+                ('contact', 'contact_ell_kernel', 'ell_'),
+                ('smooth', 'smooth_stages<63>', ''),
+                ('smooth', 'smooth_stages<2>', 'kin_'),
+                ('smooth', 'smooth_stages<8>', 'com_'),
+                ('smooth', 'smooth_stages<16>', 'crb_'),
+                ('smooth', 'smooth_stages<26>', 'front_'),
+                ('batch_linalg', 'spd_solve_kernel', 'spd_solve_'),
+                ('batch_linalg', 'cho_solve_kernel', 'cho_solve_'))
 
 
 def _check_warp_kernels_ptxas():
-  """B2, B3, B4, B3e and B4-elliptic run one warp per world with their
-  state in shared memory: ptxas must report no spill stores and at most
+  """The kernels of WARP_KERNELS run one warp per world with their state
+  in shared memory: ptxas must report no spill stores and at most
   MAX_STACK_B3 bytes of stack for them."""
   from mujoco_warp_tpu_torch.kernels import _build
   for source, kernel, _ in WARP_KERNELS:
-    info = {k: v for k, v in _build.ptxas_info(source).items()
-            if k.startswith(f'_Z{len(kernel)}{kernel}')}
-    if len(info) != 1:
-      raise RuntimeError(f'{kernel}: no single ptxas report ({info})')
-    (mangled, rep), = info.items()
-    print(f'  ptxas {kernel} ({mangled}): {rep.get("registers")} registers, '
+    rep = _build.kernel_report(source, kernel)
+    print(f'  ptxas {kernel}: {rep.get("registers")} registers, '
           f'{rep.get("stack")} B stack, {rep.get("spill_stores")} B spill '
           f'stores, {rep.get("spill_loads")} B spill loads, '
           f'{rep.get("smem")} B static shared memory')
@@ -601,17 +605,20 @@ def _check_warp_kernels_ptxas():
 
 
 def _print_warp_shapes(label, kernels):
-  """The launch shape of the last launch of each warp kernel named in
-  `kernels`, keyed by its source and C entry."""
+  """The launch shape of the last launch (at NWORLD worlds) of each warp
+  kernel named in `kernels`, keyed by its source and C entry."""
   from mujoco_warp_tpu_torch.kernels import _build
   for source, kernel, entry in WARP_KERNELS:
     if kernel not in kernels:
       continue
     grid, block, smem, per_sm = _build.shapes[(source, entry)]
+    worlds = -(-NWORLD // grid)
     print(f'  {kernel} ({source}, entry {entry!r}) launch, {label}: grid '
-          f'{grid}, block {block} threads ({block // 32} worlds), {smem} B '
-          f'dynamic shared memory ({smem // (block // 32)} B a world); '
-          f'{per_sm} blocks ({per_sm * block // 32} worlds) resident per SM')
+          f'{grid}, block {block} threads ({worlds} worlds, '
+          f'{block // worlds} lanes a world), {smem} B dynamic shared '
+          f'memory ({smem // worlds} B a world); {per_sm} blocks '
+          f'({per_sm * worlds} worlds, {per_sm * block // 32} warps) '
+          f'resident per SM')
 
 
 def _check_repeat(label, fn):
@@ -977,6 +984,17 @@ def _humanoid_paths(card, m, d, errs) -> list:
           lambda: batch_linalg.cho_solve_batched(L, grad),
           W * 4 * (nv * (nv + 1) // 2 + 2 * nv), W * 2 * nv * nv,
           library=lambda: torch.cholesky_solve(grad[..., None], L))
+  # B5 at n 27 as the CG step calls it (qM's factor written); its time
+  # printed beside its bound, the record being B5's at n 81 (phase h)
+  from mujoco_warp_tpu_torch.utils.compare_trees import device_ms
+  qM5 = pre.qM
+  ms5 = device_ms(lambda: kb.spd_solve(qM5, grad, return_factor=True))
+  plain5 = _cuda_ms(lambda: batch_linalg.spd_solve_batched(
+      qM5, grad, return_factor=True), 3)
+  bound5 = W * 4 * (nv * (nv + 1) // 2 + 2 * nv + nv * nv) / PEAK_BYTES * 1e3
+  print(f'  spd_solve at n {nv} (the CG step\'s factor of qM): {ms5:.4f} ms '
+        f'on the card (plain {plain5:.3f} ms), bound {bound5:.4f} ms by '
+        f'bytes ({card})')
   return records
 
 
@@ -1026,6 +1044,8 @@ def _three_humanoids(card) -> list:
   sm_out = ks.smooth(m, d.qpos, d.qvel)
   sm_ref = smooth.smooth(m, d.qpos, d.qvel)
   errs['smooth'] = _compare('B1', sm_out, sm_ref, TOL_B1, smooth.OUTPUTS)
+  _check_repeat('B1', lambda: ks.smooth(m, d.qpos, d.qvel))
+  _print_warp_shapes('three_humanoids', ('smooth_stages<63>',))
   c_in = (sm_out['qpos'], d.qvel, sm_out['geom_xpos'], sm_out['geom_xmat'],
           sm_out['subtree_com'], sm_out['cdof'])
   c_out = kc.contact(m, *c_in, NCONMAX3)
@@ -1086,6 +1106,8 @@ def _three_humanoids(card) -> list:
   xr = batch_linalg.spd_solve_batched(H, grad)
   x64 = batch_linalg.spd_solve_batched(H.double(), grad.double())
   errs['spd_solve'] = _check_solve('B5', H, grad, x, xr, x64)
+  _check_repeat('B5', lambda: dict(x=kb.spd_solve(H, grad)))
+  _print_warp_shapes('three_humanoids', ('spd_solve_kernel',))
 
   # ---- (g) the main path, counted and timed ----
   _reset_counts()
@@ -1189,12 +1211,14 @@ def _three_humanoids(card) -> list:
          bytes_b7, flops_b7)
   euler_ms = _cuda_ms(lambda: kb.tree_ldl(qM, qfs, parent, diag=diag), 20)
   print(f'  tree_ldl as euler calls it (diag, no factor): {euler_ms:.4f} ms')
+  # B5 reads the Hessian's upper triangle (column j of the factor starts
+  # from row j), b, and writes x
   n = m.nv
   record('spd_solve', 'mujoco_warp_tpu_torch/csrc/batch_linalg.cu',
          'mujoco_warp_tpu/pallas/batch_linalg.py:103',
          lambda: kb.spd_solve(H, grad),
          lambda: batch_linalg.spd_solve_batched(H, grad),
-         _nbytes((H, grad, x)), W * (n ** 3 / 3 + 2 * n * n),
+         W * 4 * (n * (n + 1) // 2 + 2 * n), W * (n ** 3 / 3 + 2 * n * n),
          library=lambda: torch.linalg.solve(H, grad))
   _print_profile('profile_three_humanoids',
                  lambda: bench.rollout(m, d, PROFILE3), PROFILE3,
@@ -1569,6 +1593,9 @@ def _smooth_entries(tag, m, d) -> list:
   _expect_counts(f'B9-B12{tag}', dict(_zero_counts(), front=1, kinematics=1,
                                       com_pos=1, crb=1))
   launches = _read_counts()
+  _print_warp_shapes(f'B9-B12{tag}', ('smooth_stages<2>', 'smooth_stages<8>',
+                                      'smooth_stages<16>',
+                                      'smooth_stages<26>'))
   named = lambda names, x: dict(zip(names, x))
   outs = dict(B9=front, B10=named(ks.KINEMATICS, kin),
               B11=named(ks.COM_POS, com), B12=named(ks.CRB, crb))
@@ -1663,6 +1690,8 @@ def main() -> int:
   sm_out = ks.smooth(m, d.qpos, d.qvel)
   sm_ref = smooth.smooth(m, d.qpos, d.qvel)
   errs['smooth'] = _compare('B1', sm_out, sm_ref, TOL_B1, smooth.OUTPUTS)
+  _check_repeat('B1', lambda: ks.smooth(m, d.qpos, d.qvel))
+  _print_warp_shapes('humanoid', ('smooth_stages<63>',))
 
   c_in = (sm_out['qpos'], d.qvel, sm_out['geom_xpos'], sm_out['geom_xmat'],
           sm_out['subtree_com'], sm_out['cdof'])
@@ -1762,6 +1791,10 @@ def main() -> int:
       'B6', L64 @ L64.transpose(1, 2), grad, x6,
       batch_linalg.cho_solve_batched(L, grad),
       batch_linalg.cho_solve_batched(L64, grad.double()), x5)
+  _check_repeat('B5 and B6', lambda: dict(
+      zip(('x5', 'L'), kb.spd_solve(qM, grad, return_factor=True)),
+      x6=kb.cho_solve(L, grad)))
+  _print_warp_shapes('humanoid', ('spd_solve_kernel', 'cho_solve_kernel'))
 
   # ---- (d) the main path, counted and timed ----
   _reset_counts()

@@ -1,5 +1,6 @@
 // Kernels B7, B8, B5 and B6: the batched linear solves of the unfused
-// step, one block per world. B7 and B5 factor and solve; B8 and B6 solve
+// step; B7 and B8 one block per world, B5 and B6 one warp per world. B7
+// and B5 factor and solve; B8 and B6 solve
 // from the factor B7 or B5 wrote, with the same device code for the
 // sweeps (tree_sweeps, chol_sweeps), so a solve from a factor repeats the
 // factoring kernel's own solve operation for operation.
@@ -31,46 +32,62 @@
 //   through B7's tables and runs B7's three sweeps.
 //
 // B5 spd_solve: the dense Cholesky factor of an SPD matrix (n <= 96) and
-// the solve.
+// the solve, one warp per world, SPD_WARPS worlds a block.
 //   Replaces: mujoco_warp_tpu/pallas/batch_linalg.py, spd_solve_batched
 //   (:103; body _cholesky_solve_body :62). Plain version:
 //   mujoco_warp_tpu_torch/batch_linalg.py, spd_solve_batched().
-//   The matrix sits in shared memory (row stride n | 1, so a column read
-//   by consecutive threads hits distinct banks). Column j of the factor
-//   starts from row j of the input, as the TPU kernel reads it; the
-//   factor is right-looking, which subtracts the same products in the
-//   same order as the TPU kernel's column loop. Then the forward and
-//   backward substitutions by columns, one barrier per column.
+//   A world's factor sits in shared memory by columns, packed: column k
+//   holds rows k .. n - 1, at a word offset that is a multiple of 4
+//   (spd_col_next), so that 8 consecutive rows of a column are two
+//   aligned float4 and a column read by consecutive lanes hits distinct
+//   banks: 3,452 words (13.8 KB) a world at n 81, 16 worlds a SM; 1,712
+//   B at n 27. Column j of the factor starts from row j of the input (its
+//   upper triangle, the TPU kernel's read; cp.async copies it in, 4 bytes
+//   a lane). The factor is left-looking, SPD_COLS = 8 columns at a time
+//   (warp_cholesky): lane l holds rows j0 + l, j0 + l + 32, j0 + l + 64 of
+//   the block's columns j0 .. j0 + 7 in registers and subtracts L[i, k]
+//   L[j0 + t, k] for k = 0 .. j0 - 1 (a float4 pair broadcasts L[j0 ..
+//   j0 + 7, k]), then the products within the block, L[j0 + t, k] from
+//   lane t by a shuffle, and each column's pivot rsqrt(max(s, kMinVal)),
+//   lane t's s by a shuffle. Every entry loses the same products in the
+//   same order (k ascending) as in the TPU kernel's right-looking factor;
+//   a __syncwarp after each block of columns. Then the forward and
+//   backward substitutions by columns in the warp (chol_sweeps): the
+//   solution's entries in registers, entry k's value broadcast by a
+//   shuffle at step k.
 //
 // B6 cho_solve: x from the lower Cholesky factor L that B5 wrote
-// (n <= 96).
+// (n <= 96), one warp per world, SPD_WARPS worlds a block.
 //   Replaces: mujoco_warp_tpu/pallas/batch_linalg.py, cho_solve_batched
 //   (:177; body _solve_from_factor_body :153). Plain version:
-//   mujoco_warp_tpu_torch/batch_linalg.py, cho_solve_batched(). L sits in
-//   shared memory (2.9 KB at n 27, 36 KB at the cap) and B5's two sweeps
-//   run on it: y[j] loses L[j, k] y[k] for k = 0 .. j - 1 in that order,
-//   which is the order of the TPU kernel's row-oriented forward sweep,
-//   and the backward sweep is its saxpy with row k of L.
+//   mujoco_warp_tpu_torch/batch_linalg.py, cho_solve_batched(). L's lower
+//   triangle is copied into B5's layout and B5's chol_sweeps run on it:
+//   y[j] loses L[j, k] y[k] for k = 0 .. j - 1 in that order, which is
+//   the order of the TPU kernel's row-oriented forward sweep, and the
+//   backward sweep is its saxpy with row k of L; so B6's x is B5's for
+//   the same b, bit for bit.
 //
-// What bounds them on the H100: bytes. Per world B7 reads qM (26 KB at
+// What bounds them on the H100: bytes for B7, B8 and B6; for B5, its
+// chains and the shared memory's rate. Per world B7 reads qM (26 KB at
 // nv 81) and writes x and, with the factor, LD (26 KB); B5 reads the
-// Hessian (26 KB) and writes x; B8 gathers the 729 packed entries of LD
-// (by 32-byte sectors that is most of the matrix) and B6 reads L (2.9 KB
-// at n 27), and both write x alone. The arithmetic is small: B7 about
-// 2,200 flops a world, B5 about n^3/3 = 177k, B8 and B6 about 2 flops per
-// factor entry. What this first cut does about it: the reads of a world's
-// matrix are row-contiguous and the writes of LD coalesced, but the
-// factorizations and sweeps are latency-bound chains of barriers (B7 one
-// per dof, B5 four per column, the sweeps one per row or column) with
-// few threads busy; several worlds per block, or a warp per world, is
-// later work.
+// Hessian's upper triangle (13 KB) and writes x; B8 gathers the 729
+// packed entries of LD (by 32-byte sectors that is most of the matrix)
+// and B6 reads L (2.9 KB at n 27), and both write x alone. B7 does about
+// 2,200 flops a world, B8 and B6 about 2 per factor entry; B5 n^3/3 =
+// 177k at n 81, each multiply-add with a 4-byte shared-memory read of
+// its lane's row, and per k and block of columns a broadcast of 8
+// values: where a block's rows fit one pass of the warp (the last 32
+// rows), that is about a shared-memory wavefront per multiply-add. The
+// substitutions are 2n dependent steps (a shuffle and a division each).
+// B7 and B8 run one block per world with chains of barriers (B7 one per
+// dof, the sweeps one per row); a warp per world is later work.
 
 #include "common.cuh"
 
 #define SPD_MAXN 96
 #define TREE_LDL_THREADS 32
-#define SPD_THREADS 128
-#define CHO_SOLVE_THREADS 32
+#define SPD_WARPS 4      // worlds a block of B5 and B6
+#define SPD_COLS 8       // columns B5 factors together
 
 struct TreeLdlParams {
   const float* a;            // (nworld, nv, nv)
@@ -149,26 +166,148 @@ DEV void tree_sweeps(const T& p, const float* P, float* x, int tid, int nt) {
   __syncthreads();
 }
 
-// The solve from a lower Cholesky factor A (A[i * ld + j] = L[i, j],
-// j <= i) with right-hand side y, both in shared memory; x to xout (n,
-// global). Forward and backward substitution by columns, one barrier per
-// column.
-DEV void chol_sweeps(const float* A, int ld, float* y, int n, float* xout,
-                     int tid, int nt) {
-  // L y = b by columns: column k subtracts y[k] / L[k, k] below k
+// B5's and B6's layout of a factor in shared memory: column k holds rows
+// k .. n - 1 at words cb(k) + k .. cb(k) + n - 1 with cb(0) = 0 and
+// cb(k + 1) = spd_col_next(cb(k), k, n), the least multiple of 4 past
+// column k's last row; 8 words of padding follow column n - 1, which
+// B5's broadcast of the rows j0 .. j0 + 7 of a column may read past n.
+__host__ __device__ inline int spd_col_next(int cb, int k, int n) {
+  return (cb + n - k - 1 + 3) & ~3;
+}
+
+// words of a world's factor (a multiple of 4, so each world's starts
+// 16-byte aligned)
+__host__ __device__ inline int spd_words(int n) {
+  int cb = 0;
+  for (int k = 0; k + 1 < n; ++k) cb = spd_col_next(cb, k, n);
+  return (cb + n + 8 + 3) & ~3;
+}
+
+// dynamic shared bytes a world of B5 or B6; past SPD_MAXN more than a
+// block may have, which refuses the launch
+inline int spd_world_bytes(int n) {
+  return n > SPD_MAXN ? (1 << 30) : spd_words(n) * (int)sizeof(float);
+}
+
+// cb(i) of the columns i = lane, lane + 32, lane + 64 (0 past n)
+DEV void spd_lane_columns(int n, int lane, int (&cbi)[3]) {
+  cbi[0] = cbi[1] = cbi[2] = 0;
+  int cb = 0;
   for (int k = 0; k < n; ++k) {
-    const float yk = y[k] / A[k * ld + k];
-    for (int i = k + 1 + tid; i < n; i += nt) y[i] -= A[i * ld + k] * yk;
-    __syncthreads();
-    if (tid == 0) y[k] = yk;  // read again only by the backward pass
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      if (k == lane + 32 * q) cbi[q] = cb;
+    cb = spd_col_next(cb, k, n);
   }
-  __syncthreads();
-  // L^T x = y by columns: x[k] = y[k] / L[k, k] leaves row k's rest
+}
+
+// The lower Cholesky factor, in place, of the matrix whose upper triangle
+// S holds by columns (S[cb(k) + i] = a[k, i] for i >= k): column j of
+// the factor starts from row j of a, its pivot is rsqrt(max(s_jj,
+// kMinVal)) and every entry loses L[i, k] L[j, k] for k = 0 .. j - 1 in
+// that order. Columns j0 .. j0 + SPD_COLS - 1 at a time; lane l owns
+// rows i = j0 + l + 32 q of them.
+DEV void warp_cholesky(float* S, int n, int lane) {
+  int cb0 = 0;                         // cb(j0)
+  for (int j0 = 0; j0 < n; j0 += SPD_COLS) {
+    const int nc = min(SPD_COLS, n - j0), np = (n - j0 + 31) >> 5;
+    int cbt[SPD_COLS + 1];
+    cbt[0] = cb0;
+#pragma unroll
+    for (int t = 0; t < SPD_COLS; ++t)
+      cbt[t + 1] = spd_col_next(cbt[t], j0 + t, n);
+    float acc[3][SPD_COLS];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int i = j0 + lane + 32 * q;
+#pragma unroll
+      for (int t = 0; t < SPD_COLS; ++t)
+        acc[q][t] = t < nc && i >= j0 + t && i < n
+                        ? S[cbt[t] + i] : 0.0f;
+    }
+    // the columns left of the block, k = 0 .. j0 - 1 in order
+    int cbk = 0;
+#pragma unroll 2
+    for (int k = 0; k < j0; ++k) {
+      const float4 c0 = *reinterpret_cast<const float4*>(S + cbk + j0);
+      const float4 c1 = *reinterpret_cast<const float4*>(S + cbk + j0 + 4);
+      const float c[SPD_COLS] = {c0.x, c0.y, c0.z, c0.w,
+                                 c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        if (q < np) {
+          const int i = j0 + lane + 32 * q;
+          const float l = i < n ? S[cbk + i] : 0.0f;
+#pragma unroll
+          for (int t = 0; t < SPD_COLS; ++t) acc[q][t] -= l * c[t];
+        }
+      }
+      cbk = spd_col_next(cbk, k, n);
+    }
+    // the block's own columns: L[j0 + t, j0 + u] from lane t
+    float lv[3][SPD_COLS];
+#pragma unroll
+    for (int t = 0; t < SPD_COLS; ++t) {
+      if (t < nc) {
+#pragma unroll
+        for (int u = 0; u < t; ++u) {
+          const float cu = __shfl_sync(FULL_MASK, lv[0][u], t);
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            acc[q][t] -= lv[q][u] * cu;
+        }
+        const float s = __shfl_sync(FULL_MASK, acc[0][t], t);
+        const float inv = rsqrtf(fmaxf(s, kMinVal));
+#pragma unroll
+        for (int q = 0; q < 3; ++q) lv[q][t] = acc[q][t] * inv;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int i = j0 + lane + 32 * q;
+#pragma unroll
+      for (int t = 0; t < SPD_COLS; ++t)
+        if (t < nc && i >= j0 + t && i < n)
+          S[cbt[t] + i] = lv[q][t];
+    }
+    __syncwarp();
+    cb0 = cbt[SPD_COLS];
+  }
+}
+
+// The solve from a lower factor in B5's layout S, in the warp: y holds
+// the right-hand side's entries i = lane + 32 q and leaves with x's;
+// cbi from spd_lane_columns. L y = b by columns: step k divides y[k] by
+// L[k, k] and subtracts L[i, k] y[k] from the rows below; then L^T x = y
+// by columns from the last: x[k] = y[k] / L[k, k] leaves L[k, i] x[k]
+// in the rows above. Entry k reaches every lane by a shuffle.
+DEV void chol_sweeps(const float* S, int n, const int (&cbi)[3],
+                     float (&y)[3], int lane) {
+  int cbk = 0;
+  for (int k = 0; k < n; ++k) {
+    const int qk = k >> 5;
+    const float v = qk == 0 ? y[0] : (qk == 1 ? y[1] : y[2]);
+    const float yk = __shfl_sync(FULL_MASK, v, k & 31) / S[cbk + k];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int i = lane + 32 * q;
+      if (i > k && i < n) y[q] -= S[cbk + i] * yk;
+      if (i == k) y[q] = yk;
+    }
+    cbk = spd_col_next(cbk, k, n);
+  }
   for (int k = n - 1; k >= 0; --k) {
-    const float xk = y[k] / A[k * ld + k];
-    for (int i = tid; i < k; i += nt) y[i] -= A[k * ld + i] * xk;
-    __syncthreads();
-    if (tid == 0) xout[k] = xk;
+    const int qk = k >> 5;
+    const float v = qk == 0 ? y[0] : (qk == 1 ? y[1] : y[2]);
+    const int c = qk == 0 ? cbi[0] : (qk == 1 ? cbi[1] : cbi[2]);
+    const float xk = __shfl_sync(FULL_MASK, v, k & 31) /
+                     S[__shfl_sync(FULL_MASK, c, k & 31) + k];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int i = lane + 32 * q;
+      if (i < k) y[q] -= S[cbi[q] + k] * xk;
+      if (i == k) y[q] = xk;
+    }
   }
 }
 
@@ -234,64 +373,82 @@ __global__ void tree_solve_kernel(const TreeSolveParams p) {
   for (int k = tid; k < nv; k += nt) p.x[w * nv + k] = x[k];
 }
 
-__global__ void spd_solve_kernel(const SpdParams p) {
+__global__ void __launch_bounds__(32 * SPD_WARPS, 4)
+    spd_solve_kernel(const SpdParams p) {
   extern __shared__ float smem[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int n = p.n, ld = n | 1;
-  const size_t w = blockIdx.x;
-  float* A = smem;           // A[i * ld + j], column j of the factor
-  float* y = smem + n * ld;  // forward substitution
+  const int lane = threadIdx.x & 31, n = p.n;
+  const size_t w = (size_t)blockIdx.x * SPD_WARPS + (threadIdx.x >> 5);
+  if (w >= (size_t)p.nworld) return;
+  float* S = smem + (threadIdx.x >> 5) * spd_words(n);
+  // row k of a from column k on becomes column k of S
   const float* a = p.a + w * n * n;
-  // row j of a becomes column j: A[c][r] = a[r][c]
-  for (int e = tid; e < n * n; e += nt) {
-    const int r = e / n, c = e - r * n;
-    A[c * ld + r] = a[e];
+  int cb = 0;
+  for (int k = 0; k < n; ++k) {
+    for (int i = k + lane; i < n; i += 32) copy4_async(S + cb + i,
+                                                       a + k * n + i);
+    cb = spd_col_next(cb, k, n);
   }
-  for (int i = tid; i < n; i += nt) y[i] = p.b[w * n + i];
-  const int nx = nt < 32 ? nt : 32, ny = nt / nx;
-  const int tx = tid % nx, ty = tid / nx;
-
-  for (int j = 0; j < n; ++j) {
-    __syncthreads();         // the trailing update of column j - 1 is done
-    const float sjj = A[j * ld + j];
-    const float inv = rsqrtf(fmaxf(sjj, kMinVal));
-    for (int i = j + 1 + tid; i < n; i += nt) A[i * ld + j] *= inv;
-    __syncthreads();
-    if (tid == 0) A[j * ld + j] = sjj * inv;
-    // trailing update of the lower triangle (reads column j below j only)
-    for (int r = j + 1 + ty; r < n; r += ny) {
-      const float lr = A[r * ld + j];
-      for (int c = j + 1 + tx; c <= r; c += nx)
-        A[r * ld + c] -= lr * A[c * ld + j];
-    }
+  float y[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int i = lane + 32 * q;
+    y[q] = i < n ? p.b[w * n + i] : 0.0f;
   }
-  __syncthreads();
-
-  chol_sweeps(A, ld, y, n, p.x + w * n, tid, nt);
+  copy_async_wait();
+  __syncwarp();
+  warp_cholesky(S, n, lane);
+  int cbi[3];
+  spd_lane_columns(n, lane, cbi);
+  chol_sweeps(S, n, cbi, y, lane);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int i = lane + 32 * q;
+    if (i < n) p.x[w * n + i] = y[q];
+  }
   if (p.l) {
     float* l = p.l + w * n * n;
-    for (int e = tid; e < n * n; e += nt) {
-      const int r = e / n, c = e - r * n;
-      l[e] = c <= r ? A[r * ld + c] : 0.0f;
+    for (int r = 0; r < n; ++r) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int c = lane + 32 * q;
+        if (c < n) l[r * n + c] = c <= r ? S[cbi[q] + r] : 0.0f;
+      }
     }
   }
 }
 
-__global__ void cho_solve_kernel(const ChoSolveParams p) {
+__global__ void __launch_bounds__(32 * SPD_WARPS, 4)
+    cho_solve_kernel(const ChoSolveParams p) {
   extern __shared__ float smem[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int n = p.n, ld = n | 1;
-  const size_t w = blockIdx.x;
-  float* A = smem;           // A[i * ld + j] = L[i, j]
-  float* y = smem + n * ld;
+  const int lane = threadIdx.x & 31, n = p.n;
+  const size_t w = (size_t)blockIdx.x * SPD_WARPS + (threadIdx.x >> 5);
+  if (w >= (size_t)p.nworld) return;
+  float* S = smem + (threadIdx.x >> 5) * spd_words(n);
+  int cbi[3];
+  spd_lane_columns(n, lane, cbi);
+  // L's lower triangle into B5's layout, row r of L by the lanes
   const float* l = p.l + w * n * n;
-  for (int e = tid; e < n * n; e += nt) {
-    const int r = e / n, c = e - r * n;
-    A[r * ld + c] = l[e];
+  for (int r = 0; r < n; ++r) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int c = lane + 32 * q;
+      if (c <= r) copy4_async(S + cbi[q] + r, l + r * n + c);
+    }
   }
-  for (int i = tid; i < n; i += nt) y[i] = p.b[w * n + i];
-  __syncthreads();
-  chol_sweeps(A, ld, y, n, p.x + w * n, tid, nt);
+  float y[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int i = lane + 32 * q;
+    y[q] = i < n ? p.b[w * n + i] : 0.0f;
+  }
+  copy_async_wait();
+  __syncwarp();
+  chol_sweeps(S, n, cbi, y, lane);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int i = lane + 32 * q;
+    if (i < n) p.x[w * n + i] = y[q];
+  }
 }
 
 PORT_C_ERROR_STRING
@@ -303,16 +460,6 @@ extern "C" int tree_ldl_launch(const TreeLdlParams* p, void* stream) {
   const size_t smem = (size_t)(p->nnz + p->nv) * sizeof(float);
   PORT_LAUNCH(tree_ldl_kernel, p->nworld, TREE_LDL_THREADS, smem, stream,
               *p);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int spd_solve_params_size() { return (int)sizeof(SpdParams); }
-
-extern "C" int spd_solve_launch(const SpdParams* p, void* stream) {
-  if (p->nworld <= 0) return (int)cudaSuccess;
-  if (p->n > SPD_MAXN) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(p->n * (p->n | 1) + p->n) * sizeof(float);
-  PORT_LAUNCH(spd_solve_kernel, p->nworld, SPD_THREADS, smem, stream, *p);
   return (int)cudaGetLastError();
 }
 
@@ -328,13 +475,7 @@ extern "C" int tree_solve_launch(const TreeSolveParams* p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int cho_solve_params_size() { return (int)sizeof(ChoSolveParams); }
-
-extern "C" int cho_solve_launch(const ChoSolveParams* p, void* stream) {
-  if (p->nworld <= 0) return (int)cudaSuccess;
-  if (p->n > SPD_MAXN) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(p->n * (p->n | 1) + p->n) * sizeof(float);
-  PORT_LAUNCH(cho_solve_kernel, p->nworld, CHO_SOLVE_THREADS, smem, stream,
-              *p);
-  return (int)cudaGetLastError();
-}
+PORT_C_WARP_ENTRY(spd_solve_, SpdParams, spd_solve_kernel, SPD_WARPS,
+                  spd_world_bytes(p->n))
+PORT_C_WARP_ENTRY(cho_solve_, ChoSolveParams, cho_solve_kernel, SPD_WARPS,
+                  spd_world_bytes(p->n))

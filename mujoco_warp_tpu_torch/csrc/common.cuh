@@ -8,10 +8,10 @@
 // params_size() the size of its Params struct, and error_string(int) the
 // message of an error code. A source with several kernels prefixes each
 // kernel's launch and params_size with its name (PORT_C_ENTRY,
-// PORT_C_WARP_ENTRY). B1 and B9-B12 run one thread per world; B2, B3,
-// B4, B3e and B4-elliptic one warp per world (PORT_C_WARP_INTERFACE and
-// PORT_C_WARP_ENTRY, which also give launch_shape); B5-B8
-// (batch_linalg.cu) one block per world.
+// PORT_C_WARP_ENTRY). B2-B6 run one warp per world
+// (PORT_C_WARP_INTERFACE and PORT_C_WARP_ENTRY, which also give
+// launch_shape), B1 and B9-B12 one group of 8, 16 or 32 lanes per world
+// (PORT_C_GROUP_ENTRY); B7 and B8 (batch_linalg.cu) one block per world.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,22 +53,26 @@
     return (int)cudaGetLastError();                                      \
   }
 
-// A kernel that runs one world per warp, `warps` worlds per block, with
-// `per_world` bytes of dynamic shared memory per world (an expression in
-// p): <prefix>launch, <prefix>params_size, and <prefix>launch_shape(p,
-// s), which writes the launch's grid, block and shared bytes to s[0..2]
-// and the blocks resident per SM to s[3]. The launch asks for the largest
-// shared memory carveout, which the occupancy assumes; it sets the
-// kernel's shared-memory attributes only when a launch needs more bytes
-// than the last setting allowed, not on every launch.
-#define PORT_C_WARP_ENTRY(prefix, Params, kernel, warps, per_world)       \
+// A kernel that runs one world per group of `lanes` lanes (a power of two
+// up to 32: a whole warp, or a part of one), `worlds` worlds per block,
+// with `per_world` bytes of dynamic shared memory per world (`lanes` and
+// `per_world` are expressions in p): <prefix>launch, <prefix>params_size,
+// and <prefix>launch_shape(p, s), which writes the launch's grid, block
+// and shared bytes to s[0..2] and the blocks resident per SM to s[3].
+// The launch asks for the largest shared memory carveout, which the
+// occupancy assumes; it sets the kernel's shared-memory attributes only
+// when a launch needs more bytes than the last setting allowed, not on
+// every launch. `kernel` may be a template instantiation (its helpers are
+// named by the prefix).
+#define PORT_C_GROUP_ENTRY(prefix, Params, kernel, worlds, lanes,         \
+                           per_world)                                     \
   extern "C" int prefix##params_size() { return (int)sizeof(Params); }   \
-  static void kernel##_shape(const Params* p, int* s) {                  \
-    s[0] = (p->nworld + (warps) - 1) / (warps);                          \
-    s[1] = 32 * (warps);                                                 \
-    s[2] = (warps) * (int)(per_world);                                   \
+  static void prefix##warp_shape(const Params* p, int* s) {              \
+    s[0] = (p->nworld + (worlds) - 1) / (worlds);                        \
+    s[1] = (worlds) * (int)(lanes);                                      \
+    s[2] = (worlds) * (int)(per_world);                                  \
   }                                                                      \
-  static cudaError_t kernel##_setup(int bytes) {                         \
+  static cudaError_t prefix##warp_setup(int bytes) {                     \
     static int allowed = -1;                                             \
     if (bytes <= allowed) return cudaSuccess;                            \
     cudaError_t err = cudaFuncSetAttribute(                              \
@@ -81,8 +85,8 @@
     return err;                                                          \
   }                                                                      \
   extern "C" int prefix##launch_shape(const Params* p, int* s) {         \
-    kernel##_shape(p, s);                                                \
-    cudaError_t err = kernel##_setup(s[2]);                              \
+    prefix##warp_shape(p, s);                                            \
+    cudaError_t err = prefix##warp_setup(s[2]);                          \
     if (err == cudaSuccess)                                              \
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(               \
           &s[3], kernel, s[1], (size_t)s[2]);                            \
@@ -91,12 +95,16 @@
   extern "C" int prefix##launch(const Params* p, void* stream) {         \
     if (p->nworld <= 0) return (int)cudaSuccess;                         \
     int s[3];                                                            \
-    kernel##_shape(p, s);                                                \
-    cudaError_t err = kernel##_setup(s[2]);                              \
+    prefix##warp_shape(p, s);                                            \
+    cudaError_t err = prefix##warp_setup(s[2]);                          \
     if (err != cudaSuccess) return (int)err;                             \
     PORT_LAUNCH(kernel, s[0], s[1], (size_t)s[2], stream, *p);           \
     return (int)cudaGetLastError();                                      \
   }
+
+// A kernel that runs one world per warp, `warps` worlds per block.
+#define PORT_C_WARP_ENTRY(prefix, Params, kernel, warps, per_world)       \
+  PORT_C_GROUP_ENTRY(prefix, Params, kernel, warps, 32, per_world)
 
 // the warp kernel of a source with one kernel, or its first: the entry
 // without a prefix, and error_string
@@ -105,6 +113,25 @@
   PORT_C_WARP_ENTRY(, Params, kernel, warps, per_world)
 
 #define FULL_MASK 0xffffffffu
+
+// a 4-byte copy from global to shared memory that does not wait for the
+// load (cp.async), so that a warp has all of a world's loads in flight at
+// once; copy_async_wait waits for the thread's copies
+DEV void copy4_async(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+DEV void copy_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
 
 constexpr float kMinVal = 1e-15f;
 

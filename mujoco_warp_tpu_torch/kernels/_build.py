@@ -119,6 +119,18 @@ def ptxas_info(name: str) -> dict:
   return out
 
 
+def kernel_report(name: str, kernel: str) -> dict:
+  """ptxas_info's report of one kernel of csrc/<name>.cu, by its name or,
+  for a template instantiation, its name with the argument
+  (`smooth_stages<63>`); raises unless exactly one kernel matches."""
+  base, _, arg = kernel.partition('<')
+  prefix = f'_Z{len(base)}{base}' + (f'ILi{arg[:-1]}EE' if arg else '')
+  found = [v for k, v in ptxas_info(name).items() if k.startswith(prefix)]
+  if len(found) != 1:
+    raise RuntimeError(f'{kernel}: {len(found)} ptxas reports in {name}')
+  return found[0]
+
+
 def library(name: str) -> ctypes.CDLL:
   """The loaded library of csrc/<name>.cu, built first if missing."""
   lib = _loaded.get(name)
@@ -189,6 +201,30 @@ def _scalars(params) -> tuple:
   return tuple(out)
 
 
+def _shape(lib, name: str, entry: str, shape_fn, params) -> tuple:
+  """(grid, block, shared bytes, blocks resident per SM) of a launch with
+  these parameters, queried once per set of scalar parameters."""
+  key = (lib, entry, _scalars(params))
+  shape = _shapes_seen.get(key)
+  if shape is None:
+    buf = (ctypes.c_int * 4)()
+    if shape_fn(ctypes.byref(params), buf):
+      raise RuntimeError(f'{name}: launch_shape failed')
+    shape = _shapes_seen[key] = tuple(buf)
+  return shape
+
+
+def launch_shape(name: str, params_type, values: dict,
+                 entry: str = '') -> tuple:
+  """The launch shape of a kernel with `<entry>launch_shape` on these
+  values (as `launch` fills them), without launching it."""
+  lib = library(name)
+  _, shape_fn = _entry(lib, name, entry, params_type)
+  params = params_type()
+  _fill(params, values)
+  return _shape(lib, name, entry, shape_fn, params)
+
+
 def launch(name: str, params_type, values: dict, device,
            entry: str = '') -> None:
   """Fill the parameter struct from `values` (tensors become device
@@ -207,14 +243,7 @@ def launch(name: str, params_type, values: dict, device,
     raise RuntimeError(f'{name} kernel launch failed: '
                        f'{lib.error_string(err).decode()}')
   if shape_fn is not None:
-    key = (lib, entry, _scalars(params))
-    shape = _shapes_seen.get(key)
-    if shape is None:
-      buf = (ctypes.c_int * 4)()
-      if shape_fn(ctypes.byref(params), buf):
-        raise RuntimeError(f'{name}: launch_shape failed')
-      shape = _shapes_seen[key] = tuple(buf)
-    shapes[(name, entry)] = shape
+    shapes[(name, entry)] = _shape(lib, name, entry, shape_fn, params)
 
 
 def model_tables(m, name: str, make):

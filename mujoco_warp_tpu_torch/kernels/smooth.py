@@ -1,6 +1,7 @@
 """Kernel B1: the smooth stage (kinematics, frames, com_pos, crb/qM,
-com_vel, rne) in one CUDA kernel, `csrc/smooth.cu`; and kernels B9-B12,
-entries of the same source that run B1's position stages.
+com_vel, rne) in one CUDA kernel, `csrc/smooth.cu`, one group of 8, 16
+or 32 lanes per world (`lanes`); and kernels B9-B12, entries of the same
+source that run B1's position stages.
 
 Replaces the TPU kernel `smooth_mega_batched`
 (`mujoco_warp_tpu/pallas/smooth_kernels.py:557`). Its plain version is
@@ -33,7 +34,8 @@ from .. import smooth as plain
 from ..types import DisableBit, Model
 from . import _build
 
-MAXBODY = 64     # compile-time cap of csrc/smooth.cu
+MAXBODY = 64     # cap of B1, B9 and B11: a world's state sits in shared
+                 # memory (csrc/smooth.cu, SmoothLayout)
 
 launches = 0     # B1's launches since the count was last reset
 launches_front = launches_kin = launches_com = launches_crb = 0   # B9-B12
@@ -42,13 +44,15 @@ _PTRS = (
     'qpos', 'qvel',
     'body_parentid', 'body_rootid', 'body_jntadr', 'body_jntnum',
     'jnt_type', 'jnt_qposadr', 'jnt_dofadr', 'jnt_bodyid', 'dof_bodyid',
-    'dof_parentid', 'geom_bodyid', 'site_bodyid',
+    'dof_parentid', 'geom_bodyid', 'site_bodyid', 'level_start',
+    'level_body', 'child_start', 'child_body', 'qm_rowstart', 'qm_slot',
     'body_pos', 'body_quat', 'body_ipos', 'body_iquat', 'body_mass',
     'body_subtreemass', 'body_inertia', 'jnt_pos', 'jnt_axis', 'qpos0',
     'dof_armature', 'geom_pos', 'geom_quat', 'site_pos', 'site_quat',
     'gravity') + tuple('qpos_out' if k == 'qpos' else k
                        for k in plain.OUTPUTS)
-_INTS = ('nworld', 'nq', 'nv', 'nbody', 'njnt', 'ngeom', 'nsite')
+_INTS = ('nworld', 'nq', 'nv', 'nbody', 'njnt', 'ngeom', 'nsite', 'nlevel',
+         'nnz', 'lanes')
 Params = _build.struct('SmoothParams', _PTRS, (), _INTS)
 
 _INT_TABLES = ('body_parentid', 'body_rootid', 'body_jntadr', 'body_jntnum',
@@ -60,10 +64,86 @@ _FLOAT_TABLES = ('body_pos', 'body_quat', 'body_ipos', 'body_iquat',
                  'geom_quat', 'site_pos', 'site_quat')
 
 
+QM_NONE = 0xffff   # qm_slot of a dense qM entry outside the packed rows
+
+
+def tree_tables(body_parentid, dof_parentid) -> dict:
+  """The kernel's tree tables (lists): bodies by tree level
+  (`level_body`, level l at [level_start[l], level_start[l + 1]), body 0
+  alone at level 0, ascending index within a level); each body's
+  children in descending index (`child_body` at [child_start[b],
+  child_start[b + 1])); qM's packed rows, row i holding dof i, then its
+  ancestors from the parent up, from `qm_rowstart[i]`; and `qm_slot`,
+  the packed slot of each dense entry (i, j), row-major, or QM_NONE.
+  Bodies and dofs are in topological order (parent < child)."""
+  nb, nv = len(body_parentid), len(dof_parentid)
+  depth = [0] * nb
+  for b in range(1, nb):
+    depth[b] = depth[body_parentid[b]] + 1
+  nlevel = max(depth) + 1
+  level_body = sorted(range(nb), key=lambda b: (depth[b], b))
+  level_start = [0] * (nlevel + 1)
+  for b in range(nb):
+    level_start[depth[b] + 1] += 1
+  for lv in range(nlevel):
+    level_start[lv + 1] += level_start[lv]
+  child_start, child_body = [0], []
+  for b in range(nb):
+    child_body += [c for c in range(nb - 1, 0, -1) if body_parentid[c] == b]
+    child_start.append(len(child_body))
+  qm_rowstart, qm_slot, nnz = [], [QM_NONE] * (nv * nv), 0
+  for i in range(nv):
+    qm_rowstart.append(nnz)
+    j = i
+    while j >= 0:
+      qm_slot[i * nv + j] = qm_slot[j * nv + i] = nnz
+      nnz += 1
+      j = dof_parentid[j]
+  if nnz >= QM_NONE:
+    raise ValueError(f'smooth kernel: {nnz} packed qM entries')
+  return dict(level_start=level_start, level_body=level_body,
+              child_start=child_start, child_body=child_body,
+              qm_rowstart=qm_rowstart, qm_slot=qm_slot, nlevel=nlevel,
+              nnz=nnz)
+
+
+# B1's lanes per world: the fewest of LANES that keep MIN_WARPS warps
+# resident per SM (by the card's occupancy query for the model's shared
+# memory and the entry's registers). On the H100 both models ran fastest
+# at 16 resident warps of the choices: the humanoid at 16 lanes (32
+# worlds a SM), three_humanoids at 32 (16 worlds a SM, by shared memory).
+LANES = (8, 16, 32)
+MIN_WARPS = 16
+
+
+def lanes(m: Model, entry: str = '') -> int:
+  """Lanes per world of an entry of csrc/smooth.cu on this model (a warp
+  holds 32 / lanes worlds), chosen at its first launch."""
+  return _build.model_tables(m, 'smooth', _tables)['lanes'][entry]
+
+
+def _choose_lanes(values: dict, entry: str) -> int:
+  for g in LANES:
+    _, block, _, per_sm = _build.launch_shape('smooth', Params,
+                                              dict(values, lanes=g), entry)
+    if per_sm * block // 32 >= MIN_WARPS:
+      return g
+  return LANES[-1]
+
+
 def _tables(m: Model) -> dict:
   dev = m.device
   t = {k: torch.tensor(getattr(m, k), dtype=torch.int32, device=dev)
        for k in _INT_TABLES}
+  tree = tree_tables(m.body_parentid, m.dof_parentid)
+  for k, v in tree.items():
+    t[k] = v if isinstance(v, int) else torch.tensor(
+        v, dtype=torch.int32, device=dev)
+  t['lanes'] = {}                   # per entry, at its first launch
+  # 16-bit words, which the kernel reads unsigned
+  t['qm_slot'] = torch.tensor(
+      [v - 0x10000 if v >= 0x8000 else v for v in tree['qm_slot']],
+      dtype=torch.int16, device=dev)
   t.update({k: getattr(m, k).contiguous() for k in _FLOAT_TABLES})
   gravity = m.opt.gravity
   if m.opt.disableflags & DisableBit.GRAVITY:
@@ -93,12 +173,11 @@ def smooth(m: Model, qpos: torch.Tensor, qvel: torch.Tensor) -> dict:
 
 
 def _launch_entry(m: Model, entry: str, inputs: dict, outputs,
-                  local_frames: bool) -> dict:
+                  capped: bool) -> dict:
   """Launch an entry of csrc/smooth.cu on `inputs` (Params fields ->
   tensors) into new tensors for the fields `outputs`; every other pointer
-  of Params is null. An entry with `local_frames` keeps per-body arrays in
-  local memory, sized by MAXBODY."""
-  if local_frames and m.nbody > MAXBODY:
+  of Params is null. An entry `capped` takes at most MAXBODY bodies."""
+  if capped and m.nbody > MAXBODY:
     raise ValueError(f'smooth kernel: nbody={m.nbody} (cap {MAXBODY})')
   W = next(iter(inputs.values())).shape[0]
   dev = m.device
@@ -112,6 +191,10 @@ def _launch_entry(m: Model, entry: str, inputs: dict, outputs,
   values.update({'qpos_out' if k == 'qpos' else k: t for k, t in outs.items()})
   values.update(nworld=W, nq=m.nq, nv=m.nv, nbody=m.nbody, njnt=m.njnt,
                 ngeom=m.ngeom, nsite=m.nsite)
+  chosen = values['lanes']
+  if entry not in chosen:
+    chosen[entry] = _choose_lanes(values, entry)
+  values['lanes'] = chosen[entry]
   _build.launch('smooth', Params, values, dev, entry=entry)
   return outs
 

@@ -1,6 +1,6 @@
-"""Run the kernels B1, B2, B3, B4, B3e and B4-elliptic of two checkouts
-of the port on the same saved inputs, and compare their outputs bit for
-bit.
+"""Run the kernels B1, B2, B3, B4, B3e, B4-elliptic, B5 and B6 of two
+checkouts of the port on the same saved inputs, and compare their outputs
+bit for bit.
 
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py inputs FILE
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py run ROOT FILE OUT
@@ -18,7 +18,11 @@ cone (ELLIPTIC, ELL_STEPS steps on from the pyramidal state), the inputs
 of B2 (its elliptic rows), B3e (glue with the cone) and B4-elliptic
 (newton with the cone); and B2's inputs on three_humanoids with the
 elliptic cone (ELL3_STEPS steps from its seeded state). So B2 runs at
-all four of its shapes.
+all four of its shapes. B5's inputs are the Hessian of three_humanoids'
+first Newton direction (as chip_smoke.py phase (f) builds it) and the
+humanoid's qM, factored as the CG step factors it (`return_factor`); B6's
+are that factor, from this checkout's B5, and the gradient at the warm
+start.
 `run` imports `mujoco_warp_tpu_torch` from the checkout at ROOT, builds
 its kernels there, runs each kernel on the saved inputs and saves the
 outputs and each kernel's time: the card's busy time per launch over 20
@@ -29,10 +33,13 @@ kernel.
 that is not bit-equal and the times side by side; it exits 1 if any
 output differs. `--redesigned` names kernels whose design one checkout
 changed, so that their bits may differ (REDESIGNABLE: B3e `glue_ell`,
-B4-elliptic `newton_ell`): their differences are printed with the
-largest absolute one, and every file's outputs of them are held instead
-by chip_smoke.py's ELLIPTIC count rules (`_check_ell_solve`) against
-the plain version on the saved inputs; it exits 1 if one misses them,
+B4-elliptic `newton_ell`, B1 `smooth`, B5 `spd_solve`): their
+differences are printed with the largest absolute one, and every file's
+outputs of them are held instead against the plain version on the saved
+inputs: B3e and B4-elliptic by
+chip_smoke.py's ELLIPTIC count rules (`_check_ell_solve`), B1 at TOL_B1,
+B5 (and B6, which runs B5's sweeps) by `_check_solve`'s residual and
+forward error and B5's factor at TOL_B1; it exits 1 if one misses them,
 or if any other kernel's output differs. `turns` saves the inputs (with
 this checkout) to DIR, runs the checkouts A and B in turns A, B, B, A,
 each in its own process, prints each kernel's times in the four turns
@@ -55,9 +62,13 @@ NCONMAX3 = 100
 ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 ELL_STEPS = 5
 ELL3_STEPS = 2
-# kernels that `--redesigned` may name: they are held by chip_smoke's
-# ELLIPTIC count rules instead of bit for bit
-REDESIGNABLE = ('glue_ell', 'newton_ell')
+# kernels that `--redesigned` may name, and the calls of `run` that each
+# covers: they are held against their plain versions instead of bit for
+# bit (hold)
+REDESIGNABLE = dict(glue_ell=('glue_ell',), newton_ell=('newton_ell',),
+                    smooth=('smooth', 'smooth_three_humanoids'),
+                    spd_solve=('spd_solve', 'spd_solve_factor',
+                               'cho_solve'))
 
 
 def contact_inputs(m, d):
@@ -112,9 +123,11 @@ def make_inputs(path: str) -> None:
   sys.path.insert(0, HERE)
   import torch
   import mujoco_warp_tpu_torch as mt
-  from mujoco_warp_tpu_torch import models, solver
+  from mujoco_warp_tpu_torch import forward, models, solver
+  from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
   from mujoco_warp_tpu_torch.kernels import contact as kc
   from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
   from mujoco_warp_tpu_torch.utils import benchmark as bench
   m = mt.load_model(models.HUMANOID_NPZ, device='cuda')
   gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -136,6 +149,24 @@ def make_inputs(path: str) -> None:
   d3 = mt.make_batch(m3, mt.make_data(m3, nconmax=NCONMAX3), NWORLD,
                      qpos_noise=0.01, generator=gen)
   d3 = bench.rollout(m3, d3, THREE_STEPS)
+  # B5: three_humanoids' first Newton Hessian and gradient; the humanoid's
+  # qM as the CG step factors it; B6 on that factor
+  pre = d3
+  stages = forward.batched_stages(m3, d3)
+  for name, fn in stages[:[n for n, _ in stages].index('solve')]:
+    pre = fn(pre)
+  J, D, fl, qacc = pre.efc_J, pre.efc_D, pre.efc_frictionloss, \
+      pre.qacc_warmstart
+  jaref = torch.einsum('wrn,wn->wr', J, qacc) - pre.efc_aref
+  force, _, quad = solver._update_constraint(
+      jaref, D, fl, fl / torch.clamp(D, min=solver.MINVAL),
+      *solver._row_masks(pre.efc_type))
+  hess = pre.qM + torch.bmm((J * (D * quad)[..., None]).transpose(1, 2), J)
+  grad3 = (torch.einsum('wij,wj->wi', pre.qM, qacc) - pre.qfrc_smooth -
+           torch.einsum('wrn,wr->wn', J, force))
+  qM = ks.smooth(m, d.qpos, d.qvel)['qM']
+  grad = torch.einsum('wij,wj->wi', qM, d.qacc_warmstart) - qfs
+  factor = kb.spd_solve(qM, qfs, return_factor=True)[1]
   m3e = mt.override_model(m3, ELLIPTIC)
   gen3 = torch.Generator(device='cuda').manual_seed(SEED)
   d3e = mt.make_batch(m3e, mt.make_data(m3e, nconmax=NCONMAX3), NWORLD,
@@ -146,7 +177,8 @@ def make_inputs(path: str) -> None:
                   ce3_in=contact_inputs(m3e, d3e)[0],
                   g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9]),
                   ge_in=ge_in, ne_in=ge_in[:5] + (qfs_e, ge_in[9]),
-                  cone=cone), path)
+                  cone=cone, spd_in=(hess, grad3), spd_factor_in=(qM, qfs),
+                  cho_in=(factor, grad)), path)
 
 
 def run(root: str, path: str, out: str) -> None:
@@ -156,6 +188,7 @@ def run(root: str, path: str, out: str) -> None:
   import mujoco_warp_tpu_torch as mt
   from mujoco_warp_tpu_torch import models
   from mujoco_warp_tpu_torch.kernels import _build
+  from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
   from mujoco_warp_tpu_torch.kernels import contact as kc
   from mujoco_warp_tpu_torch.kernels import glue as kg
   from mujoco_warp_tpu_torch.kernels import newton as kn
@@ -183,10 +216,17 @@ def run(root: str, path: str, out: str) -> None:
       newton=lambda: kn.newton_solve(m, *inp['n_in']),
       newton_hb=lambda: kn.newton_solve(m, *inp['n_in'], hb=hb),
       glue_ell=lambda: kg.glue(me, *inp['ge_in'], cone=cone),
-      newton_ell=lambda: kn.newton_solve(me, *inp['ne_in'], cone=cone))
+      newton_ell=lambda: kn.newton_solve(me, *inp['ne_in'], cone=cone),
+      spd_solve=lambda: kb.spd_solve(*inp['spd_in']),
+      spd_solve_factor=lambda: kb.spd_solve(*inp['spd_factor_in'],
+                                            return_factor=True),
+      cho_solve=lambda: kb.cho_solve(*inp['cho_in']))
   outs, ms, wall = {}, {}, {}
   for name, fn in calls.items():
-    outs[name] = fn()
+    got = fn()
+    outs[name] = (got if isinstance(got, dict) else
+                  dict(zip(('x', 'factor'), got)) if isinstance(got, tuple)
+                  else dict(x=got))
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -229,16 +269,58 @@ def hold_elliptic(name: str, inputs: str):
       label, me, out, ref, perturbed, n[:5], cone, n[5])
 
 
+def hold_plain(name: str, inputs: str):
+  """fn(label, outs) that holds B1's (`smooth`, `smooth_three_humanoids`)
+  outputs at TOL_B1 against this checkout's plain version on the saved
+  inputs, B5's (`spd_solve`, `spd_solve_factor`) and B6's (`cho_solve`)
+  x by chip_smoke.py's `_check_solve` (residual, forward error against
+  the float64 plain version) and B5's factor at TOL_B1; it raises if they
+  miss them."""
+  sys.path.insert(0, HERE)
+  import torch
+  import chip_smoke
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import batch_linalg, models, smooth
+  inp = torch.load(inputs)
+  if name.startswith('smooth'):
+    npz = (models.THREE_HUMANOIDS_NPZ if name.endswith('three_humanoids')
+           else models.HUMANOID_NPZ)
+    m = mt.load_model(npz, device='cuda')
+    s_in = inp['s3_in' if name.endswith('three_humanoids') else 's_in']
+    ref = smooth.smooth(m, *s_in)
+    return lambda label, out: chip_smoke._compare(
+        label, out, ref, chip_smoke.TOL_B1, smooth.OUTPUTS)
+  if name == 'cho_solve':
+    factor, b = inp['cho_in']
+    f64 = factor.double()
+    a64 = f64 @ f64.transpose(1, 2)
+    plain = batch_linalg.cho_solve_batched(factor, b)
+    x64 = batch_linalg.cho_solve_batched(f64, b.double())
+    return lambda label, out: chip_smoke._check_solve(
+        label, a64, b, out['x'], plain, x64)
+  a, b = inp['spd_in' if name == 'spd_solve' else 'spd_factor_in']
+  plain, factor = batch_linalg.spd_solve_batched(a, b, return_factor=True)
+  x64 = batch_linalg.spd_solve_batched(a.double(), b.double())
+
+  def hold(label, out):
+    chip_smoke._check_solve(label, a, b, out['x'], plain, x64)
+    if 'factor' in out:
+      chip_smoke._compare(label, out, dict(factor=factor),
+                          chip_smoke.TOL_B1, ['factor'])
+  return hold
+
+
 def compare(paths, redesigned=()) -> int:
   import torch
   first = torch.load(paths[0])
+  covered = {c: k for k in redesigned for c in REDESIGNABLE[k]}
   bad = 0
   for path in paths[1:]:
     other = torch.load(path)
     for name, outs in first['outs'].items():
       diff = [k for k, v in outs.items()
               if not torch.equal(v, other['outs'][name][k])]
-      if name not in redesigned:
+      if name not in covered:
         bad += len(diff)
       largest = max((float((outs[k].double() - other['outs'][name][k]
                             .double()).abs().max()) for k in diff),
@@ -247,15 +329,16 @@ def compare(paths, redesigned=()) -> int:
             f'{"bit-equal" if not diff else "differ in " + str(diff)}'
             f'{f" (largest |diff| {largest:.3g})" if diff else ""}; '
             f'ms {first["ms"][name]:.4f} vs {other["ms"][name]:.4f}')
-  for name in redesigned:
-    hold = hold_elliptic(name, first['inputs'])
+  for name in sorted(covered):
+    hold = (hold_elliptic if covered[name] in ('glue_ell', 'newton_ell')
+            else hold_plain)(name, first['inputs'])
     for path in paths:
       run_out = torch.load(path)
       try:
         hold(f'{name} [{run_out["root"]}]', run_out['outs'][name])
       except RuntimeError as e:
-        print(f'{name} [{run_out["root"]}]: misses the ELLIPTIC count '
-              f'rules: {e}')
+        print(f'{name} [{run_out["root"]}]: misses the rules it is held '
+              f'by: {e}')
         bad += 1
   return 1 if bad else 0
 
@@ -289,7 +372,7 @@ def main(argv) -> int:
     redesigned = tuple(argv[-1].split(','))
     argv = argv[:-2]
     if not set(redesigned) <= set(REDESIGNABLE):
-      print(f'--redesigned: one of {REDESIGNABLE}', file=sys.stderr)
+      print(f'--redesigned: one of {tuple(REDESIGNABLE)}', file=sys.stderr)
       return 2
   if argv[:1] == ['inputs'] and len(argv) == 2:
     make_inputs(argv[1])

@@ -124,6 +124,33 @@ def test_ptxas_report_is_read_per_kernel(monkeypatch):
           smem=64)}
 
 
+SMOOTH_PTXAS_LOG = """\
+ptxas info    : Function properties for _Z13smooth_stagesILi63EEv6Params
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 100 registers, used 0 barriers, 672 bytes cmem[0]
+ptxas info    : Function properties for _Z13smooth_stagesILi2EEv6Params
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers, 672 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize('kernel, registers', [('smooth_stages<63>', 100),
+                                               ('smooth_stages<2>', 56),
+                                               ('smooth_stages<6>', None),
+                                               ('glue_kernel', None)])
+def test_kernel_report_names_template_instantiations(monkeypatch, kernel,
+                                                     registers):
+  """_build.kernel_report picks one kernel's ptxas report by its name and
+  template argument (B1's entries share a name), and raises unless
+  exactly one matches."""
+  monkeypatch.setattr(_build, 'build_log', lambda name: SMOOTH_PTXAS_LOG)
+  if registers is None:
+    with pytest.raises(RuntimeError):
+      _build.kernel_report('smooth', kernel)
+  else:
+    assert _build.kernel_report('smooth', kernel)['registers'] == registers
+
+
 class _FakeLibrary:
   """A kernel library's C interface for the entry `prefix`, counting its
   calls."""
@@ -194,6 +221,66 @@ SMOOTH_ENTRIES = ('smooth_front', 'kinematics', 'com_pos', 'crb')
 
 def _named(out, names):
   return out if isinstance(out, dict) else dict(zip(names, out))
+
+
+def _walk(parent):
+  """Each body's depth and children, by walking the tree down from body
+  0 (breadth first)."""
+  children = {b: [] for b in range(len(parent))}
+  for b in range(1, len(parent)):
+    children[parent[b]].append(b)
+  depth, todo = {0: 0}, [0]
+  while todo:
+    b = todo.pop(0)
+    for c in children[b]:
+      depth[c] = depth[b] + 1
+      todo.append(c)
+  return depth, children
+
+
+TREES = dict(
+    humanoid=None, three_humanoids=None,
+    # a star of 40 bodies (a level wider than a warp) and a chain below one
+    star=((-1, *[0] * 40, 40, 41, 42), (-1, *range(43))))
+
+
+@pytest.mark.parametrize('tree', sorted(TREES))
+def test_smooth_tree_tables_match_a_tree_walk(tree):
+  """B1's level, children and qM tables (kernels.smooth.tree_tables)
+  against a walk down the body tree and up the dof chains."""
+  if TREES[tree] is None:
+    npz = (models.HUMANOID_NPZ if tree == 'humanoid'
+           else models.THREE_HUMANOIDS_NPZ)
+    m = mt.load_model(npz, device='cpu')
+    body_parent, dof_parent = m.body_parentid, m.dof_parentid
+  else:
+    body_parent, dof_parent = TREES[tree]
+  t = ks.tree_tables(body_parent, dof_parent)
+  depth, children = _walk(body_parent)
+  assert len(depth) == len(body_parent)
+  assert t['nlevel'] == max(depth.values()) + 1
+  for lv in range(t['nlevel']):
+    level = t['level_body'][t['level_start'][lv]:t['level_start'][lv + 1]]
+    assert level == sorted(b for b, d in depth.items() if d == lv), lv
+  assert t['level_start'][-1] == len(body_parent)
+  for b in range(len(body_parent)):
+    got = t['child_body'][t['child_start'][b]:t['child_start'][b + 1]]
+    assert got == sorted(children[b], reverse=True), b
+  nv = len(dof_parent)
+  slots, nnz = {}, 0
+  for i in range(nv):
+    assert t['qm_rowstart'][i] == nnz
+    j = i
+    while j >= 0:
+      slots[(i, j)] = slots[(j, i)] = nnz
+      nnz += 1
+      j = dof_parent[j]
+  assert t['nnz'] == nnz
+  for i in range(nv):
+    for j in range(nv):
+      assert t['qm_slot'][i * nv + j] == slots.get((i, j), ks.QM_NONE)
+  if TREES[tree] is None:
+    assert nnz == sum(len(r) for r in m.dof_ancestor_rows)
 
 
 @pytest.mark.parametrize('kernel', ['smooth', 'contact', 'glue',
@@ -693,18 +780,70 @@ def test_warp_kernels_are_deterministic_and_fit_their_design(cuda):
     assert info['spill_stores'] == 0 and info['stack'] <= 1024, info
 
 
+# B1's five entries: C entry, stages (the template argument)
+SMOOTH_KERNELS = (('', 63), ('kin_', 2), ('com_', 8), ('crb_', 16),
+                  ('front_', 26))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('kernel', ['cho_solve', 'tree_solve'])
+@pytest.mark.parametrize('model', ['humanoid', 'three_humanoids'])
+def test_smooth_and_dense_solves_are_deterministic_and_fit_their_design(
+    cuda, model):
+  """B1 and its four entries run one group of 8, 16 or 32 lanes per
+  world (ks.lanes: the fewest that keep ks.MIN_WARPS warps resident per
+  SM), B5 and B6 one warp, 4 worlds a block: two launches give the same
+  bits, the launch shape is 4 worlds a block, and ptxas gives them no
+  spill stores and at most 1 KB of stack."""
+  npz, nconmax = ((models.HUMANOID_NPZ, NCONMAX) if model == 'humanoid'
+                  else (models.THREE_HUMANOIDS_NPZ, 100))
+  m, d = _state(cuda, 256, 10, npz, nconmax)
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  calls = {name: (lambda fn=fn, args=args, names=names:
+                  _named(fn(*args), names))
+           for name, (fn, _, _, _, names, args) in
+           _smooth_entries(m, sm).items()}
+  calls['smooth'] = lambda: ks.smooth(m, d.qpos, d.qvel)
+  b = d.qfrc_applied - sm['qfrc_bias']
+  calls['spd_solve'] = lambda: dict(zip(
+      'xl', kb.spd_solve(sm['qM'], b, return_factor=True)))
+  fac = kb.spd_solve(sm['qM'], b, return_factor=True)[1]
+  calls['cho_solve'] = lambda: dict(x=kb.cho_solve(fac, b))
+  for name, fn in calls.items():
+    a, c = fn(), fn()
+    for k in a:
+      assert torch.equal(a[k], c[k]), (name, k)
+  shapes = [(('smooth', entry), f'smooth_stages<{stages}>',
+             ks.lanes(m, entry)) for entry, stages in SMOOTH_KERNELS]
+  shapes += [(('batch_linalg', 'spd_solve_'), 'spd_solve_kernel', 32),
+             (('batch_linalg', 'cho_solve_'), 'cho_solve_kernel', 32)]
+  for (source, entry), kernel, lanes in shapes:
+    grid, block, smem, per_sm = _build.shapes[(source, entry)]
+    assert (grid, block) == (256 // 4, 4 * lanes), (kernel, grid, block)
+    assert smem > 0 and per_sm >= 1, (kernel, smem, per_sm)
+    if source == 'smooth':
+      assert lanes == 32 or per_sm * block // 32 >= ks.MIN_WARPS, kernel
+    info = _build.kernel_report(source, kernel)
+    assert info['spill_stores'] == 0 and info['stack'] <= 1024, (kernel,
+                                                                 info)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kernel', ['cho_solve', 'cho_solve_81', 'tree_solve'])
 def test_factor_solve_kernels_match_plain(cuda, kernel):
+  """B6 on B5's factor of the humanoid's qM (n 27, the CG step's) and of
+  three_humanoids' (n 81, B5's widest shape on the step), B8 on B7's."""
   npz, nconmax = ((models.HUMANOID_NPZ, NCONMAX) if kernel == 'cho_solve'
                   else (models.THREE_HUMANOIDS_NPZ, 100))
   m, d = _state(cuda, 256, 10, npz, nconmax)
   sm = ks.smooth(m, d.qpos, d.qvel)
   qM, b = sm['qM'], d.qfrc_applied - sm['qfrc_bias']
   _reset()
-  if kernel == 'cho_solve':
+  if kernel.startswith('cho_solve'):
     x0, fac = kb.spd_solve(qM, b, return_factor=True)
+    _close(fac, batch_linalg.spd_solve_batched(qM, b, return_factor=True)[1],
+           'spd_solve factor', 2e-5)
     x, xr = kb.cho_solve(fac, b), batch_linalg.cho_solve_batched(fac, b)
+    kernel = 'cho_solve'
   else:
     x0, fac = kb.tree_ldl(qM, b, m.dof_parentid, return_factor=True)
     x = kb.tree_solve(fac, b, m.dof_parentid)
@@ -714,7 +853,8 @@ def test_factor_solve_kernels_match_plain(cuda, kernel):
   _close(x, xr, kernel, 2e-5)
   assert torch.equal(x, x0)       # the producer's own sweeps
   assert float(_residual(qM, x, b).max()) <= 1e-5
-  assert torch.equal(kb.m_cho_solve(fac, b, m.dof_parentid), x)
+  if kernel == 'tree_solve' or m.nv <= 32:
+    assert torch.equal(kb.m_cho_solve(fac, b, m.dof_parentid), x)
 
 
 @pytest.mark.cuda
