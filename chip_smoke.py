@@ -6,8 +6,8 @@ Phases:
   (a) print the card's name and power limit; build the CUDA kernels from
       mujoco_warp_tpu_torch/csrc (one nvcc per source, in parallel); hold
       B1 and its four entries (B9-B12), B2's two entries, B3, B4, B3e,
-      B4-elliptic, B5 and B6 (one warp per world) to no spill stores and
-      at most MAX_STACK_B3 bytes of stack in ptxas's report;
+      B4-elliptic, B5, B6, B7 and B8 (one warp per world) to no spill
+      stores and at most MAX_STACK_B3 bytes of stack in ptxas's report;
   (b) load the humanoid from its committed .npz and make 8192 worlds with
       seeded qpos noise, nconmax=24;
   (c) step 100 times, then hold each kernel (B1 smooth, B2 contact, B3
@@ -27,17 +27,21 @@ Phases:
   which runs the unfused step:
   (f) step 10 times, then hold B1 and B2 against their plain versions as
       in (c) (B2 also over two launches, its launch shape printed), B7
-      (tree_ldl, with and without the Euler diagonal) and B5 (spd_solve,
-      on the Hessians of the solve's first direction) by the packed
-      factor, the per-world residual and the forward error against the
-      plain version in float64;
+      (tree_ldl, with and without the Euler diagonal; its x without the
+      factor bit-equal to its x with it; its launch shape printed) and B5
+      (spd_solve, on the Hessians of the solve's first direction) by the
+      packed factor, the per-world residual and the forward error against
+      the plain version in float64;
   (g) with every count at 0, run the main path (12 steps, the last one
-      timed) and require B1 and B2 once per step, B7 twice per step and
-      B5 once per Newton direction (one per step plus one per pass of the
+      timed) and require B1 and B2 once per step, B7 twice per step (once
+      without the factor: the Euler re-solve's) and B5 once per Newton
+      direction (one per step plus one per pass of the
       solve's loop); hold one whole step of the kernels against the
       all-plain step on the same state (qacc and the solve's objective);
-  (h) time each kernel, its plain version and, for B5, torch.linalg.solve
-      on the same inputs, with its bound; profile 2 steps.
+  (h) time each kernel, its plain version and, for B5 and B7 without the
+      factor, torch.linalg.solve on the same inputs, with its bound (B7
+      as fwd_acceleration calls it and as the Euler re-solve calls it:
+      two records that split B7's launches); profile 2 steps.
   Then the paths of forward_batched, the RK4 integrator and the CG solver,
   selected on the loaded models (m.replace(opt=m.opt.replace(...))):
   (i) on the humanoid state of (c): hold B4 (newton) against its plain
@@ -48,7 +52,8 @@ Phases:
       (cho_solve) on B5's factor of qM by residual and forward error
       against the float64 plain version, and against B5's own x;
   (j) on the three_humanoids state of (f): hold B8 (tree_solve) on B7's
-      packed LD the same way, and against B7's own x;
+      packed LD the same way, and against B7's own x; print its launch
+      shape;
   (k) from counts at 0, run one forward_batched (B4 once, B3 never), RK4
       steps (B4 four times a step), CG steps of the humanoid (B5 once a
       step, B6 once per solve and per CG pass) and of three_humanoids (B7
@@ -585,7 +590,9 @@ WARP_KERNELS = (('glue', 'glue_kernel', ''), ('newton', 'newton_kernel', ''),
                 ('smooth', 'smooth_stages<16>', 'crb_'),
                 ('smooth', 'smooth_stages<26>', 'front_'),
                 ('batch_linalg', 'spd_solve_kernel', 'spd_solve_'),
-                ('batch_linalg', 'cho_solve_kernel', 'cho_solve_'))
+                ('batch_linalg', 'cho_solve_kernel', 'cho_solve_'),
+                ('batch_linalg', 'tree_ldl_kernel', 'tree_ldl_'),
+                ('batch_linalg', 'tree_solve_kernel', 'tree_solve_'))
 
 
 def _check_warp_kernels_ptxas():
@@ -645,6 +652,7 @@ def _reset_counts():
   kg.launches_ell = kn.launches_ell = 0
   ks.launches_front = ks.launches_kin = ks.launches_com = ks.launches_crb = 0
   kb.launches.update(dict.fromkeys(kb.launches, 0))
+  kb.launches_no_factor = 0
   solver.counts.update(dict.fromkeys(solver.counts, 0))
 
 
@@ -1074,6 +1082,10 @@ def _three_humanoids(card) -> list:
       raise RuntimeError('B7: nonzero LD outside the packed entries')
     errs['tree_ldl'] = max(errs['tree_ldl'], _check_solve(
         f'B7 {label}', a, b, x, xr, x64))
+    if not torch.equal(kb.tree_ldl(qM, b, parent, diag=dg), x):
+      raise RuntimeError(f'B7 {label}: x without the factor differs')
+  print('  B7 x without the factor: bit-equal to x with it')
+  _print_warp_shapes('three_humanoids', ('tree_ldl_kernel',))
 
   # ---- (j) B8 on B7's packed LD of qM, another right-hand side ----
   grad = torch.einsum('wij,wj->wi', qM, pre.qacc_warmstart) - qfs
@@ -1089,6 +1101,7 @@ def _three_humanoids(card) -> list:
       batch_linalg.tree_solve_from_factor_batched(ld, grad, parent),
       batch_linalg.tree_solve_from_factor_batched(ld64, grad.double(),
                                                   parent), x7)
+  _print_warp_shapes('three_humanoids', ('tree_solve_kernel',))
 
   # B5 on the Hessian of the solve's first Newton direction
   J, D, fl = pre.efc_J, pre.efc_D, pre.efc_frictionloss
@@ -1120,9 +1133,11 @@ def _three_humanoids(card) -> list:
   counts = {'smooth[three_humanoids]': ks.launches,
             'contact[three_humanoids]': kc.launches,
             'tree_ldl': kb.launches['tree_ldl'],
+            'tree_ldl[euler]': kb.launches_no_factor,
             'spd_solve': kb.launches['spd_solve']}
   expect = {'smooth[three_humanoids]': steps,
             'contact[three_humanoids]': steps, 'tree_ldl': 2 * steps,
+            'tree_ldl[euler]': steps,
             'spd_solve': solver.counts['solve'] + solver.counts['passes']}
   print(f'launches in the main path: {counts} for {steps} steps, '
         f'{solver.counts["passes"]} Newton passes after {steps} initial '
@@ -1173,7 +1188,11 @@ def _three_humanoids(card) -> list:
   # ---- (h) kernel times, plain times, bounds and library calls ----
   records = []
   W = NWORLD
-  record = lambda name, *args, **kw: _record(records, name, counts[name],
+  # the records `tree_ldl` (with the factor) and `tree_ldl[euler]` (without
+  # it) split B7's launches between them
+  launched = dict(counts, tree_ldl=counts['tree_ldl'] -
+                  counts['tree_ldl[euler]'])
+  record = lambda name, *args, **kw: _record(records, name, launched[name],
                                               errs[name.split('[')[0]],
                                               *args, **kw)
   tables = lambda key, make: _build.model_tables(m, key, make)
@@ -1209,8 +1228,17 @@ def _three_humanoids(card) -> list:
          lambda: batch_linalg.tree_ldl_solve_batched(qM, qfs, parent,
                                                      return_factor=True),
          bytes_b7, flops_b7)
-  euler_ms = _cuda_ms(lambda: kb.tree_ldl(qM, qfs, parent, diag=diag), 20)
-  print(f'  tree_ldl as euler calls it (diag, no factor): {euler_ms:.4f} ms')
+  # B7 as the Euler re-solve calls it: the diagonal, no factor written;
+  # x alone is also what torch.linalg.solve computes
+  b_euler = qfs + post.qfrc_constraint
+  a_euler = qM + torch.diag(diag)
+  record('tree_ldl[euler]', 'mujoco_warp_tpu_torch/csrc/batch_linalg.cu',
+         'mujoco_warp_tpu/pallas/batch_linalg.py:314',
+         lambda: kb.tree_ldl(qM, b_euler, parent, diag=diag),
+         lambda: batch_linalg.tree_ldl_solve_batched(qM, b_euler, parent,
+                                                     diag=diag),
+         W * 4 * (nnz + 2 * nv), flops_b7,
+         library=lambda: torch.linalg.solve(a_euler, b_euler))
   # B5 reads the Hessian's upper triangle (column j of the factor starts
   # from row j), b, and writes x
   n = m.nv

@@ -1,9 +1,9 @@
 // Kernels B7, B8, B5 and B6: the batched linear solves of the unfused
-// step; B7 and B8 one block per world, B5 and B6 one warp per world. B7
-// and B5 factor and solve; B8 and B6 solve
-// from the factor B7 or B5 wrote, with the same device code for the
-// sweeps (tree_sweeps, chol_sweeps), so a solve from a factor repeats the
-// factoring kernel's own solve operation for operation.
+// step, one warp per world, TREE_WARPS or SPD_WARPS worlds a block. B7
+// and B5 factor and solve; B8 and B6 solve from the factor B7 or B5
+// wrote, with the same device code for the sweeps (tree_sweeps,
+// chol_sweeps), so a solve from a factor repeats the factoring kernel's
+// own solve operation for operation.
 //
 // B7 tree_ldl: the tree-sparse LDL factor of qM (+ an optional diagonal)
 // and the solve (qM + diag) x = b.
@@ -11,25 +11,40 @@
 //   tree_ldl_solve_batched (:314; bodies ldl_factor_rows :257 and
 //   ldl_solve_rows :276). Plain version:
 //   mujoco_warp_tpu_torch/batch_linalg.py, tree_ldl_solve_batched().
-//   The TPU kernel unrolls the (row, ancestor) schedule at trace time;
-//   this one reads it from tables at run time, so one build serves every
-//   tree. A world's nonzeros (row k: qM[k, k], then qM[k, i] for the
-//   ancestors i of k from the parent up) sit packed in shared memory: 729
-//   floats for three_humanoids (nv 81), not the dense 6,561. The rows
-//   factor in reverse dof order; one row's updates of its ancestors' rows
-//   are independent and run across the block's threads, with one barrier
-//   per row. The packed factor LD, when asked for, is written dense:
-//   L[k, i] at the ancestor columns, D[k] on the diagonal and zeros
-//   everywhere else (the TPU kernel leaves garbage in the strict upper
-//   triangle).
+//   The TPU kernel unrolls the (row, ancestor) schedule at trace time with
+//   worlds in lanes; here a warp takes a world and reads the schedule from
+//   tables at run time (TreeTables, built by kernels/batch_linalg.py's
+//   tree_schedule), so one build serves every tree. A world's nonzeros
+//   (row k: qM[k, k], then qM[k, i] for the ancestors i of k from the
+//   parent up) sit packed in shared memory with x: (nnz + nv) words, 3.2
+//   KB for three_humanoids (nv 81, 729 entries), not the dense 26 KB, so
+//   64 worlds (warps) fit a SM. The lanes gather them with cp.async.
+//   Factor (tree_factor): the rows in reverse dof order, each tree's rows
+//   one step after another and the rows of different trees side by side
+//   (they share no entry): 26 steps of 3 rows on three_humanoids, not 80
+//   rows. In a step, lane r holds the reciprocal pivot of the step's row
+//   r, and the lanes take the step's (ancestor, column) pairs one each
+//   (3,510 in all): c = P[a] * inv (by a shuffle), P[dst] -= c * P[b];
+//   then one __syncwarp and the row's scaling by inv. Every packed entry
+//   loses its products in the order of ldl_factor_rows (descending k) and
+//   in the same expressions, so the result is bit for bit the one-row-a-
+//   time factor's. Sweeps (tree_sweeps): L^T z = b by the same steps, a
+//   lane per off-diagonal entry and a __syncwarp a step; y = z / D by
+//   lanes over rows; L x = y by depth levels (15), a lane per row of the
+//   level summing its own chain in the row order of ldl_solve_rows. The
+//   packed factor LD, when asked for, is written dense, each element
+//   once, from the packed entry that `pos` names (zeros off the pattern,
+//   where the TPU kernel leaves garbage in the strict upper triangle), by
+//   16-byte stores.
 //
 // B8 tree_solve: x from the packed factor LD that B7 wrote.
 //   Replaces: mujoco_warp_tpu/pallas/batch_linalg.py,
 //   tree_solve_from_factor_batched (:369; body ldl_solve_rows :276).
 //   Plain version: mujoco_warp_tpu_torch/batch_linalg.py,
-//   tree_solve_from_factor_batched(). It gathers only the packed entries
-//   of a world's LD (729 of the dense 6,561 at nv 81) into shared memory
-//   through B7's tables and runs B7's three sweeps.
+//   tree_solve_from_factor_batched(). One warp per world: it gathers only
+//   the packed entries of a world's LD (729 of the dense 6,561 at nv 81)
+//   into shared memory through B7's tables and runs B7's tree_sweeps, so
+//   its x is B7's for the same b, bit for bit.
 //
 // B5 spd_solve: the dense Cholesky factor of an SPD matrix (n <= 96) and
 // the solve, one warp per world, SPD_WARPS worlds a block.
@@ -67,54 +82,80 @@
 //   backward sweep is its saxpy with row k of L; so B6's x is B5's for
 //   the same b, bit for bit.
 //
-// What bounds them on the H100: bytes for B7, B8 and B6; for B5, its
-// chains and the shared memory's rate. Per world B7 reads qM (26 KB at
-// nv 81) and writes x and, with the factor, LD (26 KB); B5 reads the
-// Hessian's upper triangle (13 KB) and writes x; B8 gathers the 729
-// packed entries of LD (by 32-byte sectors that is most of the matrix)
-// and B6 reads L (2.9 KB at n 27), and both write x alone. B7 does about
-// 2,200 flops a world, B8 and B6 about 2 per factor entry; B5 n^3/3 =
-// 177k at n 81, each multiply-add with a 4-byte shared-memory read of
-// its lane's row, and per k and block of columns a broadcast of 8
-// values: where a block's rows fit one pass of the warp (the last 32
-// rows), that is about a shared-memory wavefront per multiply-add. The
-// substitutions are 2n dependent steps (a shuffle and a division each).
-// B7 and B8 run one block per world with chains of barriers (B7 one per
-// dof, the sweeps one per row); a warp per world is later work.
+// What bounds them on the H100: for B7 and B8, the SM's rate of shared-
+// memory and L1 instructions and the gather's scattered reads; with the
+// factor, B7's dense LD write; for B6, bytes; for B5, its chains and the
+// shared memory's rate. Per world B7 gathers the 729 packed entries of qM
+// (by 32-byte sectors about 6.5 KB of its 26 KB) and writes x and, with
+// the factor, the dense LD (26 KB: 215 MB at 8192 worlds, 0.064 ms of the
+// card's bytes); B5 reads the Hessian's upper triangle (13 KB) and writes
+// x; B8 gathers LD's 729 packed entries and B6 reads L (2.9 KB at n 27),
+// and both write x alone. B7 does about 10,000 flops a world, each
+// multiply-add of its factor with three shared-memory reads, a write, a
+// table read and a shuffle (3,510 of them in 123 warp passes at nv 81);
+// B8 and B6 about 2 flops per factor entry; B5 n^3/3 = 177k at n 81, each
+// multiply-add with a 4-byte shared-memory read of its lane's row, and
+// per k and block of columns a broadcast of 8 values: where a block's
+// rows fit one pass of the warp (the last 32 rows), that is about a
+// shared-memory wavefront per multiply-add. B7 and B8 keep each world in
+// one warp, 64 worlds a SM (one wave at 8192 worlds), so that the SM
+// always has passes to issue between the __syncwarps of a world's 26
+// factor steps and 26 + 15 sweep steps. The substitutions of B5 and B6
+// are 2n dependent steps (a shuffle and a division each).
 
 #include "common.cuh"
 
 #define SPD_MAXN 96
-#define TREE_LDL_THREADS 32
 #define SPD_WARPS 4      // worlds a block of B5 and B6
 #define SPD_COLS 8       // columns B5 factors together
+#define TREE_WARPS 4     // worlds a block of B7 and B8
+// blocks of B7 and B8 a SM: 64 warps, the SM's most, so at most 32
+// registers a thread
+#define TREE_BLOCKS 16
+
+// B7's and B8's schedule (kernels/batch_linalg.py, tree_schedule). A
+// world's packed entry e is m[src[e]] of its (nv, nv) matrix m; row k is
+// [row_start[k], row_start[k + 1]): k, then its ancestors (chain). Step t
+// of the factor has the rows step_row[step_off[3 t] ..], each by its
+// diagonal entry; its pairs pair[step_off[3 t + 1] ..] as (a | b << 16,
+// dst | slot << 16); its rows' off-diagonal entries entry[step_off[3 t +
+// 2] ..] as (e | slot << 16, i | k << 16) (entry e is L[k, i]); step t
+// ends where step t + 1 begins. Depth level d holds the rows
+// level_row[level_start[d] .. level_start[d + 1]), each with d ancestors.
+// pos[k * nv + j] is the packed entry of (k, j), -1 off the pattern.
+struct TreeTables {
+  const int* src;            // (nnz)
+  const int* row_start;      // (nv + 1)
+  const int* chain;          // (nnz)
+  const int* step_off;       // (nstep + 1, 3)
+  const int* step_row;       // rows of the steps, by their diagonal entry
+  const uint2* pair;         // the steps' pairs
+  const uint2* entry;        // the steps' rows' off-diagonal entries
+  const int* level_start;    // (nlevel + 1)
+  const int* level_row;      // (nv)
+  const short* pos;          // (nv * nv)
+  int nv;
+  int nnz;
+  int nstep;
+  int nlevel;
+};
 
 struct TreeLdlParams {
+  TreeTables t;
   const float* a;            // (nworld, nv, nv)
   const float* b;            // (nworld, nv)
   const float* diag;         // (nv) or null
-  const int* chain;          // (nnz): row k's dofs, k first, then ancestors
-  const int* row_of;         // (nnz): the row of each packed entry
-  const int* row_start;      // (nv + 1): row k is [row_start[k], [k + 1])
-  const int* depth;          // (nv): number of strict ancestors
-  const unsigned char* anc;  // (nv, nv): column j is k or an ancestor of k
   float* x;                  // (nworld, nv)
   float* ld;                 // (nworld, nv, nv) or null
   int nworld;
-  int nv;
-  int nnz;
 };
 
 struct TreeSolveParams {
+  TreeTables t;
   const float* ld;           // (nworld, nv, nv), packed entries read
   const float* b;            // (nworld, nv)
-  const int* chain;          // B7's tables
-  const int* row_of;
-  const int* row_start;
   float* x;                  // (nworld, nv)
   int nworld;
-  int nv;
-  int nnz;
 };
 
 struct SpdParams {
@@ -134,36 +175,108 @@ struct ChoSolveParams {
   int n;
 };
 
-// The solve from a world's packed rows P (ldl_solve_rows): L^T z = b,
-// y = z / D, L x = y, in place on x; P and x in shared memory. p is B7's
-// or B8's Params (chain, row_start, nv).
-template <class T>
-DEV void tree_sweeps(const T& p, const float* P, float* x, int tid, int nt) {
-  const int nv = p.nv;
-  // L^T z = b, rows in reverse order
-  for (int k = nv - 1; k >= 0; --k) {
-    const int s = p.row_start[k], len = p.row_start[k + 1] - s;
-    if (len == 1) continue;
-    const float xk = x[k];
-    for (int ia = 1 + tid; ia < len; ia += nt)
-      x[p.chain[s + ia]] -= P[s + ia] * xk;
-    __syncthreads();
+// dynamic shared bytes a world of B7 or B8: its packed rows P, then x
+inline int tree_world_bytes(const TreeTables& t) {
+  return (t.nnz + t.nv) * (int)sizeof(float);
+}
+
+// A world's packed entries of m (qM or LD) into P and b into x, by all
+// lanes at once
+DEV void tree_gather(const TreeTables& t, const float* m, const float* b,
+                     float* P, float* x, int lane) {
+  for (int e = lane; e < t.nnz; e += 32) copy4_async(P + e, m + t.src[e]);
+  for (int k = lane; k < t.nv; k += 32) copy4_async(x + k, b + k);
+  copy_async_wait();
+  __syncwarp();
+}
+
+// Element e of a world's dense LD: its packed entry, 0 off the pattern
+DEV float tree_ld_at(const TreeTables& t, const float* P, int e) {
+  const int q = t.pos[e];
+  return q >= 0 ? P[q] : 0.0f;
+}
+
+// The packed factor P of a world written dense into ld (nv, nv), each
+// element once: by 16-byte stores where ld is 16-byte aligned (a world's
+// nv * nv floats start anywhere), 4-byte ones before and after.
+DEV void tree_write_ld(const TreeTables& t, const float* P, float* ld,
+                       int lane) {
+  const int nn = t.nv * t.nv;
+  const int head = min((int)((0 - ((size_t)ld >> 2)) & 3), nn);
+  const int nvec = (nn - head) >> 2, tail = head + 4 * nvec;
+  if (lane < head) ld[lane] = tree_ld_at(t, P, lane);
+  float4* ld4 = reinterpret_cast<float4*>(ld + head);
+  for (int i = lane; i < nvec; i += 32) {
+    const int e = head + 4 * i;
+    ld4[i] = make_float4(tree_ld_at(t, P, e), tree_ld_at(t, P, e + 1),
+                         tree_ld_at(t, P, e + 2), tree_ld_at(t, P, e + 3));
   }
-  // y = z / D
-  for (int k = tid; k < nv; k += nt)
-    x[k] = x[k] / fmaxf(P[p.row_start[k]], kMinVal);
-  __syncthreads();
-  // L x = y, rows in order: each row's sum over its short chain, in the
-  // TPU kernel's order, by one thread
-  if (tid == 0) {
-    for (int k = 0; k < nv; ++k) {
-      const int s = p.row_start[k], len = p.row_start[k + 1] - s;
-      float v = x[k];
-      for (int ia = 1; ia < len; ++ia) v -= P[s + ia] * x[p.chain[s + ia]];
-      x[k] = v;
+  if (tail + lane < nn) ld[tail + lane] = tree_ld_at(t, P, tail + lane);
+}
+
+// The factor of a world's packed rows P, in place (ldl_factor_rows): for
+// each ancestor i of k, row i -= (qM[k, i] / D[k]) row k over i's own
+// chain, rows k in reverse order; then row k's entries times 1 / D[k].
+// Step by step (tree_schedule): lane r holds the reciprocal pivot of the
+// step's row r; the step's pairs run across the lanes, one multiply-add
+// each, then its rows' scaling. The scaling of step t writes rows that no
+// later step reads or writes (a later step's rows and their ancestors
+// have lower indices in each tree), so one __syncwarp a step suffices.
+DEV void tree_factor(const TreeTables& t, float* P, int lane) {
+  for (int st = 0; st < t.nstep; ++st) {
+    const int* o = t.step_off + 3 * st;
+    const int r0 = o[0], p0 = o[1], e0 = o[2], r1 = o[3], p1 = o[4],
+              e1 = o[5];
+    float inv = 0.0f;
+    if (r0 + lane < r1)
+      inv = 1.0f / fmaxf(P[t.step_row[r0 + lane]], kMinVal);
+    for (int q = p0 + lane; q - lane < p1; q += 32) {
+      const uint2 pr = q < p1 ? t.pair[q] : make_uint2(0u, 0u);
+      const float iv = __shfl_sync(FULL_MASK, inv, (int)(pr.y >> 16));
+      if (q < p1) {
+        const float c = P[pr.x & 0xffffu] * iv;
+        P[pr.y & 0xffffu] -= c * P[pr.x >> 16];
+      }
+    }
+    __syncwarp();
+    for (int q = e0 + lane; q - lane < e1; q += 32) {
+      const uint2 en = q < e1 ? t.entry[q] : make_uint2(0u, 0u);
+      const float iv = __shfl_sync(FULL_MASK, inv, (int)(en.x >> 16));
+      if (q < e1) P[en.x & 0xffffu] *= iv;
     }
   }
-  __syncthreads();
+  __syncwarp();
+}
+
+// The solve from a world's packed factor P (ldl_solve_rows): L^T z = b,
+// y = z / D, L x = y, in place on x; P and x in shared memory. L^T z = b
+// by the factor's steps (x[i] loses L[k, i] x[k] for the rows k of its
+// subtree in descending order), a lane per entry; L x = y by depth
+// levels, a lane per row, each row's chain in order.
+DEV void tree_sweeps(const TreeTables& t, const float* P, float* x,
+                     int lane) {
+  for (int st = 0; st < t.nstep; ++st) {
+    const int e1 = t.step_off[3 * st + 5];
+    for (int q = t.step_off[3 * st + 2] + lane; q < e1; q += 32) {
+      const uint2 en = t.entry[q];
+      x[en.y & 0xffffu] -= P[en.x & 0xffffu] * x[en.y >> 16];
+    }
+    __syncwarp();
+  }
+  for (int k = lane; k < t.nv; k += 32)
+    x[k] = x[k] / fmaxf(P[t.row_start[k]], kMinVal);
+  __syncwarp();
+  for (int lv = 1; lv < t.nlevel; ++lv) {
+    const int q1 = t.level_start[lv + 1];
+    for (int q = t.level_start[lv] + lane; q < q1; q += 32) {
+      const int k = t.level_row[q], s = t.row_start[k];
+      float v = x[k];
+#pragma unroll 4
+      for (int ia = 1; ia <= lv; ++ia) v -= P[s + ia] * x[t.chain[s + ia]];
+      x[k] = v;
+    }
+    __syncwarp();
+  }
 }
 
 // B5's and B6's layout of a factor in shared memory: column k holds rows
@@ -311,66 +424,38 @@ DEV void chol_sweeps(const float* S, int n, const int (&cbi)[3],
   }
 }
 
-__global__ void tree_ldl_kernel(const TreeLdlParams p) {
+__global__ void __launch_bounds__(32 * TREE_WARPS, TREE_BLOCKS)
+    tree_ldl_kernel(const TreeLdlParams p) {
   extern __shared__ float smem[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int nv = p.nv, nnz = p.nnz;
-  const size_t w = blockIdx.x;
-  float* P = smem;           // packed rows
-  float* x = smem + nnz;     // right-hand side, then the solution
-  const float* a = p.a + w * nv * nv;
-  for (int t = tid; t < nnz; t += nt) {
-    const int k = p.row_of[t], j = p.chain[t];
-    float v = a[k * nv + j];
-    if (p.diag && j == k) v += p.diag[k];
-    P[t] = v;
+  const TreeTables& t = p.t;
+  const int lane = threadIdx.x & 31, nv = t.nv;
+  const size_t w = (size_t)blockIdx.x * TREE_WARPS + (threadIdx.x >> 5);
+  if (w >= (size_t)p.nworld) return;
+  float* P = smem + (threadIdx.x >> 5) * (t.nnz + nv);   // packed rows
+  float* x = P + t.nnz;      // right-hand side, then the solution
+  tree_gather(t, p.a + w * nv * nv, p.b + w * nv, P, x, lane);
+  if (p.diag) {
+    for (int k = lane; k < nv; k += 32) P[t.row_start[k]] += p.diag[k];
+    __syncwarp();
   }
-  for (int k = tid; k < nv; k += nt) x[k] = p.b[w * nv + k];
-  __syncthreads();
-
-  // factor, rows in reverse order (ldl_factor_rows): for each ancestor i
-  // of k, row i -= (qM[k, i] / D[k]) row k over i's own chain
-  for (int k = nv - 1; k >= 0; --k) {
-    const int s = p.row_start[k], len = p.row_start[k + 1] - s;
-    if (len == 1) continue;
-    const float inv = 1.0f / fmaxf(P[s], kMinVal);
-    for (int ia = 1; ia < len; ++ia) {
-      const int si = p.row_start[p.chain[s + ia]];
-      const float c = P[s + ia] * inv;
-      for (int jb = ia + tid; jb < len; jb += nt)
-        P[si + jb - ia] -= c * P[s + jb];
-    }
-    __syncthreads();
-    // row k is final now; no later row reads or writes it
-    for (int ia = 1 + tid; ia < len; ia += nt) P[s + ia] *= inv;
-  }
-  __syncthreads();
-
-  tree_sweeps(p, P, x, tid, nt);
-  for (int k = tid; k < nv; k += nt) p.x[w * nv + k] = x[k];
-  if (p.ld) {
-    float* ld = p.ld + w * nv * nv;
-    for (int e = tid; e < nv * nv; e += nt) {
-      const int k = e / nv, j = e - k * nv;
-      ld[e] = p.anc[e] ? P[p.row_start[k] + p.depth[k] - p.depth[j]] : 0.0f;
-    }
-  }
+  tree_factor(t, P, lane);
+  tree_sweeps(t, P, x, lane);
+  for (int k = lane; k < nv; k += 32) p.x[w * nv + k] = x[k];
+  if (p.ld) tree_write_ld(t, P, p.ld + w * nv * nv, lane);
 }
 
-__global__ void tree_solve_kernel(const TreeSolveParams p) {
+__global__ void __launch_bounds__(32 * TREE_WARPS, TREE_BLOCKS)
+    tree_solve_kernel(const TreeSolveParams p) {
   extern __shared__ float smem[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int nv = p.nv, nnz = p.nnz;
-  const size_t w = blockIdx.x;
-  float* P = smem;           // packed rows of LD
-  float* x = smem + nnz;     // right-hand side, then the solution
-  const float* ld = p.ld + w * nv * nv;
-  for (int t = tid; t < nnz; t += nt)
-    P[t] = ld[p.row_of[t] * nv + p.chain[t]];
-  for (int k = tid; k < nv; k += nt) x[k] = p.b[w * nv + k];
-  __syncthreads();
-  tree_sweeps(p, P, x, tid, nt);
-  for (int k = tid; k < nv; k += nt) p.x[w * nv + k] = x[k];
+  const TreeTables& t = p.t;
+  const int lane = threadIdx.x & 31, nv = t.nv;
+  const size_t w = (size_t)blockIdx.x * TREE_WARPS + (threadIdx.x >> 5);
+  if (w >= (size_t)p.nworld) return;
+  float* P = smem + (threadIdx.x >> 5) * (t.nnz + nv);   // packed rows
+  float* x = P + t.nnz;
+  tree_gather(t, p.ld + w * nv * nv, p.b + w * nv, P, x, lane);
+  tree_sweeps(t, P, x, lane);
+  for (int k = lane; k < nv; k += 32) p.x[w * nv + k] = x[k];
 }
 
 __global__ void __launch_bounds__(32 * SPD_WARPS, 4)
@@ -453,28 +538,10 @@ __global__ void __launch_bounds__(32 * SPD_WARPS, 4)
 
 PORT_C_ERROR_STRING
 
-extern "C" int tree_ldl_params_size() { return (int)sizeof(TreeLdlParams); }
-
-extern "C" int tree_ldl_launch(const TreeLdlParams* p, void* stream) {
-  if (p->nworld <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)(p->nnz + p->nv) * sizeof(float);
-  PORT_LAUNCH(tree_ldl_kernel, p->nworld, TREE_LDL_THREADS, smem, stream,
-              *p);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int tree_solve_params_size() {
-  return (int)sizeof(TreeSolveParams);
-}
-
-extern "C" int tree_solve_launch(const TreeSolveParams* p, void* stream) {
-  if (p->nworld <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)(p->nnz + p->nv) * sizeof(float);
-  PORT_LAUNCH(tree_solve_kernel, p->nworld, TREE_LDL_THREADS, smem, stream,
-              *p);
-  return (int)cudaGetLastError();
-}
-
+PORT_C_WARP_ENTRY(tree_ldl_, TreeLdlParams, tree_ldl_kernel, TREE_WARPS,
+                  tree_world_bytes(p->t))
+PORT_C_WARP_ENTRY(tree_solve_, TreeSolveParams, tree_solve_kernel,
+                  TREE_WARPS, tree_world_bytes(p->t))
 PORT_C_WARP_ENTRY(spd_solve_, SpdParams, spd_solve_kernel, SPD_WARPS,
                   spd_world_bytes(p->n))
 PORT_C_WARP_ENTRY(cho_solve_, ChoSolveParams, cho_solve_kernel, SPD_WARPS,

@@ -7,11 +7,11 @@
 // launch(const Params*, cudaStream_t) returns a cudaError_t,
 // params_size() the size of its Params struct, and error_string(int) the
 // message of an error code. A source with several kernels prefixes each
-// kernel's launch and params_size with its name (PORT_C_ENTRY,
-// PORT_C_WARP_ENTRY). B2-B6 run one warp per world
+// kernel's launch and params_size with its name (PORT_C_GROUP_ENTRY,
+// PORT_C_WARP_ENTRY). B2-B8 run one warp per world
 // (PORT_C_WARP_INTERFACE and PORT_C_WARP_ENTRY, which also give
 // launch_shape), B1 and B9-B12 one group of 8, 16 or 32 lanes per world
-// (PORT_C_GROUP_ENTRY); B7 and B8 (batch_linalg.cu) one block per world.
+// (PORT_C_GROUP_ENTRY).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,27 +30,6 @@
 #define PORT_C_ERROR_STRING                                              \
   extern "C" const char* error_string(int err) {                         \
     return cudaGetErrorString((cudaError_t)err);                         \
-  }
-
-#define PORT_C_INTERFACE(Params, kernel, block)                          \
-  extern "C" int params_size() { return (int)sizeof(Params); }           \
-  PORT_C_ERROR_STRING                                                    \
-  extern "C" int launch(const Params* p, void* stream) {                 \
-    if (p->nworld <= 0) return (int)cudaSuccess;                         \
-    int grid = (p->nworld + (block) - 1) / (block);                      \
-    PORT_LAUNCH(kernel, grid, (block), 0, stream, *p);                   \
-    return (int)cudaGetLastError();                                      \
-  }
-
-// a further one-thread-per-world kernel of a source: <prefix>launch and
-// <prefix>params_size; nworld names the world count in its Params
-#define PORT_C_ENTRY(prefix, Params, kernel, block, nworld)              \
-  extern "C" int prefix##params_size() { return (int)sizeof(Params); }   \
-  extern "C" int prefix##launch(const Params* p, void* stream) {         \
-    if (p->nworld <= 0) return (int)cudaSuccess;                         \
-    int grid = (p->nworld + (block) - 1) / (block);                      \
-    PORT_LAUNCH(kernel, grid, (block), 0, stream, *p);                   \
-    return (int)cudaGetLastError();                                      \
   }
 
 // A kernel that runs one world per group of `lanes` lanes (a power of two

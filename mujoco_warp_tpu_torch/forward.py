@@ -361,16 +361,17 @@ def _euler(m: Model, d: Data) -> Data:
   (`_euler_batched` :787). With the damper disabled there is no damping
   to integrate implicitly, so qacc is used as it is, as in C MuJoCo's
   mj_Euler; the JAX package's unfused Euler re-solves with h·dof_damping
-  all the same (ROADMAP §C)."""
+  all the same (ROADMAP §C). The re-solve asks for x alone: the JAX
+  package's also computes a factor, which it drops."""
   from .kernels import batch_linalg as linalg_k
   h = m.opt.timestep
   qacc = d.qacc
   dis = m.opt.disableflags
   if (m.has_damping and not dis & DisableBit.EULERDAMP and
       not dis & DisableBit.DAMPER):
-    qacc, _ = linalg_k.m_solve_factor(
-        d.qM, d.qfrc_smooth + d.qfrc_constraint, m.dof_parentid,
-        diag=h * m.dof_damping)
+    qacc = linalg_k.m_solve_factor(d.qM, d.qfrc_smooth + d.qfrc_constraint,
+                                   m.dof_parentid, diag=h * m.dof_damping,
+                                   return_factor=False)
   qvel = d.qvel + qacc * h
   return d.replace(qvel=qvel, qpos=integrate_pos(m, d.qpos, qvel, h),
                    time=d.time + h, qacc_warmstart=d.qacc)

@@ -17,14 +17,15 @@
   smooth.crb               B12  (pallas/smooth_kernels.crb_batched)
 
 B2 runs one warp per world (both its entries, the pyramidal and the
-elliptic rows). B3, B4, B3e and B4-elliptic share the solve's device
+elliptic rows), and so do B5-B8. B3, B4, B3e and B4-elliptic share the solve's device
 code, csrc/newton.cuh (one warp per world, with the elliptic cone for B3e
 and B4-elliptic); B9-B12 are instantiations of B1's kernel that run some
 of its stages.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, counting launches in its module's
-`launches` (batch_linalg: one count per kernel; glue and newton count the
+`launches` (batch_linalg: one count per kernel, and B7's launches
+without the factor again in `launches_no_factor`; glue and newton count the
 elliptic entries in `launches_ell`, smooth B9-B12 in `launches_front`,
 `launches_kin`, `launches_com` and `launches_crb`).
 """

@@ -1,6 +1,6 @@
-"""Run the kernels B1, B2, B3, B4, B3e, B4-elliptic, B5 and B6 of two
-checkouts of the port on the same saved inputs, and compare their outputs
-bit for bit.
+"""Run the kernels B1, B2, B3, B4, B3e, B4-elliptic, B5, B6, B7 and B8 of
+two checkouts of the port on the same saved inputs, and compare their
+outputs bit for bit.
 
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py inputs FILE
     python3 mujoco_warp_tpu_torch/utils/compare_trees.py run ROOT FILE OUT
@@ -22,7 +22,12 @@ all four of its shapes. B5's inputs are the Hessian of three_humanoids'
 first Newton direction (as chip_smoke.py phase (f) builds it) and the
 humanoid's qM, factored as the CG step factors it (`return_factor`); B6's
 are that factor, from this checkout's B5, and the gradient at the warm
-start.
+start. B7's are its two calls on three_humanoids' state: as
+fwd_acceleration calls it (qM and qfrc_smooth, the factor written) and as
+the Euler re-solve calls it (qfrc_smooth + qfrc_constraint after the
+solve, the diagonal h dof_damping, no factor); B8's are the factor of
+the first, from this checkout's B7, and the gradient at the warm start
+(as chip_smoke.py phase (j) builds them).
 `run` imports `mujoco_warp_tpu_torch` from the checkout at ROOT, builds
 its kernels there, runs each kernel on the saved inputs and saves the
 outputs and each kernel's time: the card's busy time per launch over 20
@@ -33,13 +38,14 @@ kernel.
 that is not bit-equal and the times side by side; it exits 1 if any
 output differs. `--redesigned` names kernels whose design one checkout
 changed, so that their bits may differ (REDESIGNABLE: B3e `glue_ell`,
-B4-elliptic `newton_ell`, B1 `smooth`, B5 `spd_solve`): their
-differences are printed with the largest absolute one, and every file's
-outputs of them are held instead against the plain version on the saved
-inputs: B3e and B4-elliptic by
+B4-elliptic `newton_ell`, B1 `smooth`, B5 `spd_solve`, B7 `tree_ldl`, B8
+`tree_solve`): their differences are printed with the largest absolute
+one, and every file's outputs of them are held instead against the plain
+version on the saved inputs: B3e and B4-elliptic by
 chip_smoke.py's ELLIPTIC count rules (`_check_ell_solve`), B1 at TOL_B1,
-B5 (and B6, which runs B5's sweeps) by `_check_solve`'s residual and
-forward error and B5's factor at TOL_B1; it exits 1 if one misses them,
+B5 (and B6, which runs B5's sweeps), B7 and B8 by `_check_solve`'s
+residual and forward error, B5's factor and B7's packed entries of LD at
+TOL_B1 and B7's LD zero off those entries; it exits 1 if one misses them,
 or if any other kernel's output differs. `turns` saves the inputs (with
 this checkout) to DIR, runs the checkouts A and B in turns A, B, B, A,
 each in its own process, prints each kernel's times in the four turns
@@ -68,7 +74,9 @@ ELL3_STEPS = 2
 REDESIGNABLE = dict(glue_ell=('glue_ell',), newton_ell=('newton_ell',),
                     smooth=('smooth', 'smooth_three_humanoids'),
                     spd_solve=('spd_solve', 'spd_solve_factor',
-                               'cho_solve'))
+                               'cho_solve'),
+                    tree_ldl=('tree_ldl', 'tree_ldl_euler'),
+                    tree_solve=('tree_solve',))
 
 
 def contact_inputs(m, d):
@@ -157,6 +165,11 @@ def make_inputs(path: str) -> None:
     pre = fn(pre)
   J, D, fl, qacc = pre.efc_J, pre.efc_D, pre.efc_frictionloss, \
       pre.qacc_warmstart
+  # B7 as fwd_acceleration and the Euler re-solve call it, B8 on B7's LD
+  post = stages[[n for n, _ in stages].index('solve')][1](pre)
+  qfs3 = pre.qfrc_smooth
+  ld3 = kb.tree_ldl(pre.qM, qfs3, m3.dof_parentid, return_factor=True)[1]
+  grad_ws = torch.einsum('wij,wj->wi', pre.qM, qacc) - qfs3
   jaref = torch.einsum('wrn,wn->wr', J, qacc) - pre.efc_aref
   force, _, quad = solver._update_constraint(
       jaref, D, fl, fl / torch.clamp(D, min=solver.MINVAL),
@@ -178,7 +191,9 @@ def make_inputs(path: str) -> None:
                   g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9]),
                   ge_in=ge_in, ne_in=ge_in[:5] + (qfs_e, ge_in[9]),
                   cone=cone, spd_in=(hess, grad3), spd_factor_in=(qM, qfs),
-                  cho_in=(factor, grad)), path)
+                  cho_in=(factor, grad), tree_in=(pre.qM, qfs3),
+                  tree_euler_in=(pre.qM, qfs3 + post.qfrc_constraint),
+                  tree_solve_in=(ld3, grad_ws)), path)
 
 
 def run(root: str, path: str, out: str) -> None:
@@ -202,6 +217,8 @@ def run(root: str, path: str, out: str) -> None:
   me = mt.override_model(m, ELLIPTIC)
   m3e = mt.override_model(m3, ELLIPTIC)
   hb = m.opt.timestep * m.dof_damping
+  hb3 = m3.opt.timestep * m3.dof_damping
+  parent3 = m3.dof_parentid
   cone = inp['cone']
   calls = dict(
       smooth=lambda: ks.smooth(m, *inp['s_in']),
@@ -220,7 +237,12 @@ def run(root: str, path: str, out: str) -> None:
       spd_solve=lambda: kb.spd_solve(*inp['spd_in']),
       spd_solve_factor=lambda: kb.spd_solve(*inp['spd_factor_in'],
                                             return_factor=True),
-      cho_solve=lambda: kb.cho_solve(*inp['cho_in']))
+      cho_solve=lambda: kb.cho_solve(*inp['cho_in']),
+      tree_ldl=lambda: kb.tree_ldl(*inp['tree_in'], parent3,
+                                   return_factor=True),
+      tree_ldl_euler=lambda: kb.tree_ldl(*inp['tree_euler_in'], parent3,
+                                         diag=hb3),
+      tree_solve=lambda: kb.tree_solve(*inp['tree_solve_in'], parent3))
   outs, ms, wall = {}, {}, {}
   for name, fn in calls.items():
     got = fn()
@@ -272,10 +294,11 @@ def hold_elliptic(name: str, inputs: str):
 def hold_plain(name: str, inputs: str):
   """fn(label, outs) that holds B1's (`smooth`, `smooth_three_humanoids`)
   outputs at TOL_B1 against this checkout's plain version on the saved
-  inputs, B5's (`spd_solve`, `spd_solve_factor`) and B6's (`cho_solve`)
-  x by chip_smoke.py's `_check_solve` (residual, forward error against
-  the float64 plain version) and B5's factor at TOL_B1; it raises if they
-  miss them."""
+  inputs, B5's (`spd_solve`, `spd_solve_factor`), B6's (`cho_solve`),
+  B7's (`tree_ldl`, `tree_ldl_euler`) and B8's (`tree_solve`) x by
+  chip_smoke.py's `_check_solve` (residual, forward error against the
+  float64 plain version), B5's factor and B7's packed entries of LD at
+  TOL_B1 and B7's LD zero elsewhere; it raises if they miss them."""
   sys.path.insert(0, HERE)
   import torch
   import chip_smoke
@@ -290,6 +313,8 @@ def hold_plain(name: str, inputs: str):
     ref = smooth.smooth(m, *s_in)
     return lambda label, out: chip_smoke._compare(
         label, out, ref, chip_smoke.TOL_B1, smooth.OUTPUTS)
+  if name.startswith('tree'):
+    return _hold_tree(name, inp)
   if name == 'cho_solve':
     factor, b = inp['cho_in']
     f64 = factor.double()
@@ -307,6 +332,47 @@ def hold_plain(name: str, inputs: str):
     if 'factor' in out:
       chip_smoke._compare(label, out, dict(factor=factor),
                           chip_smoke.TOL_B1, ['factor'])
+  return hold
+
+
+def _hold_tree(name: str, inp: dict):
+  """hold_plain's rule for B7 and B8 on three_humanoids' saved inputs."""
+  import torch
+  import chip_smoke
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import batch_linalg, models
+  m3 = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
+  parent = m3.dof_parentid
+  if name == 'tree_solve':
+    ld, b = inp['tree_solve_in']
+    ld64 = ld.double()
+    unit_l = torch.tril(ld64, -1) + torch.eye(m3.nv, dtype=torch.float64,
+                                              device=ld.device)
+    a64 = unit_l.transpose(1, 2) @ (torch.diagonal(
+        ld64, dim1=1, dim2=2)[..., None] * unit_l)
+    plain = batch_linalg.tree_solve_from_factor_batched(ld, b, parent)
+    x64 = batch_linalg.tree_solve_from_factor_batched(ld64, b.double(),
+                                                      parent)
+    return lambda label, out: chip_smoke._check_solve(
+        label, a64, b, out['x'], plain, x64)
+  diag = (m3.opt.timestep * m3.dof_damping if name == 'tree_ldl_euler'
+          else None)
+  qM, b = inp['tree_euler_in' if diag is not None else 'tree_in']
+  plain, ld = batch_linalg.tree_ldl_solve_batched(qM, b, parent, diag=diag,
+                                                  return_factor=True)
+  x64 = batch_linalg.tree_ldl_solve_batched(
+      qM.double(), b.double(), parent,
+      diag=None if diag is None else diag.double())
+  a = qM + (torch.diag(diag) if diag is not None else 0)
+  mask = batch_linalg.packed_mask(parent, qM.device)
+
+  def hold(label, out):
+    chip_smoke._check_solve(label, a, b, out['x'], plain, x64)
+    if 'factor' in out:
+      chip_smoke._compare(label, {'LD': out['factor'][:, mask]},
+                          {'LD': ld[:, mask]}, chip_smoke.TOL_B1, ['LD'])
+      if bool(out['factor'][:, ~mask].any()):
+        raise RuntimeError(f'{label}: nonzero LD off the packed entries')
   return hold
 
 

@@ -828,6 +828,47 @@ def test_smooth_and_dense_solves_are_deterministic_and_fit_their_design(
 
 
 @pytest.mark.cuda
+def test_tree_solves_are_deterministic_and_fit_their_design(cuda):
+  """B7 (with and without the factor) and B8 on three_humanoids run one
+  warp per world, kb.TREE_WARPS (at least 4) worlds a block, each world's
+  packed rows and x in shared memory: two launches give the same bits,
+  B7 without the factor gives the x it gives with it, B8 on B7's LD gives
+  B7's x, and ptxas gives them no spill stores and at most 1 KB of
+  stack."""
+  m, d = _state(cuda, 256, 10, models.THREE_HUMANOIDS_NPZ, 100)
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  qM, b, parent = sm['qM'], d.qfrc_applied - sm['qfrc_bias'], m.dof_parentid
+  diag = m.opt.timestep * m.dof_damping
+  x, ld = kb.tree_ldl(qM, b, parent, return_factor=True)
+  calls = dict(
+      factor=lambda: dict(zip('xl', kb.tree_ldl(qM, b, parent,
+                                                 return_factor=True))),
+      factor_diag=lambda: dict(zip('xl', kb.tree_ldl(
+          qM, b, parent, diag=diag, return_factor=True))),
+      no_factor=lambda: dict(x=kb.tree_ldl(qM, b, parent)),
+      no_factor_diag=lambda: dict(x=kb.tree_ldl(qM, b, parent, diag=diag)),
+      tree_solve=lambda: dict(x=kb.tree_solve(ld, b, parent)))
+  outs = {}
+  for name, fn in calls.items():
+    outs[name], again = fn(), fn()
+    for k in again:
+      assert torch.equal(outs[name][k], again[k]), (name, k)
+  assert torch.equal(outs['no_factor']['x'], x)
+  assert torch.equal(outs['no_factor_diag']['x'], outs['factor_diag']['x'])
+  assert torch.equal(outs['tree_solve']['x'], x)
+  assert kb.TREE_WARPS >= 4
+  nnz = sum(len(r) for r in m.dof_ancestor_rows)
+  for entry, kernel in (('tree_ldl_', 'tree_ldl_kernel'),
+                        ('tree_solve_', 'tree_solve_kernel')):
+    grid, block, smem, per_sm = _build.shapes[('batch_linalg', entry)]
+    assert (grid, block) == (256 // kb.TREE_WARPS, 32 * kb.TREE_WARPS)
+    assert smem == kb.TREE_WARPS * 4 * (nnz + m.nv) and per_sm >= 1
+    info = _build.kernel_report('batch_linalg', kernel)
+    assert info['spill_stores'] == 0 and info['stack'] <= 1024, (kernel,
+                                                                 info)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('kernel', ['cho_solve', 'cho_solve_81', 'tree_solve'])
 def test_factor_solve_kernels_match_plain(cuda, kernel):
   """B6 on B5's factor of the humanoid's qM (n 27, the CG step's) and of
