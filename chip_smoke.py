@@ -17,12 +17,21 @@ Phases:
       launches on the same inputs bit-equal;
   (d) with every launch count at 0, run the main path (the harness's
       protocol, utils/benchmark.py: 120 steps with OU control noise, the
-      last 99 timed) and require each kernel to have launched once per
-      step; print steps/s and check for NaN;
+      last 99 timed; the first step eager, the others replayed as one
+      CUDA graph a step) under torch.profiler and require each kernel to
+      have run on the card once per step (a replay calls no wrapper, so
+      its launches are counted by kernel name; over COUNT_STEPS = 22
+      steps, as the profiler loses records of longer replayed runs), and
+      each wrapper to have been called twice (the first step and the
+      capture); run it again over 120 steps without the profiler, print
+      steps/s and check for NaN;
   (e) from the state the main path left, time each kernel and its plain
-      version, compute its bound, and repeat 10 steps of the main path
-      under torch.profiler for the device time per kernel name and the
-      device's busy share.
+      version and compute its bound; then 20 replayed steps against 20
+      eager steps from one state, every Data tensor bit for bit (after two
+      eager runs against each other), and the same 10 steps each way
+      timed and profiled (device time per kernel name, busy share,
+      launches a step, each kernel once a step on the card when
+      replayed).
   Then three_humanoids (nv 81) from its .npz, 8192 worlds, nconmax 100,
   which runs the unfused step:
   (f) step 10 times, then hold B1 and B2 against their plain versions as
@@ -55,7 +64,9 @@ Phases:
       packed LD the same way, and against B7's own x; print its launch
       shape;
   (k) from counts at 0, run one forward_batched (B4 once, B3 never), RK4
-      steps (B4 four times a step), CG steps of the humanoid (B5 once a
+      steps (B4 four times a step; replayed, so counted on the card as in
+      (d), and held against eager steps as in (e)), CG steps of the
+      humanoid (B5 once a
       step, B6 once per solve and per CG pass) and of three_humanoids (B7
       twice a step, B8 once per solve and per pass, B5 never); hold one
       RK4 step and one three_humanoids CG step against the all-plain step
@@ -75,9 +86,10 @@ Phases:
       B2, B3e once a step), P8 (one forward_batched and RK4 steps:
       B4-elliptic once and four times a step) and P9 (three_humanoids'
       unfused step: B7 twice a step, B5 once per Newton direction, the
-      iterative linesearch); hold one step of each against the all-plain
-      step; time B2, B3e and B4-elliptic with their plain versions and
-      bounds.
+      iterative linesearch); P7 and P8 are replayed, counted on the card
+      and held against eager steps as in (d) and (e), P9 steps eagerly;
+      hold one step of each against the all-plain step; time B2, B3e and
+      B4-elliptic with their plain versions and bounds.
   Then the entry point of B9-B12 (kernels.smooth.smooth_front, kinematics,
   com_pos, crb), which reaches no step:
   (p) on the humanoid state of (c) and the three_humanoids state of (f),
@@ -87,7 +99,13 @@ Phases:
       same name (or, where it is not, within TOL_B1, printed), each kernel
       against its plain version at TOL_B1 (B12 also on inputs plus seeded
       noise); time each kernel and its plain version, with its bound.
-One JSON line lists every kernel's record.
+  (q) run the entry points, each in a process of its own: `python -m
+      mujoco_warp_tpu_torch.bench` at BENCH_NSTEP steps (dispatch graph)
+      and `python -m mujoco_warp_tpu_torch.testspeed` on
+      three_humanoids.npz at 8192 worlds, nconmax 100, 12 steps
+      (dispatch eager); print their JSON lines.
+One JSON line lists every kernel's record; a replayed path's launches
+are those the card ran, by kernel name.
 
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero without it. Nothing here imports JAX or the JAX package.
@@ -144,7 +162,6 @@ NITER_MARGIN = 0.01
 # 700 W, PERF.md §6; 124 such worlds in all, B3's own 137, 23 at most in
 # one state).
 LOTTERY_WORLDS = 22
-PROFILE_STEPS = 10
 # three_humanoids (phases f-h): the benchmark suite's configuration
 NCONMAX3 = 100
 PREP3 = 10
@@ -215,16 +232,30 @@ P9_PREP, P9_STEPS = 2, 3
 # the kernels that run one warp per world (WARP_KERNELS): their ptxas
 # report may show at most this much stack and no spill stores
 MAX_STACK_B3 = 1024
+# Replay against eager (phases e, k, o): on each path the harness
+# replays (forward.replays), REPLAY_STEPS steps from one state by graph
+# replay and by the eager loop, the step indices from REPLAY_START (any
+# index: the same for both); then as many steps each way timed and
+# profiled as keep the profile near 2,500 kernels (PROFILE_STEPS of a
+# glue step, PROFILE_RK4 of an RK4 step).
+REPLAY_STEPS = 20
+REPLAY_START = 1000
+PROFILE_STEPS = 10
+PROFILE_RK4 = 2
+# torch.profiler loses kernel records when the card runs many of them
+# fast: a replayed window of 62,700 kernels (50 RK4 steps) lost 282 of
+# them on the H100, windows of 27,000 (120 humanoid steps) lost none. So
+# a replayed path is counted over a short run: the main path over
+# COUNT_STEPS steps in all (a first step, 20 warm-up steps and one
+# timed, the harness's protocol), each profiled window under ~6,500
+# kernels.
+COUNT_STEPS = 22
+# the entry points (phase q): bench at BENCH_NSTEP steps, testspeed on
+# three_humanoids at NSTEP3
+BENCH_NSTEP = 200
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-
-
-def _card() -> str:
-  out = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True, timeout=60).stdout
-  return out.strip().splitlines()[0]
 
 
 def _rel_err(a, b) -> tuple[float, float]:
@@ -463,19 +494,20 @@ def _flops_b2(m, W, c_out, nconmax) -> float:
 
 def _print_profile(label, fn, nstep, step_ms, card):
   """Profile fn (nstep steps): device time per kernel name and the busy
-  share against the host-clock step_ms."""
+  share against the host-clock step_ms; returns the profile's rows."""
   rows = _profile(fn, nstep)
   device_ms = sum(r[2] for r in rows)
   for name, calls, ms in rows[:8]:
     print(f'  {label}: {ms:9.4f} ms/step {calls:6.1f} launches/step  '
           f'{name[:80]}')
   print(json.dumps({label: dict(
-      steps=nstep, step_ms=step_ms,
+      steps=nstep, step_ms=step_ms, steps_per_sec=NWORLD / step_ms * 1e3,
       device_ms=device_ms if rows else 'not measured',
       busy_share=device_ms / step_ms if rows else 'not measured',
       launches_per_step=sum(r[1] for r in rows),
       top=[dict(name=n[:80], launches_per_step=c, ms_per_step=ms)
            for n, c, ms in rows[:8]], card=card)}))
+  return rows
 
 
 @contextlib.contextmanager
@@ -683,11 +715,58 @@ def _zero_counts() -> dict:
   return dict.fromkeys(_read_counts(), 0)
 
 
-def _expect_counts(label, expect):
-  counts = _read_counts()
+def _expect_counts(label, expect, counts=None):
+  """Hold the launch counts (the wrappers', unless `counts` are given) to
+  `expect`."""
+  counts = _read_counts() if counts is None else counts
   print(f'  {label}: launches {counts}')
   if counts != expect:
     raise RuntimeError(f'{label}: launch counts {counts}, expected {expect}')
+
+
+# the CUDA kernels' names, as torch.profiler reports them, of each count
+# of _read_counts
+CARD_NAMES = {
+    'smooth': ('smooth_stages<63>',),
+    'contact': ('contact_kernel', 'contact_ell_kernel'),
+    'glue': ('glue_kernel',), 'glue_ell': ('glue_ell_kernel',),
+    'newton': ('newton_kernel',), 'newton_ell': ('newton_ell_kernel',),
+    'front': ('smooth_stages<26>',), 'kinematics': ('smooth_stages<2>',),
+    'com_pos': ('smooth_stages<8>',), 'crb': ('smooth_stages<16>',),
+    'tree_ldl': ('tree_ldl_kernel',), 'spd_solve': ('spd_solve_kernel',),
+    'cho_solve': ('cho_solve_kernel',), 'tree_solve': ('tree_solve_kernel',)}
+
+
+def _card_counts(rows, nstep) -> dict:
+  """Each kernel's launches that the card ran over a profile's nstep
+  steps (rows of `_profile`), keyed as _read_counts keys them. A replayed
+  graph launches its kernels without a wrapper call, so this is how a
+  replayed path is counted."""
+  counts = _zero_counts()
+  for name, calls, _ in rows:
+    for key, names in CARD_NAMES.items():
+      if any(n in name for n in names):
+        counts[key] += int(round(calls * nstep))
+  return counts
+
+
+def _count_on_card(fn):
+  """fn() under torch.profiler: (its result, `_card_counts` of the run)."""
+  out = []
+  rows = _profile(lambda: out.append(fn()), 1)
+  return out[0], _card_counts(rows, 1)
+
+
+def _check_wrapper_calls(label, on_card, steps):
+  """A replayed run of `steps` steps calls each kernel's wrapper for its
+  first step, run eagerly, and once more for the capture: twice the
+  launches a step that the card ran."""
+  calls = _read_counts()
+  print(f'  {label}: wrapper calls {calls} (the first step and the '
+        f'capture); launches on the card {on_card} in {steps} steps')
+  if any(calls[k] * steps != 2 * on_card[k] for k in calls):
+    raise RuntimeError(f'{label}: wrapper calls {calls} against launches '
+                       f'on the card {on_card} in {steps} steps')
 
 
 def _bench_nstep(steps: int) -> int:
@@ -705,12 +784,27 @@ def _solved(m, d) -> int:
 
 def _run_path(label, m, d, steps, card):
   """Benchmark a path of `steps` steps in all from counts at 0; returns
-  (Data, metrics, steps)."""
+  (Data, metrics, steps, counts): each kernel's launches in the run. A
+  path the harness replays (forward.replays) is run twice from the same
+  state: once under torch.profiler, whose kernel names give its counts
+  (`_card_counts`; the wrapper calls held by `_check_wrapper_calls`), and
+  once without it for the times; an eager path once, counted by its
+  wrappers."""
   import torch
-  from mujoco_warp_tpu_torch import solver
+  from mujoco_warp_tpu_torch import forward, solver
   from mujoco_warp_tpu_torch.utils import benchmark as bench
+  nstep = _bench_nstep(steps)
+  replays = forward.replays(m, d)
+  if replays:
+    _reset_counts()
+    _, counts = _count_on_card(lambda: bench.benchmark(m, d, nstep=nstep))
+    _check_wrapper_calls(label, counts, steps)
   _reset_counts()
-  d, res = bench.benchmark(m, d, nstep=_bench_nstep(steps))
+  d, res = bench.benchmark(m, d, nstep=nstep)
+  if res['dispatch'] != ('graph' if replays else 'eager'):
+    raise RuntimeError(f'{label}: dispatch {res["dispatch"]}')
+  if not replays:
+    counts = _read_counts()
   for k in ('qpos', 'qvel', 'qacc', 'efc_force'):
     if not bool(torch.isfinite(getattr(d, k)).all()):
       raise RuntimeError(f'{label}: non-finite {k}')
@@ -721,9 +815,95 @@ def _run_path(label, m, d, steps, card):
         f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}, '
         f'solve stopped before opt.iterations in {_solved(m, d)} of '
         f'{NWORLD}; {res["converged_worlds"]} worlds without NaN; '
-        f'{passes:.2f} solver passes per step ({card})')
+        f'{passes:.2f} solver passes per step, dispatch '
+        f'{res["dispatch"]} ({card})')
   print(json.dumps({label: dict(res, passes_per_step=passes, card=card)}))
-  return d, res, steps
+  return d, res, steps, counts
+
+
+def _bits(t):
+  """t's bits: a float tensor viewed as int32 (NaN and -0.0 too)."""
+  import torch
+  return t.view(torch.int32) if t.is_floating_point() else t
+
+
+def _differing(a, b) -> list:
+  """The Data fields (contact fields as contact.<name>) whose bits differ
+  between a and b."""
+  import torch
+  from mujoco_warp_tpu_torch.types import CONTACT_TENSORS, DATA_TENSORS
+  pairs = [(k, getattr(a, k), getattr(b, k)) for k in DATA_TENSORS]
+  pairs += [('contact.' + k, getattr(a.contact, k), getattr(b.contact, k))
+            for k in CONTACT_TENSORS]
+  return [k for k, x, y in pairs if not torch.equal(_bits(x), _bits(y))]
+
+
+def _replay_against_eager(label, m, d, per_step, nstep, card):
+  """On a path the harness replays: REPLAY_STEPS steps by graph replay
+  against as many eager steps (`rollout`) from the state d, with the same
+  step indices, every Data tensor bit for bit; two eager runs first, and
+  where those differ the replay is held by phase (g)'s step tolerance
+  instead. Then the same nstep steps timed and profiled each way
+  (steps/s, device ms a step, busy share, launches a step); the replayed
+  profile must show each kernel of `per_step` (counts of _read_counts)
+  that many times a step on the card."""
+  import time
+  import torch
+  from mujoco_warp_tpu_torch import forward
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  if not forward.replays(m, d):
+    raise RuntimeError(f'{label}: the harness does not replay this path')
+  n, start = REPLAY_STEPS, REPLAY_START
+  eager = bench.rollout(m, d, n, start=start)
+  again = _differing(eager, bench.rollout(m, d, n, start=start))
+  replayed = bench.replayed(m, d, n, start=start)
+  torch.cuda.synchronize()
+  diff = _differing(replayed, eager)
+  print(f'  {label}: {n} steps from one state, two eager runs '
+        f'{"bit-equal" if not again else "differ in " + str(again)}; '
+        f'replayed against eager '
+        f'{"bit-equal" if not diff else "differ in " + str(diff)}')
+  if again:
+    _compare(f'{label} replayed', vars(replayed), vars(eager),
+             TOL_STEP_QACC, ['qacc', 'qvel', 'qpos'])
+  elif diff:
+    raise RuntimeError(f'{label}: the replayed steps differ from the '
+                       f'eager steps in {diff}')
+  if not bool(torch.isfinite(replayed.qpos).all()):
+    raise RuntimeError(f'{label}: non-finite qpos after the replay')
+
+  def clock(run):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / nstep * 1e3
+  # each way, the same nstep steps from d are timed in one run and
+  # profiled in another (two graphs captured from d)
+  eager = lambda: bench.rollout(m, d, nstep, start=start)
+  one_step = bench.noise_step(m, d.nworld)
+  step = torch.full((), start, dtype=torch.int32, device=d.qpos.device)
+  bench.warm_step(one_step, d, step)
+
+  def replay(graph):
+    def run():
+      for _ in range(nstep):
+        graph.replay()
+    return run
+  timed, profiled = (replay(bench.GraphStep(one_step, d, step))
+                     for _ in range(2))
+  eager_ms, replay_ms = clock(eager), clock(timed)
+  print(f'  {label}: eager {eager_ms:.4f} ms a step '
+        f'({NWORLD / eager_ms * 1e3:.1f} steps/s), replayed '
+        f'{replay_ms:.4f} ms ({NWORLD / replay_ms * 1e3:.1f} steps/s) at '
+        f'{NWORLD} worlds, host clock over {nstep} steps ({card})')
+  _print_profile(f'{label} eager', eager, nstep, eager_ms, card)
+  rows = _print_profile(f'{label} replayed', profiled, nstep,
+                        replay_ms, card)
+  _expect_counts(f'{label} replayed, on the card',
+                 dict(_zero_counts(), **{k: v * nstep
+                                         for k, v in per_step.items()}),
+                 _card_counts(rows, nstep))
 
 
 def _step_recording(m, d):
@@ -938,11 +1118,13 @@ def _humanoid_paths(card, m, d, errs) -> list:
   if names(rk4) != front + ['solve[cuda]', 'rk4'] or \
       forward.uses_glue_kernel(rk4, d):
     raise RuntimeError('the RK4 humanoid does not run the unfused list')
-  d4, _, steps = _run_path('step_rk4', rk4, d, RK4_STEPS, card)
+  d4, _, steps, counts = _run_path('step_rk4', rk4, d, RK4_STEPS, card)
   _expect_counts('RK4', dict(zero, smooth=4 * steps, contact=4 * steps,
-                             newton=4 * steps))
-  launches_b4 += kn.launches
+                             newton=4 * steps), counts)
+  launches_b4 += counts['newton']
   _compare_step('RK4 step', rk4, d4, TOL_STEP_QACC, ('qacc', 'qvel'))
+  _replay_against_eager('P4', rk4, d, dict(smooth=4, contact=4, newton=4),
+                        PROFILE_RK4, card)
 
   # ---- (k) P5: CG steps ----
   cg = m.replace(opt=m.opt.replace(solver=int(SolverType.CG)))
@@ -950,13 +1132,13 @@ def _humanoid_paths(card, m, d, errs) -> list:
   if names(cg) != front + ['solve', 'euler'] or \
       forward.uses_glue_kernel(cg, d):
     raise RuntimeError('the CG humanoid does not run the unfused list')
-  d5, _, steps = _run_path('step_cg', cg, d, CG_STEPS, card)
+  d5, _, steps, counts = _run_path('step_cg', cg, d, CG_STEPS, card)
   solves = solver.counts['solve'] + solver.counts['passes']
   if solver.counts['solve'] != steps or not solver.counts['passes']:
     raise RuntimeError(f'CG: solver counts {solver.counts}')
   # the humanoid disables eulerdamp: B5 only factors qM, once a step
   _expect_counts('CG', dict(zero, smooth=steps, contact=steps,
-                            spd_solve=steps, cho_solve=solves))
+                            spd_solve=steps, cho_solve=solves), counts)
   launches_b6 = solves
 
   # ---- (l) B4 and B6: times, plain times, bounds, library ----
@@ -1126,6 +1308,8 @@ def _three_humanoids(card) -> list:
   _reset_counts()
   d, res = bench.benchmark(m, d, nstep=_bench_nstep(NSTEP3))
   steps = NSTEP3
+  if res['dispatch'] != 'eager':     # the unfused solve syncs the host
+    raise RuntimeError(f'three_humanoids ran {res["dispatch"]}')
   if kb.launches['tree_solve'] or kb.launches['cho_solve'] or kn.launches:
     raise RuntimeError(f'the Newton step launched {kb.launches}, newton '
                        f'{kn.launches}')
@@ -1259,7 +1443,7 @@ def _three_humanoids(card) -> list:
   if cg_names != names:
     raise RuntimeError('three_humanoids with CG does not run the unfused '
                        'list')
-  d6, _, steps = _run_path('step_cg_three_humanoids', cg, d, CG3_STEPS,
+  d6, _, steps, _ = _run_path('step_cg_three_humanoids', cg, d, CG3_STEPS,
                            card)
   solves = solver.counts['solve'] + solver.counts['passes']
   if solver.counts['solve'] != steps or not solver.counts['passes']:
@@ -1392,10 +1576,10 @@ def _elliptic_humanoid(card, m0, d0) -> list:
   if names(m, d) != ['smooth_mega[cuda]', 'contact_efc_mega[cuda]',
                      'act_len_vel', 'solve_glue[cuda]']:
     raise RuntimeError('the elliptic humanoid does not take the glue list')
-  d7, res7, steps = _run_path('step_elliptic', m, d, P7_STEPS, card)
+  d7, res7, steps, counts7 = _run_path('step_elliptic', m, d, P7_STEPS,
+                                       card)
   _expect_counts('P7', dict(_zero_counts(), smooth=steps, contact=steps,
-                            glue_ell=steps))
-  counts7 = _read_counts()
+                            glue_ell=steps), counts7)
   if not bool((d7.efc_type == 7).any()):
     raise RuntimeError('P7: no elliptic contact rows')
 
@@ -1457,10 +1641,12 @@ def _elliptic_humanoid(card, m0, d0) -> list:
   rk4 = m.replace(opt=m.opt.replace(integrator=int(IntegratorType.RK4)))
   if names(rk4, d7)[-2:] != ['solve[cuda]', 'rk4']:
     raise RuntimeError('the elliptic RK4 humanoid does not run B4-elliptic')
-  d8, _, steps = _run_path('step_elliptic_rk4', rk4, d7, P8_STEPS, card)
+  d8, _, steps, counts = _run_path('step_elliptic_rk4', rk4, d7, P8_STEPS,
+                                   card)
   _expect_counts('P8 RK4', dict(_zero_counts(), smooth=4 * steps,
-                                contact=4 * steps, newton_ell=4 * steps))
-  launches_b4e += kn.launches_ell
+                                contact=4 * steps, newton_ell=4 * steps),
+                 counts)
+  launches_b4e += counts['newton_ell']
   _compare_step('P8 RK4 step', rk4, d8, TOL_STEP_QACC, ('qacc', 'qvel'),
                 spread=True)
 
@@ -1501,9 +1687,10 @@ def _elliptic_humanoid(card, m0, d0) -> list:
           _flops_newton(nv, c_out['nefc'].double(),
                         n_out['solver_niter'].double()) +
           _flops_cone(m, cone, n_in[2], n_out['solver_niter']))
-  _print_profile('profile_elliptic',
-                 lambda: bench.rollout(m, d7, PROFILE_STEPS),
-                 PROFILE_STEPS, res7['step_time_us'] / 1e3, card)
+  _replay_against_eager('P7', m, d7, dict(smooth=1, contact=1,
+                                          glue_ell=1), PROFILE_STEPS, card)
+  _replay_against_eager('P8', rk4, d7, dict(smooth=4, contact=4,
+                                            newton_ell=4), PROFILE_RK4, card)
   return records
 
 
@@ -1546,8 +1733,8 @@ def _elliptic_three(card) -> list:
   _print_warp_shapes('three_humanoids', ('contact_ell_kernel',))
 
   # ---- (o) P9: counted and timed, then one step against the plain ----
-  d9, res9, steps = _run_path('step_elliptic_three_humanoids', m, d,
-                              P9_STEPS, card)
+  d9, res9, steps, _ = _run_path('step_elliptic_three_humanoids', m, d,
+                                 P9_STEPS, card)
   counts = solver.counts
   solves = counts['solve'] + counts['passes']
   print(f'  P9: {counts["passes"] / steps:.2f} Newton passes and '
@@ -1671,6 +1858,40 @@ def _smooth_entries(tag, m, d) -> list:
   return records
 
 
+def _entry_points(card) -> None:
+  """Phase (q): `python -m mujoco_warp_tpu_torch.bench` at BENCH_NSTEP
+  steps (the humanoid, replayed) and `python -m
+  mujoco_warp_tpu_torch.testspeed` on three_humanoids.npz (eager), each
+  in a process of its own; their JSON lines are printed."""
+  import os
+  root = os.path.dirname(os.path.abspath(__file__))
+
+  def run(label, args, env, dispatch, keys):
+    out = subprocess.run([sys.executable, '-m'] + args, cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode:
+      raise RuntimeError(f'{label}: rc {out.returncode}\n{out.stderr}')
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    print(json.dumps({label: line, 'card': card}))
+    missing = [k for k in keys if k not in line]
+    if missing or line['dispatch'] != dispatch or \
+        line['converged_worlds'] != NWORLD:
+      raise RuntimeError(f'{label}: keys missing {missing}, dispatch '
+                         f'{line["dispatch"]}, converged worlds '
+                         f'{line["converged_worlds"]}')
+  run('bench', ['mujoco_warp_tpu_torch.bench'],
+      dict(os.environ, BENCH_NSTEP=str(BENCH_NSTEP)), 'graph',
+      ('metric', 'value', 'vs_baseline', 'jit_time_s', 'step_time_us',
+       'device'))
+  from mujoco_warp_tpu_torch import models
+  run('testspeed three_humanoids',
+      ['mujoco_warp_tpu_torch.testspeed', models.THREE_HUMANOIDS_NPZ,
+       '--nworld', str(NWORLD), '--nconmax', str(NCONMAX3), '--nstep',
+       str(NSTEP3), '--output', 'json'], dict(os.environ), 'eager',
+      ('steps_per_sec', 'jit_time', 'ncon_p95', 'solver_niter_p95',
+       'model_memory_mb', 'data_memory_mb'))
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -1686,10 +1907,11 @@ def main() -> int:
   from mujoco_warp_tpu_torch.kernels import newton as kn
   from mujoco_warp_tpu_torch.kernels import smooth as ks
   from mujoco_warp_tpu_torch.types import DisableBit
+  from mujoco_warp_tpu_torch.bench import card as bench_card
   from mujoco_warp_tpu_torch.utils import benchmark as bench
 
   # ---- (a) card and build ----
-  card = _card()
+  card = bench_card()
   print(f'card: {card}')
   print(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'python {sys.version.split()[0]}')
@@ -1825,18 +2047,29 @@ def main() -> int:
   _print_warp_shapes('humanoid', ('spd_solve_kernel', 'cho_solve_kernel'))
 
   # ---- (d) the main path, counted and timed ----
+  # replayed as one CUDA graph a step: counted on the card by
+  # torch.profiler's kernel names over COUNT_STEPS steps, then run over
+  # NSTEP steps without the profiler for the times, its wrappers called
+  # twice each (the first step and the capture)
+  _reset_counts()
+  (_, res), on_card = _count_on_card(lambda: bench.benchmark(
+      m, d, nstep=_bench_nstep(COUNT_STEPS)))
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'the main path ran {res["dispatch"]}')
+  _expect_no_entries('the main path')
+  _check_wrapper_calls('the main path', on_card, COUNT_STEPS)
+  _expect_counts('the main path, on the card', dict(
+      _zero_counts(), smooth=COUNT_STEPS, contact=COUNT_STEPS,
+      glue=COUNT_STEPS), on_card)
+  counts = {k: on_card[k] for k in ('smooth', 'contact', 'glue')}
   _reset_counts()
   d, res = bench.benchmark(m, d, nstep=NSTEP)
-  counts = {'smooth': ks.launches, 'contact': kc.launches,
-            'glue': kg.launches}
-  if kn.launches:
-    raise RuntimeError('the glue step launched the Newton kernel')
-  _expect_no_entries('the main path')
   steps = bench.total_steps(NSTEP)
-  print(f'launches in the main path: {counts} for {steps} steps')
-  for name, n in counts.items():
-    if n != steps:
-      raise RuntimeError(f'{name}: {n} launches for {steps} steps')
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'the main path ran {res["dispatch"]}')
+  _expect_counts('the main path, timed: wrapper calls (the first step '
+                 'and the capture)', dict(_zero_counts(), smooth=2,
+                                          contact=2, glue=2))
   for k in ('qpos', 'qvel', 'qacc', 'efc_force'):
     if not bool(torch.isfinite(getattr(d, k)).all()):
       raise RuntimeError(f'non-finite {k} after the main path')
@@ -1846,7 +2079,8 @@ def main() -> int:
         f'{res["ncon_mean"]:.2f}, solver_niter mean '
         f'{res["solver_niter_mean"]:.2f}, solve stopped before '
         f'opt.iterations in {_solved(m, d)} of {NWORLD}; '
-        f'{res["converged_worlds"]} worlds without NaN ({card})')
+        f'{res["converged_worlds"]} worlds without NaN; dispatch '
+        f'{res["dispatch"]} ({card})')
   print(json.dumps({'step': dict(res, card=card)}))
 
   # ---- (e) kernel times, plain times and bounds ----
@@ -1896,16 +2130,17 @@ def main() -> int:
          lambda: kg.glue(m, *g_in), lambda: forward.glue(m, *g_in),
          bytes_b3, flops_b3)
 
-  # where a step's device time goes, from the state the kernels were
-  # timed at; the busy share divides by phase (d)'s host-clock step
-  _print_profile('profile', lambda: bench.rollout(m, d, PROFILE_STEPS),
-                 PROFILE_STEPS, res['step_time_us'] / 1e3, card)
+  # the replayed step against the eager step from the state the kernels
+  # were timed at: bits, times and where the device time goes
+  _replay_against_eager('humanoid', m, d, dict(smooth=1, contact=1,
+                                               glue=1), PROFILE_STEPS, card)
 
   records += _humanoid_paths(card, m, d, errs)
   records += _three_humanoids(card)
   records += _elliptic_humanoid(card, m, d)
   records += _elliptic_three(card)
   records += _smooth_entries('', m, d_c)
+  _entry_points(card)
   print(json.dumps({'kernels': records}))
   print(f'card: {card}')
   print(json.dumps({'ok': True, 'device': {

@@ -72,6 +72,7 @@ from . import smooth as smooth_mod
 from . import solver
 from . import support
 from .io import check_options, efc_layout
+from .kernels import _build
 from .types import (CONTACT_TENSORS, BiasType, ConeType, Contact, Data,
                     DisableBit, GainType, IntegratorType, JointType, Model,
                     SolverType)
@@ -87,14 +88,20 @@ def actuator_addrs(m: Model):
 
 def act_len_vel(m: Model, qpos, qvel):
   """actuator_length and actuator_velocity (W, nu) of joint actuators."""
-  qadr, dadr = actuator_addrs(m)
+  t = actuation_tables(m)
   gear0 = m.actuator_gear[:, 0]
-  return qpos[:, qadr] * gear0, qvel[:, dadr] * gear0
+  return qpos[:, t['qadr']] * gear0, qvel[:, t['dadr']] * gear0
 
 
 def actuation_tables(m: Model) -> dict:
-  """Per-actuator and per-dof tables of the affine actuation model,
-  shared by the plain `fwd_actuation` and kernel B3."""
+  """Per-actuator and per-dof tables of the affine actuation model, and
+  each actuator's qpos and dof address as index tensors, shared by the
+  plain `fwd_actuation` and kernel B3. Built once per model, so that a
+  step builds no tensor from host data (a CUDA graph captures it)."""
+  return _build.model_tables(m, 'actuation', _actuation_tables)
+
+
+def _actuation_tables(m: Model) -> dict:
   dev = m.device
   nu = m.nu
   dis = m.opt.disableflags
@@ -119,8 +126,11 @@ def actuation_tables(m: Model) -> dict:
   dof_jnt = list(m.dof_jntid)
   af_lo = torch.where(lim, m.jnt_actfrcrange[dof_jnt, 0], -bigv)
   af_hi = torch.where(lim, m.jnt_actfrcrange[dof_jnt, 1], bigv)
+  qadr, dadr = actuator_addrs(m)
+  idx = lambda x: torch.as_tensor(x, dtype=torch.long, device=dev)
   return dict(gain3=gain3, bias3=bias3, ctrl_lo=ctrl_lo, ctrl_hi=ctrl_hi,
-              frc_lo=frc_lo, frc_hi=frc_hi, af_lo=af_lo, af_hi=af_hi)
+              frc_lo=frc_lo, frc_hi=frc_hi, af_lo=af_lo, af_hi=af_hi,
+              qadr=idx(qadr), dadr=idx(dadr))
 
 
 def fwd_actuation(m: Model, qpos, qvel, ctrl):
@@ -137,10 +147,8 @@ def fwd_actuation(m: Model, qpos, qvel, ctrl):
   bias = b[:, 0] + b[:, 1] * length + b[:, 2] * velocity
   force = torch.minimum(torch.maximum(gain * c + bias, t['frc_lo']),
                         t['frc_hi'])
-  _, dadr = actuator_addrs(m)
   qfa = qpos.new_zeros((W, m.nv))
-  qfa.index_add_(1, torch.tensor(dadr, device=qpos.device),
-                 force * m.actuator_gear[:, 0])
+  qfa.index_add_(1, t['dadr'], force * m.actuator_gear[:, 0])
   qfa = torch.minimum(torch.maximum(qfa, t['af_lo']), t['af_hi'])
   return force, qfa
 
@@ -284,6 +292,21 @@ def uses_glue_kernel(m: Model, d: Data) -> bool:
           m.opt.integrator == IntegratorType.EULER)
 
 
+def replays(m: Model, d: Data) -> bool:
+  """Whether the harness (`utils.benchmark`) replays a step of (m, d) on
+  the card as one CUDA graph, decided from the stage list before the
+  run: True when the list's solve is a kernel, B3 or B3e in the glue
+  list or B4 or B4-elliptic in the unfused list (`uses_newton_kernel`;
+  with the Euler integrator such a model takes the glue list, with RK4
+  the unfused list and four B4 launches). Those lists make no host sync
+  and build no tensor from host data, so one step can be captured. The
+  unfused solve (`solver.solve`) reads `done.all()` on the host once per
+  pass, and with the iterative linesearch once per linesearch step, so
+  every other list steps eagerly: three_humanoids' Newton and CG steps,
+  and the humanoid's CG step."""
+  return uses_newton_kernel(m, d)
+
+
 def forward_stages(m: Model, d: Data) -> list:
   """[(name, fn)] of `forward_batched`, fn: Data -> Data: everything up
   to qacc, the back half never folded."""
@@ -293,12 +316,12 @@ def forward_stages(m: Model, d: Data) -> list:
   fused = uses_newton_kernel(m, d)
 
   def transmission(dd):
-    qadr, _ = actuator_addrs(m)
+    qadr = actuation_tables(m)['qadr']
     return dd.replace(actuator_length=dd.qpos[:, qadr] *
                       m.actuator_gear[:, 0])
 
   def velocity_glue(dd):
-    _, dadr = actuator_addrs(m)
+    dadr = actuation_tables(m)['dadr']
     return dd.replace(actuator_velocity=dd.qvel[:, dadr] *
                       m.actuator_gear[:, 0])
 

@@ -232,6 +232,14 @@ def put_model(mjm, device='cuda') -> Model:
   leaves['opt.gravity'] = f32(mjm.opt.gravity)
   leaves['opt.impratio'] = f32(mjm.opt.impratio)
   leaves['stat.meaninertia'] = f32(mjm.stat.meaninertia)
+  nkey = mjm.nkey
+  leaves.update(
+      key_time=f32(mjm.key_time), key_qpos=f32(mjm.key_qpos).reshape(
+          nkey, mjm.nq), key_qvel=f32(mjm.key_qvel).reshape(nkey, mjm.nv),
+      key_act=f32(mjm.key_act).reshape(nkey, mjm.na),
+      key_ctrl=f32(mjm.key_ctrl).reshape(nkey, mjm.nu),
+      key_mpos=f32(mjm.key_mpos).reshape(nkey, mjm.nmocap, 3),
+      key_mquat=f32(mjm.key_mquat).reshape(nkey, mjm.nmocap, 4))
 
   dof_ancestor_rows, ancestor_mask = _dof_ancestry(mjm.dof_parentid)
   nbody = mjm.nbody
@@ -264,7 +272,7 @@ def put_model(mjm, device='cuda') -> Model:
       njnt=mjm.njnt, ngeom=mjm.ngeom, nsite=mjm.nsite, ncam=mjm.ncam,
       nlight=mjm.nlight, neq=mjm.neq, nmocap=mjm.nmocap,
       ngravcomp=mjm.ngravcomp, nsensor=mjm.nsensor, npair=mjm.npair,
-      nexclude=mjm.nexclude, ntendon=mjm.ntendon,
+      nexclude=mjm.nexclude, ntendon=mjm.ntendon, nkey=mjm.nkey,
       body_parentid=_tup(mjm.body_parentid),
       body_rootid=_tup(mjm.body_rootid),
       body_weldid=_tup(mjm.body_weldid),
@@ -485,6 +493,51 @@ def make_data(m: Model, nconmax: int | None = None, nworld: int = 1) -> Data:
       efc_D=z(njmax), efc_vel=z(njmax), efc_aref=z(njmax),
       efc_frictionloss=z(njmax), efc_force=z(njmax),
       efc_active=torch.zeros((W, njmax), dtype=torch.bool, device=dev))
+
+
+def reset_data(m: Model, d: Data, keyframe: int | None = None) -> Data:
+  """Data of d's nworld and nconmax reset to qpos0, or to a keyframe's
+  time, qpos, qvel, act and ctrl, in every world (mirrors
+  `mujoco_warp_tpu/io.py:1436`; the port has no mocap bodies)."""
+  fresh = make_data(m, nconmax=d.contact.dist.shape[1], nworld=d.nworld)
+  if keyframe is None:
+    return fresh
+  rows = dict(time=m.key_time, qpos=m.key_qpos, qvel=m.key_qvel,
+              act=m.key_act, ctrl=m.key_ctrl)
+  return fresh.replace(**{
+      k: v[keyframe].expand_as(getattr(fresh, k)).clone()
+      for k, v in rows.items()})
+
+
+def reset_data_masked(m: Model, d: Data, reset_mask: torch.Tensor,
+                      keyframe: int | None = None) -> Data:
+  """The worlds where reset_mask (nworld,) is True reset as `reset_data`
+  resets them; the others keep their state (`mujoco_warp_tpu/io.py:1450`)."""
+  fresh = reset_data(m, d, keyframe)
+
+  def mix(f, b):
+    mask = reset_mask.reshape((-1,) + (1,) * (b.dim() - 1))
+    return torch.where(mask, f, b)
+
+  def mix_all(fr, old):
+    return {f.name: mix(getattr(fr, f.name), getattr(old, f.name))
+            for f in dataclasses.fields(old) if f.name != 'contact'}
+  return d.replace(contact=d.contact.replace(**mix_all(fresh.contact,
+                                                       d.contact)),
+                   **mix_all(fresh, d))
+
+
+def find_keys(mjm, prefix: str) -> list[int]:
+  """Ids of the keyframes of a `mujoco.MjModel` whose name starts with
+  prefix (mirrors `mujoco_warp_tpu/io.py:1466`)."""
+  return [k for k in range(mjm.nkey)
+          if mjm.key(k).name and mjm.key(k).name.startswith(prefix)]
+
+
+def make_trajectory(mjm, keys: list[int]) -> np.ndarray:
+  """The keyframes' ctrl rows stacked into a (len(keys), nu) replay
+  trajectory (mirrors `mujoco_warp_tpu/io.py:1476`)."""
+  return np.stack([mjm.key_ctrl[k] for k in keys])
 
 
 def data_from_numpy(m: Model, fields: dict, nconmax: int | None = None

@@ -105,8 +105,11 @@ def glue(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos, qvel,
 
 
 def cone_values(m: Model, efc_J, cone, dev) -> dict:
-  """The parameters of the elliptic cone (B3e, B4-elliptic), checked."""
-  friction, dim, impratio = cone
+  """The parameters of the elliptic cone (B3e, B4-elliptic), checked.
+  impratio is the model's, read on the host once per model: `cone`'s
+  (`solver.cone_inputs`) is the same value on the device, and reading it
+  would make every call wait for the card."""
+  friction, dim, _ = cone
   W, nj = efc_J.shape[0], efc_J.shape[1]
   C = friction.shape[1]
   ne, nf, nl, stride, njmax = efc_layout(m, C)
@@ -115,7 +118,9 @@ def cone_values(m: Model, efc_J, cone, dev) -> dict:
                      f'{njmax} rows, stride cap {MAXS})')
   _build.check('con_friction', friction, (W, C, 5), device=dev)
   _build.check('con_dim', dim, (W, C), dtype=torch.int32, device=dev)
-  return dict(con_friction=friction, con_dim=dim, impratio=float(impratio),
+  impratio = _build.model_tables(
+      m, 'cone', lambda mm: dict(impratio=float(mm.opt.impratio)))
+  return dict(con_friction=friction, con_dim=dim, **impratio,
               efc_base=ne + nf + nl, stride=stride, nconmax=C)
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import math
+from .kernels import _build
 from .types import DisableBit, JointType, Model
 
 # outputs of the smooth stage, in the order kernels/smooth.py returns them
@@ -227,13 +228,20 @@ def _lookat(pos, target):
   return torch.stack([x, math.cross(z, x), z], -1)
 
 
+def _camlight_index(m: Model) -> dict:
+  """cam_bodyid and light_bodyid as index tensors, built once per model."""
+  idx = lambda x: torch.as_tensor(x, dtype=torch.long, device=m.device)
+  return dict(cam=idx(m.cam_bodyid), light=idx(m.light_bodyid))
+
+
 def camlight(m: Model, xpos, xquat, subtree_com) -> dict:
   """Camera and light frames (W, ...) with the FIXED, TRACK, TRACKCOM,
   TARGETBODY and TARGETBODYCOM modes (mirrors `smooth.camlight` :253)."""
   out = {}
+  body = _build.model_tables(m, 'camlight', _camlight_index)
   if m.ncam:
-    bq = xquat[:, list(m.cam_bodyid)]
-    pos = xpos[:, list(m.cam_bodyid)] + math.rot_vec_quat(m.cam_pos, bq)
+    bq = xquat[:, body['cam']]
+    pos = xpos[:, body['cam']] + math.rot_vec_quat(m.cam_pos, bq)
     mat = math.quat_to_mat(math.mul_quat(bq, m.cam_quat))
     poss, mats = [], []
     for c in range(m.ncam):
@@ -251,8 +259,8 @@ def camlight(m: Model, xpos, xquat, subtree_com) -> dict:
       mats.append(R)
     out.update(cam_xpos=torch.stack(poss, 1), cam_xmat=torch.stack(mats, 1))
   if m.nlight:
-    bq = xquat[:, list(m.light_bodyid)]
-    lpos = xpos[:, list(m.light_bodyid)] + math.rot_vec_quat(m.light_pos, bq)
+    bq = xquat[:, body['light']]
+    lpos = xpos[:, body['light']] + math.rot_vec_quat(m.light_pos, bq)
     ldir = math.rot_vec_quat(m.light_dir, bq)
     poss, dirs = [], []
     for c in range(m.nlight):

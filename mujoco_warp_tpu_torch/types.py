@@ -263,6 +263,7 @@ class Model(_Tensors):
   npair: int
   nexclude: int
   ntendon: int
+  nkey: int
   # structure
   body_parentid: IntTuple
   body_rootid: IntTuple
@@ -367,6 +368,15 @@ class Model(_Tensors):
   pair_margin: torch.Tensor
   pair_gap: torch.Tensor
   pair_friction: torch.Tensor
+  # keyframes: (nkey,), (nkey, nq), (nkey, nv), (nkey, na), (nkey, nu),
+  # (nkey, nmocap, 3), (nkey, nmocap, 4)
+  key_time: torch.Tensor
+  key_qpos: torch.Tensor
+  key_qvel: torch.Tensor
+  key_act: torch.Tensor
+  key_ctrl: torch.Tensor
+  key_mpos: torch.Tensor
+  key_mquat: torch.Tensor
   # (nv, nv) 0/1: dof j is an ancestor (or self) of dof i
   dof_ancestor_mask: torch.Tensor
   # (nbody, nbody) 0/1: body c is in the subtree of body b

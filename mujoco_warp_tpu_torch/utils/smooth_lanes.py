@@ -14,7 +14,6 @@ limit. It exits 1 if a lane count changes a bit. It needs a card.
 
 import json
 import os
-import subprocess
 import sys
 
 NWORLD = 8192
@@ -30,10 +29,9 @@ def main() -> int:
   from mujoco_warp_tpu_torch.kernels import _build
   from mujoco_warp_tpu_torch.kernels import smooth as ks
   from mujoco_warp_tpu_torch.utils import benchmark as bench
+  from mujoco_warp_tpu_torch.bench import card as bench_card
   from mujoco_warp_tpu_torch.utils.compare_trees import device_ms
-  card = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True).stdout.strip()
+  card = bench_card()
   bad = 0
   for npz, nconmax in ((models.HUMANOID_NPZ, 24),
                        (models.THREE_HUMANOIDS_NPZ, 100)):

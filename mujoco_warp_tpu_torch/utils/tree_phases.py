@@ -66,13 +66,12 @@ def main() -> int:
   from mujoco_warp_tpu_torch import models, smooth
   from mujoco_warp_tpu_torch.kernels import _build
   from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
+  from mujoco_warp_tpu_torch.bench import card as bench_card
   from mujoco_warp_tpu_torch.utils.compare_trees import device_ms
   if not torch.cuda.is_available():
     print('tree_phases needs a CUDA device', file=sys.stderr)
     return 1
-  card = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True).stdout.strip()
+  card = bench_card()
   out_dir = os.path.join(ROOT, 'build', 'tree_phases')
   os.makedirs(out_dir, exist_ok=True)
   with open(os.path.join(_build.CSRC, 'batch_linalg.cu')) as f:

@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: its package and chip_smoke.py import
 neither JAX nor the JAX package; `mujoco` appears only in the .npz
-regeneration script; and no `try` wraps a kernel launch (a CUDA tensor
-goes to its kernel or raises, it never falls back)."""
+regeneration script and in testspeed's MJCF loader; and no `try` wraps a
+kernel launch or a graph capture or replay (a CUDA tensor goes to its
+kernel or raises, it never falls back)."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ PKG = os.path.join(ROOT, 'mujoco_warp_tpu_torch')
 FILES = sorted(
     [os.path.join(dp, f) for dp, _, fs in os.walk(PKG) for f in fs
      if f.endswith('.py')] + [os.path.join(ROOT, 'chip_smoke.py')])
-MUJOCO_OK = {os.path.join(PKG, 'models', 'regenerate.py')}
+MUJOCO_OK = {os.path.join(PKG, 'models', 'regenerate.py'),
+             os.path.join(PKG, 'testspeed.py')}
 LAUNCHERS = {'launch', '_launch', 'smooth', 'contact', 'glue',
              'step_batched', 'glue_stages', 'benchmark', 'tree_ldl',
              'spd_solve', '_launch_tree_ldl', '_launch_spd_solve',
@@ -22,7 +24,9 @@ LAUNCHERS = {'launch', '_launch', 'smooth', 'contact', 'glue',
              '_launch_tree_solve', 'm_solve_factor', 'm_cho_solve',
              'forward_stages', 'forward_batched', 'kinematics', 'com_pos',
              'crb', 'smooth_front', '_launch_kinematics', '_launch_com_pos',
-             '_launch_crb', '_launch_smooth_front', '_launch_entry'}
+             '_launch_crb', '_launch_smooth_front', '_launch_entry',
+             'benchmark_replay', '_protocol', 'replayed', 'GraphStep',
+             'replay', 'warm_step', 'one_step', 'rollout'}
 
 
 def _imports(tree):
@@ -75,5 +79,8 @@ def test_the_scan_sees_the_package():
                'mujoco_warp_tpu_torch/kernels/contact.py',
                'mujoco_warp_tpu_torch/utils/compare_trees.py',
                'mujoco_warp_tpu_torch/solver.py',
+               'mujoco_warp_tpu_torch/testspeed.py',
+               'mujoco_warp_tpu_torch/bench.py',
+               'mujoco_warp_tpu_torch/utils/benchmark.py',
                'mujoco_warp_tpu_torch/forward.py'):
     assert must in names

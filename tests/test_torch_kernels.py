@@ -1055,3 +1055,25 @@ def test_elliptic_paths_launch_the_elliptic_kernels(cuda):
   torch.cuda.synchronize()
   assert (kn.launches, kn.launches_ell, kg.launches_ell) == (0, 5, 0)
   assert bool(torch.isfinite(out.qpos).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', ['glue', 'elliptic', 'rk4'])
+def test_replayed_steps_equal_eager_steps(cuda, variant):
+  """10 steps replayed as one CUDA graph give every Data tensor the bits
+  of 10 eager steps with the same step indices; the benchmark replays."""
+  m, d = _state(cuda, 256, 20, elliptic=variant == 'elliptic')
+  if variant == 'rk4':
+    m = _with(m, integrator=int(IntegratorType.RK4))
+  assert forward.replays(m, d)
+  eager = benchmark.rollout(m, d, 10, start=20)
+  replayed = benchmark.replayed(m, d, 10, start=20)
+  torch.cuda.synchronize()
+  bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+  for k in mt.types.DATA_TENSORS:
+    assert torch.equal(bits(getattr(replayed, k)), bits(getattr(eager, k))), k
+  for k in mt.types.CONTACT_TENSORS:
+    assert torch.equal(bits(getattr(replayed.contact, k)),
+                       bits(getattr(eager.contact, k))), k
+  _, res = benchmark.benchmark(m, d, nstep=3)
+  assert res['dispatch'] == 'graph' and res['converged_worlds'] == 256

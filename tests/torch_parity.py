@@ -33,6 +33,36 @@ SCENES = {
 }
 
 
+# a slide and a hinge over a plane, in contact at every keyframe, with a
+# ctrl-limited motor and keyframes, three of them named lift_*
+KEYED = """
+<mujoco>
+  <option timestep="0.005"/>
+  <worldbody>
+    <geom type="plane" size="5 5 0.1"/>
+    <body pos="0 0 0.04">
+      <joint name="lift" type="slide" axis="0 0 1" damping="0.1"/>
+      <geom type="capsule" size="0.05" fromto="0 0 0 0.3 0 0" mass="1"/>
+      <body pos="0.3 0 0">
+        <joint name="tilt" type="hinge" axis="0 1 0" damping="0.05"/>
+        <geom type="sphere" size="0.06" mass="0.4"/>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="lift" gear="10" ctrlrange="-1 1" ctrllimited="true"/>
+    <motor joint="tilt" gear="2"/>
+  </actuator>
+  <keyframe>
+    <key name="lift_0" time="0.5" qpos="0 0.2" qvel="0.1 -0.1"
+         ctrl="0.5 0.1"/>
+    <key name="lift_1" qpos="-0.005 -0.1" ctrl="-0.2 0.4"/>
+    <key name="rest"/>
+    <key name="lift_2" qpos="0.002 0.3" ctrl="1.0 -0.5"/>
+  </keyframe>
+</mujoco>
+"""
+
 # scenes read from their files (they include other files)
 FILES = {'three_humanoids': models.THREE_HUMANOIDS}
 ALL_SCENES = sorted(SCENES) + sorted(FILES)
