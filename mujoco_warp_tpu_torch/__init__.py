@@ -7,7 +7,8 @@ on the card unless the caller passes device='cpu'.
 
 import torch
 
-from .forward import forward_batched, step_batched
+from . import derivative
+from .forward import forward_batched, implicit, step1, step2, step_batched
 from .io import (data_from_numpy, efc_layout, load_model, make_data,
                  model_from_numpy, override_model, put_model, save_model)
 from .parallel import make_batch

@@ -2,7 +2,9 @@
 // slide/hinge joints, joint springs and dampers, qfrc_smooth, the
 // Cholesky factor of qM and qacc_smooth, the whole Newton solve, the
 // integration-diagonal re-solve (mode 1: Euler with implicit joint
-// damping) and the semi-implicit Euler advance of qvel and qpos. Both run
+// damping; mode 2: implicitfast, qM - h qDeriv with qDeriv diagonal, each
+// world's from its ctrl, _glue_core :1146-1156) and the semi-implicit
+// advance of qvel and qpos. Both run
 // one warp per world (glue_warp<ELL>): B3 (glue_kernel) solves with the
 // pyramidal cone, B3e (glue_ell_kernel) with the elliptic cone of the
 // contacts' friction and dim.
@@ -51,7 +53,8 @@ struct Params {
                              //   frc_lo frc_hi
   const int* dof_int;        // (nv): qposadr of the dof's spring
   const float* dof_float;    // (nv, 6): damping stiffness springref
-                             //   af_lo af_hi hdiag
+                             //   af_lo af_hi hdiag (mode 1; mode 2: its
+                             //   damping part)
   const int* jnt_int;        // (njnt, 3): type qposadr dofadr
   const float* ls_scales;    // (ls_k) linesearch bracket scales
   float* qacc;
@@ -92,6 +95,13 @@ using EllParams = ConeParams<Params>;   // B3e's
 
 enum { kFree = 0, kBall = 1 };
 
+// WarpMem's aux words a world: the actuators' forces on their dofs, and in
+// mode 2 a slot of MAXNV for the world's integration diagonal, which no
+// stage writes again before the re-solve reads it
+__host__ __device__ inline int glue_aux(const Params& p) {
+  return p.nu + (p.mode == 2 ? MAXNV : 0);
+}
+
 // world w in its warp, with the elliptic cone of the contacts ci (ELL;
 // unread otherwise); sm its shared memory
 template <bool ELL>
@@ -124,12 +134,25 @@ DEV void glue_warp(const Params& p, const ConeIn& ci, const WarpMem& sm,
 
   // ---- passive springs and dampers, qfrc_smooth, one dof per lane ----
   float qfs = 0.0f;
+  float* hdiag = sm.aux + nu;    // mode 2's diagonal (glue_aux)
   if (own) {
     float qfa = 0.0f;    // the dof's actuator forces, in actuator order
     if (p.actuation_on)
       for (int u = 0; u < nu; ++u)
         if (p.act_int[2 * u + 1] == lane) qfa += sm.aux[u];
     const float* d = p.dof_float + 6 * lane;
+    if (p.mode == 2) {
+      // h damping - h sum gear0^2 (bias3[2] + gain3[2] ctrl) over the
+      // dof's actuators in actuator order, from the raw ctrl
+      float act = 0.0f;
+      if (p.actuation_on)
+        for (int u = 0; u < nu; ++u)
+          if (p.act_int[2 * u + 1] == lane) {
+            const float* a = p.act_float + 11 * u;
+            act += (a[0] * a[0]) * (a[8] + a[5] * p.ctrl[(size_t)w * nu + u]);
+          }
+      hdiag[lane] = d[5] - h * act;
+    }
     if (p.actuation_on) qfa = fminf(fmaxf(qfa, d[3]), d[4]);
     const float spring = -d[1] * (qpos[p.dof_int[lane]] - d[2]);
     const float damper = -d[0] * qvel[lane];
@@ -147,6 +170,8 @@ DEV void glue_warp(const Params& p, const ConeIn& ci, const WarpMem& sm,
   if (p.mode == 1) {
     s.hdiag = p.dof_float + 5;
     s.hdiag_stride = 6;
+  } else if (p.mode == 2) {
+    s.hdiag = hdiag;
   }
   const float qacce = warp_newton<ELL>(s, ci, sm, qfs, lane);
 
@@ -193,9 +218,9 @@ DEV void glue_block(const P& p) {
   if (w >= p.nworld) return;
   ConeIn ci{};
   if constexpr (ELL) ci = world_cone(p, w);
-  const int words = warp_mem_words(p.nv, p.nu, p.nj, ci.C, ci.S);
-  glue_warp<ELL>(p, ci, warp_mem(smem + wb * words, p.nv, p.nu, p.nj, ci.C,
-                                 ci.S), w, lane);
+  const int words = warp_mem_words(p.nv, glue_aux(p), p.nj, ci.C, ci.S);
+  glue_warp<ELL>(p, ci, warp_mem(smem + wb * words, p.nv, glue_aux(p), p.nj,
+                                 ci.C, ci.S), w, lane);
 }
 
 __global__ void __launch_bounds__(WARPS * 32, 16 / WARPS)
@@ -209,7 +234,7 @@ glue_ell_kernel(const EllParams p) {
 }
 
 PORT_C_WARP_INTERFACE(Params, glue_kernel, WARPS,
-                      4 * warp_mem_words(p->nv, p->nu, p->nj))
+                      4 * warp_mem_words(p->nv, glue_aux(*p), p->nj))
 PORT_C_WARP_ENTRY(ell_, EllParams, glue_ell_kernel, WARPS,
-                  4 * warp_mem_words(p->nv, p->nu, p->nj, p->nconmax,
+                  4 * warp_mem_words(p->nv, glue_aux(*p), p->nj, p->nconmax,
                                      p->stride))

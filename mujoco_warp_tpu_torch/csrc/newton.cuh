@@ -204,7 +204,8 @@ struct WarpMem {
   float* L;      // nv x ld: a matrix to factor, then its lower factor
   float* dinv;   // 32: its pivots' reciprocal roots
   float* vec;    // 32: a dof vector, read by every lane
-  float* aux;    // naux: the actuators' forces on their dofs (B3)
+  float* aux;    // naux: B3's (glue_aux: the actuators' forces on their
+                 //   dofs, and mode 2's integration diagonal)
   float* Jc;     // jcap x ld: efc_J of the first jcap acting rows
   float* D;      // nj each: the acting rows' state
   float* fl;

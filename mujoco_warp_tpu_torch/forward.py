@@ -4,20 +4,22 @@ unfused batched step.
 `step_batched` picks a stage list as the JAX package's `_step_batched`
 (`mujoco_warp_tpu/forward.py:867`) does and runs it under the same stage
 names, with the Pallas kernels replaced by the CUDA kernels of
-`kernels/`. With the Newton solver, the Euler integrator and 0 < nv <= 32
-it runs the glue-folded list (`_glue_stages` :577), for either cone:
+`kernels/`. With the Newton solver, the Euler or implicitfast integrator
+and 0 < nv <= 32 it runs the glue-folded list (`_glue_stages` :577), for
+either cone:
 
   smooth_mega[cuda]       kernel B1: kinematics .. rne
   camlight                camera and light frames (tensor ops)
   contact_efc_mega[cuda]  kernel B2: narrowphase, compaction, efc rows
   act_len_vel             actuator lengths and velocities (tensor ops)
   solve_glue[cuda]        kernel B3 (pyramidal) or B3e (elliptic):
-                          actuation, passive, Newton, advance
+                          actuation, passive, Newton, the re-solve with
+                          the integration diagonal (`glue_mode`), advance
 
 Otherwise `forward_batched`'s list (`forward_stages`: the `use_mega`
 branch of `batched_stages` :698-758, which never folds the back half)
-and then the integrator, `_euler_batched` (:787-800) or `_rk4_batched`
-(:815-839):
+and then the integrator, `_euler_batched` (:787-800), `_rk4_batched`
+(:815-839) or `_implicit_batched` (:803-812):
 
   smooth_mega[cuda], camlight, contact_efc_mega[cuda]   as above
   transmission            actuator lengths
@@ -35,7 +37,11 @@ and then the integrator, `_euler_batched` (:787-800) or `_rk4_batched`
   euler                   eulerdamp: kernel B7 or B5 with diag h·damping;
                           advance, or
   rk4                     three more `forward_batched` and the Runge-Kutta
-                          combination
+                          combination, or
+  implicitfast            qDeriv (`derivative`); kernel B5 on qM - h·qDeriv;
+                          advance
+
+`step1` runs that list up to passive, `step2` the rest.
 
 The elliptic kernels B3e and B4-elliptic run where the JAX package builds
 its cone for its kernels (`solver.cone_inputs`: the elliptic cone, a
@@ -153,22 +159,54 @@ def fwd_actuation(m: Model, qpos, qvel, ctrl):
   return force, qfa
 
 
+def actuator_vel_coeff(m: Model, ctrl):
+  """(W, nu) d force / d velocity of each affine actuator: biasprm[2] for
+  AFFINE bias plus gainprm[2] * ctrl for AFFINE gain, from the raw ctrl
+  (the actuator term of qDeriv, JAX `derivative.py:31-44`)."""
+  t = actuation_tables(m)
+  return t['bias3'][:, 2] + t['gain3'][:, 2] * ctrl
+
+
 def glue_mode(m: Model) -> int:
   """Integration diagonal of the glue solve: 0 plain Euler, 1 Euler with
-  implicit joint damping (mirrors forward._glue_mode :469)."""
+  implicit joint damping, 2 implicitfast (mirrors forward._glue_mode
+  :469, which asks for implicitfast first)."""
+  if m.opt.integrator == IntegratorType.IMPLICITFAST:
+    return 2
   if m.has_damping and not m.opt.disableflags & DisableBit.EULERDAMP:
     return 1
   return 0
 
 
-def integration_diag(m: Model):
-  """h * dof damping, the diagonal of the mode-1 re-solve
-  (qM + diag) qacc_euler = qfrc_smooth + qfrc_constraint; None in mode 0."""
-  if glue_mode(m) != 1:
-    return None
+def damping_diag(m: Model):
+  """h * dof damping (nv,), zero with the damper disabled, as in C
+  MuJoCo and the glue kernel (`solver_kernels.py:848`)."""
   if m.opt.disableflags & DisableBit.DAMPER:
     return torch.zeros_like(m.dof_damping)
   return m.opt.timestep * m.dof_damping
+
+
+def integration_diag(m: Model, ctrl=None):
+  """The diagonal of the glue solve's re-solve (qM + diag) qacc_euler =
+  qfrc_smooth + qfrc_constraint: None in mode 0; in mode 1 h * damping
+  (nv,); in mode 2 −h diag(qDeriv) per world (nworld, nv), h * damping −
+  h Σᵤ gear0² (bias3[2] + gain3[2] ctrl) over each dof's actuators in
+  actuator order, from the raw ctrl (`_glue_core` :1146-1156)."""
+  mode = glue_mode(m)
+  if mode == 0:
+    return None
+  hdamp = damping_diag(m)
+  if mode == 1:
+    return hdamp
+  h = m.opt.timestep
+  W = ctrl.shape[0]
+  if m.nu == 0 or m.opt.disableflags & DisableBit.ACTUATION:
+    return hdamp.expand(W, m.nv)
+  gear0 = m.actuator_gear[:, 0]
+  act = (gear0 * gear0) * actuator_vel_coeff(m, ctrl)
+  per_dof = ctrl.new_zeros((W, m.nv)).index_add_(
+      1, actuation_tables(m)['dadr'], act)
+  return hdamp - h * per_dof
 
 
 def integrate_pos(m: Model, qpos, qvel, h):
@@ -206,7 +244,7 @@ def glue(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
   out = solver.newton(
       m, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qfs, qacc_warmstart,
       ne, nf, use_warmstart=not m.opt.disableflags & DisableBit.WARMSTART,
-      hdiag=integration_diag(m), cone=cone)
+      hdiag=integration_diag(m, ctrl), cone=cone)
   qvel_new = qvel + h * out['qacc_euler']
   out.update(actuator_force=afrc, qfrc_actuator=qfa, qfrc_spring=qfsp,
              qfrc_damper=qfdp, qfrc_passive=qfp, qfrc_smooth=qfs,
@@ -286,10 +324,11 @@ def uses_glue_kernel(m: Model, d: Data) -> bool:
   """True when the step folds its back half into kernel B3, as the JAX
   package's gate (`forward._glue_gates` :473): the solve would be the
   Newton kernel's (`uses_newton_kernel`) and the integrator is one the
-  fold advances with (`solver_kernels.glue_supported` :723-725; of
-  those the port has Euler)."""
+  fold advances with (`solver_kernels.glue_supported` :723-729: Euler,
+  or implicitfast in mode 2)."""
   return (uses_newton_kernel(m, d) and
-          m.opt.integrator == IntegratorType.EULER)
+          m.opt.integrator in (IntegratorType.EULER,
+                               IntegratorType.IMPLICITFAST))
 
 
 def replays(m: Model, d: Data) -> bool:
@@ -297,13 +336,14 @@ def replays(m: Model, d: Data) -> bool:
   the card as one CUDA graph, decided from the stage list before the
   run: True when the list's solve is a kernel, B3 or B3e in the glue
   list or B4 or B4-elliptic in the unfused list (`uses_newton_kernel`;
-  with the Euler integrator such a model takes the glue list, with RK4
+  with the Euler or implicitfast integrator such a model takes the glue
+  list, whose mode-2 diagonal is built from ctrl on the device, with RK4
   the unfused list and four B4 launches). Those lists make no host sync
   and build no tensor from host data, so one step can be captured. The
   unfused solve (`solver.solve`) reads `done.all()` on the host once per
   pass, and with the iterative linesearch once per linesearch step, so
-  every other list steps eagerly: three_humanoids' Newton and CG steps,
-  and the humanoid's CG step."""
+  every other list steps eagerly: three_humanoids' Newton and CG steps
+  (implicitfast too) and the humanoid's CG step."""
   return uses_newton_kernel(m, d)
 
 
@@ -348,7 +388,8 @@ def forward_stages(m: Model, d: Data) -> list:
 
   def solve_newton_kernel(dd):
     # no hb: a Newton + Euler model that reaches B4 steps through the
-    # glue list, so nothing would read the damped re-solve
+    # glue list, and step2 re-solves in its integrator, so nothing would
+    # read the damped re-solve
     return dd.replace(**newton_k.newton_solve(
         m, dd.qM, dd.efc_J, dd.efc_D, dd.efc_aref, dd.efc_frictionloss,
         dd.qfrc_smooth, dd.qacc_warmstart,
@@ -379,6 +420,14 @@ def forward_batched(m: Model, d: Data) -> Data:
   return _run(forward_stages(m, d), d)
 
 
+def _advance(m: Model, d: Data, qacc) -> Data:
+  """The semi-implicit advance with qacc (`_advance` :331)."""
+  h = m.opt.timestep
+  qvel = d.qvel + qacc * h
+  return d.replace(qvel=qvel, qpos=integrate_pos(m, d.qpos, qvel, h),
+                   time=d.time + h, qacc_warmstart=d.qacc)
+
+
 def _euler(m: Model, d: Data) -> Data:
   """Semi-implicit Euler with implicit joint damping
   (`_euler_batched` :787). With the damper disabled there is no damping
@@ -395,9 +444,20 @@ def _euler(m: Model, d: Data) -> Data:
     qacc = linalg_k.m_solve_factor(d.qM, d.qfrc_smooth + d.qfrc_constraint,
                                    m.dof_parentid, diag=h * m.dof_damping,
                                    return_factor=False)
-  qvel = d.qvel + qacc * h
-  return d.replace(qvel=qvel, qpos=integrate_pos(m, d.qpos, qvel, h),
-                   time=d.time + h, qacc_warmstart=d.qacc)
+  return _advance(m, d, qacc)
+
+
+def implicit(m: Model, d: Data) -> Data:
+  """The implicitfast integrator (`_implicit_batched` :803-812): qDeriv
+  (`derivative.deriv_smooth_vel`), mh = qM − h·qDeriv made symmetric (the
+  JAX package factors the symmetric part, ROADMAP §C), qacc from mh qacc
+  = qfrc_smooth + qfrc_constraint by kernel B5, then the advance."""
+  from . import derivative
+  from .kernels import batch_linalg as linalg_k
+  mh = d.qM - m.opt.timestep * derivative.deriv_smooth_vel(m, d)
+  mh = 0.5 * (mh + mh.transpose(1, 2))
+  return _advance(m, d, linalg_k.spd_solve(
+      mh, d.qfrc_smooth + d.qfrc_constraint))
 
 
 def _rk4(m: Model, d: Data, forward: list) -> Data:
@@ -431,9 +491,36 @@ def unfused_stages(m: Model, d: Data) -> list:
   forward = forward_stages(m, d)
   if m.opt.integrator == IntegratorType.RK4:
     last = ('rk4', lambda dd: _rk4(m, dd, forward))
+  elif m.opt.integrator == IntegratorType.IMPLICITFAST:
+    last = ('implicitfast', lambda dd: implicit(m, dd))
   else:
     last = ('euler', lambda dd: _euler(m, dd))
   return forward + [last]
+
+
+def _split(stages: list) -> int:
+  """Where step2's stages begin: at fwd_actuation."""
+  return [n for n, _ in stages].index('fwd_actuation')
+
+
+def step1(m: Model, d: Data) -> Data:
+  """The position and velocity stages of the unfused list, for ctrl set
+  between step1 and step2 (`step1` :881): B1, camlight, B2,
+  transmission, velocity_glue and passive (the JAX function's sensors
+  are outside the gate)."""
+  stages = forward_stages(m, d)
+  return _run(stages[:_split(stages)], d)
+
+
+def step2(m: Model, d: Data) -> Data:
+  """Actuation onward and the integrator (`step2` :891): fwd_actuation,
+  fwd_acceleration, the solve (kernel B4 where `uses_newton_kernel`, else
+  `solver.solve`), then Euler or implicitfast. step2(step1(d)) is the
+  unfused step. RK4 has no such split, as in the JAX package."""
+  if m.opt.integrator == IntegratorType.RK4:
+    raise NotImplementedError('step1/step2 split with RK4')
+  stages = unfused_stages(m, d)
+  return _run(stages[_split(stages):], d)
 
 
 def batched_stages(m: Model, d: Data) -> list:

@@ -52,7 +52,8 @@ def check_options(opt):
   the same gate when the model is stepped)."""
   _need(opt.cone in (ConeType.PYRAMIDAL, ConeType.ELLIPTIC),
         f'cone {int(opt.cone)}')
-  _need(opt.integrator in (IntegratorType.EULER, IntegratorType.RK4),
+  _need(opt.integrator in (IntegratorType.EULER, IntegratorType.RK4,
+                           IntegratorType.IMPLICITFAST),
         f'integrator {int(opt.integrator)}')
   _need(opt.solver in (SolverType.NEWTON, SolverType.CG),
         f'solver {int(opt.solver)}')

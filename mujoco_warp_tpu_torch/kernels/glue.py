@@ -1,11 +1,13 @@
 """Kernels B3 and B3e: the back half of the step in one CUDA kernel,
 `csrc/glue.cu`: affine actuation, joint springs and dampers,
 qfrc_smooth, the qM factor and qacc_smooth, the whole Newton solve, the
-integration-diagonal re-solve (mode 1) and the semi-implicit Euler
-advance, one warp per world (4 worlds a block, each world's state in
-shared memory). B3 solves with the pyramidal cone; B3e, launched when
-`glue` is given the contacts' `solver.cone_inputs`, with the elliptic
-cone (a table of the contacts in shared memory, one lane per contact).
+integration-diagonal re-solve (mode 1: Euler with implicit joint damping;
+mode 2: implicitfast, each world's diagonal built in the kernel from its
+ctrl) and the semi-implicit advance, one warp per world (4 worlds a
+block, each world's state in shared memory). B3 solves with the
+pyramidal cone; B3e, launched when `glue` is given the contacts'
+`solver.cone_inputs`, with the elliptic cone (a table of the contacts in
+shared memory, one lane per contact).
 
 They replace the TPU kernel `make_glue_kernel` / `run`
 (`mujoco_warp_tpu/pallas/solver_kernels.py:1207`, `_glue_core` :966;
@@ -75,9 +77,10 @@ def _tables(m: Model) -> dict:
         stiff[v] = m.jnt_stiffness[j]
         spring_ref[v] = m.qpos_spring[q]
         spring_qadr[v] = q
-  hdiag = forward.integration_diag(m)
-  if hdiag is None:
-    hdiag = torch.zeros_like(damping)
+  # the re-solve's diagonal in mode 1; in mode 2 its damping part, to
+  # which the kernel adds each world's actuator part
+  hdiag = (forward.damping_diag(m) if forward.glue_mode(m) else
+           torch.zeros_like(damping))
   dof_float = torch.stack([damping, stiff, spring_ref, t['af_lo'],
                            t['af_hi'], hdiag], 1)
   jnt_int = torch.stack([i32(m.jnt_type), i32(m.jnt_qposadr),

@@ -301,10 +301,10 @@ def newton(m: Model, qM, J, D, aref, fl, qfrc_smooth, warmstart, ne: int,
            cone=None) -> dict:
   """Solve for qacc with J (W, nj, nv) rows: [0, ne) equality, [ne,
   ne + nf) friction, the rest one-sided, or with `cone` (`cone_inputs`)
-  the elliptic contacts' blocks. hdiag (nv,), if given, is the
-  integration diagonal of the final re-solve (qM + diag(hdiag))
-  qacc_euler = qfrc_smooth + qfrc_constraint; without it qacc_euler =
-  qacc."""
+  the elliptic contacts' blocks. hdiag (nv,) or per world (W, nv), if
+  given, is the integration diagonal of the final re-solve (qM +
+  diag(hdiag)) qacc_euler = qfrc_smooth + qfrc_constraint; without it
+  qacc_euler = qacc."""
   W, nj, nv = J.shape
   dev, dt = J.device, J.dtype
   tol = m.opt.tolerance
@@ -410,7 +410,7 @@ def newton(m: Model, qM, J, D, aref, fl, qfrc_smooth, warmstart, ne: int,
   if hdiag is None:
     qacc_euler = qacc
   else:
-    qacc_euler = cho_solve(cholesky(qM + torch.diag(hdiag)),
+    qacc_euler = cho_solve(cholesky(qM + torch.diag_embed(hdiag)),
                            qfs + qfrc_constraint)
   return dict(qacc=qacc, qfrc_constraint=qfrc_constraint, efc_force=force,
               solver_niter=niter[:, 0], qacc_smooth=qacc_smooth, qLD=qld,

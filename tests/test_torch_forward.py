@@ -284,13 +284,31 @@ def test_options_set_on_a_loaded_model_match_put_model(humanoid):
     ids=['implicitfast', 'implicit', 'elliptic', 'pgs', 'energy'])
 def test_options_outside_the_gate_raise(humanoid, opt):
   """Options outside the gate raise at every entry point. The elliptic
-  cone has been opened since: with it (set as `override_model` sets it)
-  the entry points run and take the kernel lists, whose solve stages are
-  B3e and B4-elliptic."""
+  cone and implicitfast have been opened since: with the cone (set as
+  `override_model` sets it) the entry points run and take the kernel
+  lists, whose solve stages are B3e and B4-elliptic; with implicitfast
+  the glue list, whose solve stage is B3 in mode 2, and B4 in
+  forward_batched."""
   m, d = humanoid
+  names = lambda stages: [n for n, _ in stages]
+  if opt.get('integrator') == IntegratorType.IMPLICITFAST:
+    mm = _with(m, **opt)
+    assert names(forward.batched_stages(mm, d)) == [
+        'smooth_mega[cuda]', 'contact_efc_mega[cuda]', 'act_len_vel',
+        'solve_glue[cuda]']
+    assert forward.glue_mode(mm) == 2 and forward.replays(mm, d)
+    assert names(forward.forward_stages(mm, d))[-1] == 'solve[cuda]'
+    assert names(forward.unfused_stages(mm, d))[-2:] == [
+        'solve[cuda]', 'implicitfast']
+    _reset_counts()
+    for entry in (mt.step_batched, mt.forward_batched, mt.step1):
+      out = entry(mm, d)
+      assert bool(torch.isfinite(out.qpos).all())
+    assert bool(torch.isfinite(mt.step2(mm, out).qacc).all())
+    assert solver.counts['solve'] == 0
+    return
   if opt.get('cone') == ConeType.ELLIPTIC:
     mm = mt.override_model(m, ELLIPTIC)
-    names = lambda stages: [n for n, _ in stages]
     assert names(forward.batched_stages(mm, d)) == [
         'smooth_mega[cuda]', 'contact_efc_mega[cuda]', 'act_len_vel',
         'solve_glue[cuda]']

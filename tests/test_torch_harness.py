@@ -83,12 +83,17 @@ def _path_model(scene, variant):
     m = m.replace(opt=m.opt.replace(solver=int(SolverType.CG)))
   elif variant == 'elliptic':
     m = mt.override_model(m, ['opt.cone=elliptic', 'opt.impratio=10'])
+  elif variant in ('implicitfast', 'implicitfast_cg'):
+    m = m.replace(opt=m.opt.replace(
+        integrator=int(IntegratorType.IMPLICITFAST)))
+    if variant == 'implicitfast_cg':
+      m = m.replace(opt=m.opt.replace(solver=int(SolverType.CG)))
   return m
 
 
 @pytest.mark.parametrize('scene,variant,nconmax', [
     ('humanoid', None, 24), ('humanoid', 'rk4', 24), ('humanoid', 'cg', 24),
-    ('three_humanoids', None, 100)])
+    ('three_humanoids', None, 100), ('humanoid', 'implicitfast', 24)])
 def test_state_fields_are_all_a_step_reads(scene, variant, nconmax):
   """A step from d and from d with every other field poisoned give the
   same bits in every field the step writes; the fields it neither reads
@@ -167,6 +172,9 @@ PATHS = [
     ('P7', 'humanoid', 'elliptic', False, True),
     ('P8', 'humanoid', 'elliptic_rk4', False, True),
     ('P9', 'three_humanoids', 'elliptic', False, False),
+    ('P11', 'humanoid', 'implicitfast', False, True),
+    ('P12', 'three_humanoids', 'implicitfast', False, False),
+    ('P13', 'humanoid', 'implicitfast_cg', False, False),
 ]
 
 

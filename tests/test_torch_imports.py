@@ -26,7 +26,8 @@ LAUNCHERS = {'launch', '_launch', 'smooth', 'contact', 'glue',
              'crb', 'smooth_front', '_launch_kinematics', '_launch_com_pos',
              '_launch_crb', '_launch_smooth_front', '_launch_entry',
              'benchmark_replay', '_protocol', 'replayed', 'GraphStep',
-             'replay', 'warm_step', 'one_step', 'rollout'}
+             'replay', 'warm_step', 'one_step', 'rollout', 'implicit',
+             'step1', 'step2'}
 
 
 def _imports(tree):
@@ -82,5 +83,6 @@ def test_the_scan_sees_the_package():
                'mujoco_warp_tpu_torch/testspeed.py',
                'mujoco_warp_tpu_torch/bench.py',
                'mujoco_warp_tpu_torch/utils/benchmark.py',
-               'mujoco_warp_tpu_torch/forward.py'):
+               'mujoco_warp_tpu_torch/forward.py',
+               'mujoco_warp_tpu_torch/derivative.py'):
     assert must in names

@@ -18,6 +18,8 @@ import types
 import pytest
 import torch
 
+import chip_smoke
+
 import mujoco_warp_tpu_torch as mt
 from mujoco_warp_tpu_torch import (batch_linalg, forward, models, smooth,
                                    solver, support)
@@ -746,6 +748,52 @@ def test_glue_kernel_mode_1_matches_plain(cuda):
          5e-6)
   dn = (out['solver_niter'] - ref['solver_niter']).abs()
   assert int(dn.max()) <= 4, dn.bincount().tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('servo', [False, True], ids=['humanoid', 'servo'])
+def test_glue_kernel_mode_2_matches_plain(cuda, servo):
+  """B3 in mode 2 (implicitfast), each world's diagonal built in the
+  kernel from its raw ctrl (on the servo variant, chip_smoke's `_servo`,
+  ctrl uniform in [-1.5, 1.5], some outside its range): held as mode 1,
+  qacc_euler at 5e-4 and by the residual of (qM + diag) qacc_euler =
+  qfrc_smooth + qfrc_constraint with the plain version's per-world
+  diagonal; the solve bit-equal to mode 0's on the same inputs."""
+  m, d = _state(cuda, 256, 60)
+  _, _, _, g_in = _stages(m, d)
+  m2 = _with(m, integrator=int(IntegratorType.IMPLICITFAST))
+  if servo:
+    m2 = chip_smoke._servo(m2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ctrl = 1.5 * (2 * torch.rand(d.ctrl.shape, generator=gen,
+                                 device=cuda) - 1)
+    g_in = g_in[:8] + (ctrl,) + g_in[9:]
+  assert forward.glue_mode(m2) == 2
+  kg.launches = 0
+  out, ref = kg.glue(m2, *g_in[1:]), forward.glue(m2, *g_in[1:])
+  assert kg.launches == 1
+  for name in ('qacc', 'qacc_smooth', 'qLD', 'qfrc_smooth',
+               'actuator_force', 'qfrc_actuator'):
+    _close(out[name], ref[name], name, 5e-5)
+  for name in ('qfrc_constraint', 'efc_force', 'qacc_euler'):
+    _close(out[name], ref[name], name, 5e-4)
+  hd = forward.integration_diag(m2, g_in[8])
+  rhs = out['qfrc_smooth'] + out['qfrc_constraint']
+  assert float(_residual(g_in[1] + torch.diag_embed(hd), out['qacc_euler'],
+                         rhs).max()) <= 1e-5
+  h = float(m.opt.timestep)
+  qvel = g_in[7] + h * out['qacc_euler']
+  _close(out['qvel'], qvel, 'qvel', 5e-5)
+  _close(out['qpos'], forward.integrate_pos(m2, g_in[6], qvel, h), 'qpos',
+         5e-6)
+  dn = (out['solver_niter'] - ref['solver_niter']).abs()
+  assert int(dn.max()) <= 4, dn.bincount().tolist()
+  m0 = _with(m2, integrator=int(IntegratorType.EULER))
+  base = kg.glue(m0, *g_in[1:])
+  assert forward.glue_mode(m0) == 0
+  for name in kn.OUTPUTS:
+    if name != 'qacc_euler':
+      assert torch.equal(out[name], base[name]), name
 
 
 @pytest.mark.cuda

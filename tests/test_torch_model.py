@@ -125,7 +125,11 @@ _OUTSIDE = {
       <geom size=".1" contype="0" conaffinity="0"/><site name="a"/></body>
       <site name="b" pos="0 0 1"/></worldbody><tendon><spatial>
       <site site="a"/><site site="b"/></spatial></tendon></mujoco>""",
-    'implicitfast': """<mujoco><option integrator="implicitfast"/>
+    'activation': """<mujoco><option integrator="implicitfast"/>
+      <worldbody><body><joint name="j"/><geom size=".1"/></body>
+      </worldbody><actuator><general joint="j" dyntype="filter"
+      dynprm="0.1"/></actuator></mujoco>""",
+    'implicit': """<mujoco><option integrator="implicit"/>
       <worldbody><body><freejoint/><geom size=".1"/></body></worldbody>
       </mujoco>""",
     'pgs': """<mujoco><option solver="PGS"/><worldbody><body>
@@ -154,6 +158,9 @@ _INSIDE = {
     'elliptic': ("""<mujoco><option cone="elliptic"/><worldbody><body>
       <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
                  'cone', 1),
+    'implicitfast': ("""<mujoco><option integrator="implicitfast"/>
+      <worldbody><body><freejoint/><geom size=".1"/></body></worldbody>
+      </mujoco>""", 'integrator', 3),
 }
 
 
