@@ -1,13 +1,15 @@
-"""Constraint (efc) rows: dof friction, joint limits and contacts
-(pyramidal or elliptic cone) at fixed row addresses (io.efc_layout).
+"""Constraint (efc) rows: joint equalities, dof friction, joint limits
+and contacts (pyramidal or elliptic cone) at fixed row addresses
+(io.efc_layout).
 
 Mirrors `mujoco_warp_tpu/constraint.py` (`_kbi` :32, `_row` :63, the
-friction and limit rows of `make_constraint` :102, `_contact_rows_all`
-:388 with its elliptic branch :479-517) with one difference: the
-Jacobian of a row that does not exist this step (an inactive limit or
-contact, an empty contact slot, the unused rows of a contact of lower
-dim) is zero, as in the CUDA kernel. Such rows also have D = aref =
-frictionloss = 0, so the solver sees the same problem either way.
+joint equality, friction and limit rows of `make_constraint` :102,
+`_contact_rows_all` :388 with its elliptic branch :479-517) with one
+difference: the Jacobian of a row that does not exist this step (an
+inactive equality, limit or contact, an empty contact slot, the unused
+rows of a contact of lower dim) is zero, as in the CUDA kernel. Such
+rows also have D = aref = frictionloss = 0, so the solver sees the same
+problem either way.
 """
 
 from __future__ import annotations
@@ -70,10 +72,53 @@ def _rows(m: Model, J, pos, invweight, solref, solimp, margin, vel,
       active=full(exists))
 
 
+def eq_active_or_start(m: Model, qpos, eq_active):
+  """eq_active (W, neq) bool, or where None each equality as the model
+  starts it (eq_active0) in every world."""
+  if eq_active is None:
+    return m.eq_active0[None].repeat(qpos.shape[0], 1)
+  return eq_active
+
+
+def _equality_rows(m: Model, qpos, qvel, eq_active) -> dict:
+  """One row per joint equality (constraint.py:193-213): pos = q1 -
+  qpos0[q1] - poly(dif), dif = q2 - qpos0[q2] (poly(0) = data[0] with one
+  joint), J = 1 at dof 1 and -poly'(dif) at dof 2, vel = J qvel; active
+  where eq_active and the equality flag is clear."""
+  W = qpos.shape[0]
+  on = not m.opt.disableflags & DisableBit.EQUALITY
+  J = qpos.new_zeros((W, m.neq, m.nv))
+  pos = qpos.new_zeros((W, m.neq))
+  vel = qpos.new_zeros((W, m.neq))
+  invweight = []
+  for i in range(m.neq):
+    j1, j2 = m.eq_obj1id[i], m.eq_obj2id[i]
+    d1, q1 = m.jnt_dofadr[j1], m.jnt_qposadr[j1]
+    c = m.eq_data[i]
+    J[:, i, d1] = 1.0
+    if j2 > -1:
+      d2, q2 = m.jnt_dofadr[j2], m.jnt_qposadr[j2]
+      dif = qpos[:, q2] - m.qpos0[q2]
+      rhs = c[0] + dif * (c[1] + dif * (c[2] + dif * (c[3] + dif * c[4])))
+      deriv = c[1] + dif * (2 * c[2] + dif * (3 * c[3] + dif * 4 * c[4]))
+      pos[:, i] = qpos[:, q1] - m.qpos0[q1] - rhs
+      J[:, i, d2] = -deriv
+      vel[:, i] = qvel[:, d1] - deriv * qvel[:, d2]
+      invweight.append(m.dof_invweight0[d1] + m.dof_invweight0[d2])
+    else:
+      pos[:, i] = qpos[:, q1] - m.qpos0[q1] - c[0]
+      vel[:, i] = qvel[:, d1]
+      invweight.append(m.dof_invweight0[d1])
+  ids = torch.arange(m.neq, dtype=torch.int32, device=qpos.device)
+  return _rows(m, J, pos, torch.stack(invweight), m.eq_solref, m.eq_solimp,
+               0.0, vel, 0.0, ConstraintType.EQUALITY, ids, eq_active & on)
+
+
 def make_constraint(m: Model, qpos, qvel, cdof, subtree_com,
-                    contact: dict) -> dict:
+                    contact: dict, eq_active=None) -> dict:
   """All efc rows (W, njmax, ...) plus the row counts ne, nf, nl, nefc and
-  the contacts' efc_address."""
+  the contacts' efc_address; eq_active (W, neq) bool as
+  `eq_active_or_start`."""
   W, nv = qpos.shape[0], m.nv
   dev, dt = qpos.device, qpos.dtype
   nconmax = contact['dist'].shape[1]
@@ -81,6 +126,10 @@ def make_constraint(m: Model, qpos, qvel, cdof, subtree_com,
   onehot = lambda ids: torch.eye(nv, dtype=dt, device=dev)[ids]
   ivec = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
   groups = []
+
+  if ne:
+    groups.append(_equality_rows(m, qpos, qvel,
+                                 eq_active_or_start(m, qpos, eq_active)))
 
   # dof friction
   fr_ids = [i for i in range(nv) if m.dof_hasfrictionloss[i]]

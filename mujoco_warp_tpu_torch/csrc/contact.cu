@@ -1,9 +1,13 @@
 // Kernel B2: collision and constraint rows, one warp per world (WARPS
 // worlds a block) — narrowphase over the static candidate pairs (plane,
-// sphere and capsule primitives), order-keeping compaction of the
-// contacts into the pool, and the efc rows: dof friction, joint limits
-// and contacts of the pyramidal cone (contact_kernel) or of the elliptic
-// cone (contact_ell_kernel); both run contact_warp<ELL>(). The JAX
+// sphere and capsule primitives, plane-box), order-keeping compaction of
+// the contacts into the pool, and the efc rows: joint equalities, dof
+// friction, joint limits and contacts of the pyramidal cone
+// (contact_kernel) or of the elliptic cone (contact_ell_kernel); all run
+// contact_warp<ELL, EQBOX>(). A model with joint equalities or plane-box
+// pairs launches the EQBOX entries (contact_eqbox_kernel,
+// contact_eqbox_ell_kernel), whose branches need more registers: the
+// other entries keep 64 registers and their code. The JAX
 // package builds elliptic rows with XLA (its contact kernel takes the
 // pyramidal cone alone, contact_kernels.py:57); this kernel builds them
 // as mujoco_warp_tpu/constraint.py:479-517 does.
@@ -20,15 +24,18 @@
 // narrowphase of 177 candidates is about 20k flops per world.
 //
 // The design, one warp per world:
-// - narrowphase: lane l takes the candidates 32k + l; a warp scan of each
-//   lane's count of contacts within the margin (a plane-capsule pair has
-//   two, its end caps in order) gives every contact its slot, so slot k
-//   is the k-th candidate with dist < margin in pair order, as in the JAX
+// - narrowphase: lane l takes the candidate rows 32k + l of the table (a
+//   row per pair, or per contact of a plane-box pair: its row k holds the
+//   corner of depth rank k); a warp scan of each lane's count of contacts
+//   within the margin (a plane-capsule pair has two, its end caps in
+//   order) gives every contact its slot, so slot k is the k-th candidate
+//   with dist < margin in pair order, then rank order, as in the JAX
 //   package (collision_driver.finalize); candidates past nconmax are
 //   dropped and counted in ncollision. The slots stay in shared memory
 //   (PoolMem);
 // - lanes over slots (impedances, the empty slots' fields) and over rows
-//   (the static rows' scalars, the empty slots' rows); every row of
+//   (the static rows' scalars: equalities, friction, limits; the empty
+//   slots' rows); every row of
 //   efc_J is written by lanes over dofs, so its stores are coalesced, and
 //   the empty slots' rows are one zero run at the end of the world's
 //   block;
@@ -46,6 +53,9 @@
 #define MAXSTRIDE 10         // rows of a pyramidal contact (condim <= 6)
 #define WARPS 4              // worlds (warps) per block
 #define MIN_BLOCKS 8         // blocks per SM: 64 registers, no spills
+// the entries with equality rows and plane-box pairs (EQBOX): their
+// branches need 72 registers (ptxas spilled them at 64)
+#define MIN_BLOCKS_EQBOX 7
 
 struct Params {
   const float* qpos;
@@ -54,12 +64,17 @@ struct Params {
   const float* geom_xmat;
   const float* subtree_com;
   const float* cdof;
-  const int* pair_int;       // (npair, 8): t1 t2 g1 g2 b1 b2 condim -
-  const float* pair_float;   // (npair, 18): friction5 solref2 solreffriction2
+  const bool* eq_active;     // (nworld, ne_rows): the world's equalities
+  const int* pair_int;       // (ncand, 8): t1 t2 g1 g2 b1 b2 condim rank
+  const float* pair_float;   // (ncand, 18): friction5 solref2 solreffriction2
                              //   solimp5 margin includemargin invw invw_pyr
   const float* geom_size;
   const int* body_rootid;
   const float* body_dof_mask;  // (nbody, nv): dof moves body
+  const int* eq_int;         // (ne, 4): dof1 qposadr1 dof2 qposadr2 (-1 -1
+                             //   for one joint)
+  const float* eq_float;     // (ne, 15): qpos0 1 and 2, polycoef5, invw,
+                             //   solref2 solimp5
   const int* fr_int;         // (nf): dof
   const float* fr_float;     // (nf, 9): solref2 solimp5 invweight loss
   const int* lim_int;        // (nl, 3): qposadr dofadr joint
@@ -98,19 +113,21 @@ struct Params {
   int nv;
   int nbody;
   int ngeom;
-  int npair;
+  int ncand;
   int nconmax;
+  int ne_rows;
   int nf_rows;
   int nl_rows;
   int stride;
   int njmax;
   int refsafe;
+  int eq_on;
   int fr_on;
   int lim_on;
 };
 
-enum { kPlane = 0, kSphere = 2, kCapsule = 3 };
-enum { kFrictionDof = 1, kLimitJoint = 3, kFrictionless = 5,
+enum { kPlane = 0, kSphere = 2, kCapsule = 3, kBox = 6 };
+enum { kEquality = 0, kFrictionDof = 1, kLimitJoint = 3, kFrictionless = 5,
        kPyramidal = 6, kElliptic = 7 };
 
 // column 2 (the z axis) of a row-major rotation matrix
@@ -207,7 +224,37 @@ DEV void cand(Cand& c, int e, float dist, const float* pos, const float* n) {
   }
 }
 
-// narrowphase of one candidate pair (collision_primitive colliders)
+// corner i (x slowest, b = 0 the negative side: 4 bx + 2 by + bz) of a
+// box, each product rounded and the sums in one order, as
+// collision_primitive.plane_box computes it
+DEV void box_corner(const float* pos, const float* mat, const float* size,
+                    int i, float* c) {
+  const float h[3] = {(i & 4) ? size[0] : -size[0],
+                      (i & 2) ? size[1] : -size[1],
+                      (i & 1) ? size[2] : -size[2]};
+  for (int r = 0; r < 3; ++r)
+    c[r] = pos[r] + ((__fmul_rn(mat[3 * r], h[0]) +
+                      __fmul_rn(mat[3 * r + 1], h[1])) +
+                     __fmul_rn(mat[3 * r + 2], h[2]));
+}
+
+// a . n, the products rounded and summed in order
+DEV float dot3_rn(float a0, float a1, float a2, const float* n) {
+  return (__fmul_rn(a0, n[0]) + __fmul_rn(a1, n[1])) + __fmul_rn(a2, n[2]);
+}
+
+// depth below the plane of corner i of a box whose center lies at depth
+// `base`, the half-extent c along the box axis c adding +-a[c]: the sums
+// in one order, as collision_primitive.plane_box, so that corners at
+// equal depth tie in both versions
+DEV float corner_depth(float base, const float* a, int i) {
+  return base + (((i & 4) ? a[0] : -a[0]) + ((i & 2) ? a[1] : -a[1]) +
+                 ((i & 1) ? a[2] : -a[2]));
+}
+
+// narrowphase of one candidate row (collision_primitive colliders; the
+// plane-box pair with EQBOX)
+template <bool EQBOX>
 DEV void collide(const Params& p, int w, int pr, Cand& c) {
   const int* pi = p.pair_int + 8 * pr;
   const int t1 = pi[0], t2 = pi[1], g1 = pi[2], g2 = pi[3];
@@ -224,6 +271,36 @@ DEV void collide(const Params& p, int w, int pr, Cand& c) {
       float d[3] = {p2[0] - p1[0], p2[1] - p1[1], p2[2] - p1[2]};
       float dist = dot3(d, n) - s2[0];
       for (int i = 0; i < 3; ++i) pos[i] = p2[i] - n[i] * (s2[0] + 0.5f * dist);
+      cand(c, 0, dist, pos, n);
+      c.n = 1;
+    } else if (EQBOX && t2 == kBox) {
+      // the corner of depth rank pi[7] among the 8, ties to the lower
+      // corner index (the order of jax.lax.top_k): pi[7] + 1 passes, each
+      // taking the least (depth, index) past the last pass's, so that no
+      // lane holds the 8 depths (B2's 64 registers)
+      const float base = dot3_rn(p2[0] - p1[0], p2[1] - p1[1], p2[2] - p1[2],
+                                 n);
+      for (int k = 0; k < 3; ++k)
+        b[k] = __fmul_rn(s2[k], dot3_rn(m2[k], m2[3 + k], m2[6 + k], n));
+      int pick = -1;
+      float dist = 0.0f;
+      for (int r = 0; r <= pi[7]; ++r) {
+        int best = -1;
+        float least = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float d = corner_depth(base, b, i);
+          const bool past = pick < 0 || d > dist || (d == dist && i > pick);
+          if (past && (best < 0 || d < least)) {
+            best = i;
+            least = d;
+          }
+        }
+        pick = best;
+        dist = least;
+      }
+      box_corner(p2, m2, s2, pick, a);
+      for (int i = 0; i < 3; ++i) pos[i] = a[i] - __fmul_rn(0.5f * dist, n[i]);
       cand(c, 0, dist, pos, n);
       c.n = 1;
     } else {                                   // capsule: both end caps
@@ -329,7 +406,31 @@ DEV void row(const Params& p, size_t r, float pos, float margin, float D,
   p.efc_active[r] = active;
 }
 
-template <bool ELL>
+// a joint equality's pos = q1 - qpos0_1 - poly(dif), dif = q2 - qpos0_2
+// (poly(dif) = polycoef[0] for one joint), and deriv = poly'(dif), each
+// product rounded as constraint._equality_rows rounds it
+DEV float eq_joint(const int* ei, const float* ef, const float* qpos,
+                   float* deriv) {
+  const float* c = ef + 2;
+  const float q1 = qpos[ei[1]] - ef[0];
+  if (ei[2] < 0) {
+    *deriv = 0.0f;
+    return q1 - c[0];
+  }
+  const float dif = qpos[ei[3]] - ef[1];
+  const float rhs = c[0] + __fmul_rn(dif, c[1] + __fmul_rn(dif, c[2] +
+      __fmul_rn(dif, c[3] + __fmul_rn(dif, c[4]))));
+  *deriv = c[1] + __fmul_rn(dif, 2.0f * c[2] + __fmul_rn(
+      dif, __fmul_rn(3.0f, c[3]) + __fmul_rn(dif * 4.0f, c[4])));
+  return q1 - rhs;
+}
+
+// the equality rows (none without EQBOX), read from the parameters where
+// they are used: a local copy held a register through the rows
+#define NE (EQBOX ? p.ne_rows : 0)
+#define NEF (NE + p.nf_rows)
+
+template <bool ELL, bool EQBOX>
 DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
                       int lane) {
   const int nv = p.nv, K = p.nconmax, S = p.stride;
@@ -342,12 +443,12 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
 
   // ---- narrowphase + order-keeping compaction, 32 candidates a round ----
   int count = 0;               // candidates with dist < margin so far
-  for (int k0 = 0; k0 < p.npair; k0 += 32) {
+  for (int k0 = 0; k0 < p.ncand; k0 += 32) {
     const int pr = k0 + lane;
     Cand c;
     c.n = 0;
-    if (pr < p.npair) collide(p, w, pr, c);
-    const float margin = pr < p.npair ? p.pair_float[18 * pr + 14] : 0.0f;
+    if (pr < p.ncand) collide<EQBOX>(p, w, pr, c);
+    const float margin = pr < p.ncand ? p.pair_float[18 * pr + 14] : 0.0f;
     const bool keep0 = c.n > 0 && c.dist[0] < margin;
     const bool keep1 = c.n > 1 && c.dist[1] < margin;
     const int mine = (int)keep0 + (int)keep1;
@@ -363,7 +464,7 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
     count += __shfl_sync(FULL_MASK, incl, 31);
   }
   const int ncon = min(count, K);
-  const int nrow_static = p.nf_rows + p.nl_rows;
+  const int nrow_static = NEF + p.nl_rows;
   __syncwarp();
 
   // ---- per slot: efc address, impedance, the empty slots' fields ----
@@ -390,15 +491,30 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
     p.con_geom[2 * c + 1] = -1;
   }
 
-  // ---- dof friction and joint limit rows: scalars a row per lane ----
+  // ---- equality, dof friction and joint limit rows: scalars a row per
+  // lane ----
   int nl_act = 0;
   for (int i0 = 0; i0 < nrow_static; i0 += 32) {
     const int i = i0 + lane;
     bool lim_act = false;
     float k, b, imp;
-    if (i < p.nf_rows) {
-      const float* f = p.fr_float + 9 * i;
-      const int dof = p.fr_int[i];
+    if (EQBOX && i < NE) {
+      const int* ei = p.eq_int + 4 * i;
+      const float* ef = p.eq_float + 15 * i;
+      float deriv;
+      const float pos = eq_joint(ei, ef, qpos, &deriv);
+      const float vel = ei[2] < 0 ? qvel[ei[0]] :
+          qvel[ei[0]] - __fmul_rn(deriv, qvel[ei[2]]);
+      const bool on = p.eq_on != 0 && p.eq_active[(size_t)w * NE + i];
+      kbi(ef + 8, ef + 10, pos, p.timestep, p.refsafe, &k, &b, &imp);
+      const float act = on ? 1.0f : 0.0f;
+      const float D = 1.0f / fmaxf(ef[7] * (1.0f - imp) / imp, kMinVal) *
+                      act;
+      row(p, r0 + i, pos, 0.0f, D, vel, (-k * imp * pos - b * vel) * act,
+          0.0f, kEquality, i, on);
+    } else if (i < NEF) {
+      const float* f = p.fr_float + 9 * (i - NE);
+      const int dof = p.fr_int[i - NE];
       const bool on = p.fr_on != 0;
       const float vel = qvel[dof];
       kbi(f, f + 2, 0.0f, p.timestep, p.refsafe, &k, &b, &imp);
@@ -407,8 +523,8 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
       row(p, r0 + i, 0.0f, 0.0f, D, vel, (-k * imp * 0.0f - b * vel) * act,
           f[8] * act, kFrictionDof, dof, on);
     } else if (i < nrow_static) {
-      const int* li = p.lim_int + 3 * (i - p.nf_rows);
-      const float* lf = p.lim_float + 11 * (i - p.nf_rows);
+      const int* li = p.lim_int + 3 * (i - NEF);
+      const float* lf = p.lim_float + 11 * (i - NEF);
       const float q = qpos[li[0]];
       const float dmin = q - lf[0], dmax = lf[1] - q;
       const float pos = fminf(dmin, dmax) - lf[2];
@@ -427,15 +543,25 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
   }
   const int nf_act = p.fr_on != 0 ? p.nf_rows : 0;
   // their Jacobian rows, lanes over dofs: one nonzero where the row acts
+  // (two for an equality of two joints: 1 at dof 1, -deriv at dof 2)
   for (int i = 0; i < nrow_static; ++i) {
-    int dof;
-    float one;
-    if (i < p.nf_rows) {
-      dof = p.fr_int[i];
+    int dof, dof2 = -1;
+    float one, two = 0.0f;
+    if (EQBOX && i < NE) {
+      const int* ei = p.eq_int + 4 * i;
+      const bool on = p.eq_on != 0 && p.eq_active[(size_t)w * NE + i];
+      float deriv;
+      eq_joint(ei, p.eq_float + 15 * i, qpos, &deriv);
+      dof = ei[0];
+      dof2 = ei[2];
+      one = on ? 1.0f : 0.0f;
+      two = on ? -deriv : 0.0f;
+    } else if (i < NEF) {
+      dof = p.fr_int[i - NE];
       one = p.fr_on != 0 ? 1.0f : 0.0f;
     } else {
-      const int* li = p.lim_int + 3 * (i - p.nf_rows);
-      const float* lf = p.lim_float + 11 * (i - p.nf_rows);
+      const int* li = p.lim_int + 3 * (i - NEF);
+      const float* lf = p.lim_float + 11 * (i - NEF);
       const float q = qpos[li[0]];
       const float dmin = q - lf[0], dmax = lf[1] - q;
       const bool on = (fminf(dmin, dmax) - lf[2] < 0.0f) && p.lim_on != 0;
@@ -443,7 +569,7 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
       one = on ? (dmin < dmax ? 1.0f : -1.0f) : 0.0f;
     }
     for (int n = lane; n < nv; n += 32)
-      J[(size_t)i * nv + n] = n == dof ? one : 0.0f;
+      J[(size_t)i * nv + n] = n == dof2 ? two : (n == dof ? one : 0.0f);
   }
 
   // ---- the empty slots' rows: scalars a row per lane, J one zero run ----
@@ -570,38 +696,64 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
     }
     nefc += __popc(__ballot_sync(FULL_MASK, exists));
   }
+  // the active equality rows, counted here so that no register holds the
+  // count through the contact rows
+  int ne_act = 0;
+  for (int i0 = 0; EQBOX && i0 < NE; i0 += 32) {
+    const int i = i0 + lane;
+    ne_act += __popc(__ballot_sync(FULL_MASK, i < NE && p.eq_on != 0 &&
+                                   p.eq_active[(size_t)w * NE + i]));
+  }
   if (lane == 0) {
     // nconmax 0: no pool, no collision (collision_driver.collision)
     p.ncollision[w] = K > 0 ? count : 0;
     p.ncon[w] = ncon;
-    p.ne[w] = 0;
+    p.ne[w] = ne_act;
     p.nf[w] = nf_act;
     p.nl[w] = nl_act;
-    p.nefc[w] = nefc + nf_act + nl_act;
+    p.nefc[w] = nefc + ne_act + nf_act + nl_act;
   }
 }
 
-template <bool ELL>
+#undef NE
+#undef NEF
+
+template <bool ELL, bool EQBOX>
 DEV void contact_block(const Params& p) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, wb = threadIdx.x >> 5;
   const int w = blockIdx.x * WARPS + wb;
   if (w >= p.nworld) return;
   const int words = pool_words(p.nconmax, p.stride);
-  contact_warp<ELL>(p, pool_at(smem + wb * words, p.nconmax), w, lane);
+  contact_warp<ELL, EQBOX>(p, pool_at(smem + wb * words, p.nconmax), w,
+                           lane);
 }
 
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 contact_kernel(const Params p) {
-  contact_block<false>(p);
+  contact_block<false, false>(p);
 }
 
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 contact_ell_kernel(const Params p) {
-  contact_block<true>(p);
+  contact_block<true, false>(p);
+}
+
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS_EQBOX)
+contact_eqbox_kernel(const Params p) {
+  contact_block<false, true>(p);
+}
+
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS_EQBOX)
+contact_eqbox_ell_kernel(const Params p) {
+  contact_block<true, true>(p);
 }
 
 PORT_C_WARP_INTERFACE(Params, contact_kernel, WARPS,
                       4 * pool_words(p->nconmax, p->stride))
 PORT_C_WARP_ENTRY(ell_, Params, contact_ell_kernel, WARPS,
+                  4 * pool_words(p->nconmax, p->stride))
+PORT_C_WARP_ENTRY(eqbox_, Params, contact_eqbox_kernel, WARPS,
+                  4 * pool_words(p->nconmax, p->stride))
+PORT_C_WARP_ENTRY(eqbox_ell_, Params, contact_eqbox_ell_kernel, WARPS,
                   4 * pool_words(p->nconmax, p->stride))

@@ -11,6 +11,7 @@ either cone:
   smooth_mega[cuda]       kernel B1: kinematics .. rne
   camlight                camera and light frames (tensor ops)
   contact_efc_mega[cuda]  kernel B2: narrowphase, compaction, efc rows
+                          (joint equalities by the Data's eq_active)
   act_len_vel             actuator lengths and velocities (tensor ops)
   solve_glue[cuda]        kernel B3 (pyramidal) or B3e (elliptic):
                           actuation, passive, Newton, the re-solve with
@@ -267,7 +268,7 @@ def _common_stages(m: Model, d: Data) -> list:
 
   def contact_stage(dd):
     out = contact_k.contact(m, dd.qpos, dd.qvel, dd.geom_xpos, dd.geom_xmat,
-                            dd.subtree_com, dd.cdof, nconmax)
+                            dd.subtree_com, dd.cdof, nconmax, dd.eq_active)
     return dd.replace(
         contact=Contact(**{k: out[k] for k in CONTACT_TENSORS}),
         ncon=out['ncon'],

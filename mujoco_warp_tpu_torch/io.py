@@ -19,13 +19,15 @@ import torch
 
 from . import types
 from .types import (BiasType, ConeType, Contact, Data, DisableBit, DynType,
-                    EnableBit, GainType, GeomType, IntegratorType, JointType,
-                    Model, Option, SolverType, Statistic, TrnType)
+                    EnableBit, EqType, GainType, GeomType, IntegratorType,
+                    JointType, Model, Option, SolverType, Statistic,
+                    TrnType)
 
 # candidate contacts per supported geom-type pair (keys sorted by type)
 MAX_CONTACTS = {
     (GeomType.PLANE, GeomType.SPHERE): 1,
     (GeomType.PLANE, GeomType.CAPSULE): 2,
+    (GeomType.PLANE, GeomType.BOX): 4,
     (GeomType.SPHERE, GeomType.SPHERE): 1,
     (GeomType.SPHERE, GeomType.CAPSULE): 1,
     (GeomType.CAPSULE, GeomType.CAPSULE): 1,
@@ -67,7 +69,6 @@ def _validate(mjm):
   need = _need
   need(mjm.nsensor == 0, 'sensors')
   need(mjm.ntendon == 0, 'tendons')
-  need(mjm.neq == 0, 'equality constraints')
   need(mjm.na == 0, 'actuator activation states')
   need(mjm.nflex == 0, 'flex')
   need(mjm.nmocap == 0, 'mocap bodies')
@@ -76,6 +77,14 @@ def _validate(mjm):
   need(mjm.opt.density == 0 and mjm.opt.viscosity == 0 and
        not np.any(mjm.opt.wind != 0), 'fluid forces')
   check_options(mjm.opt)
+  scalar_joint = lambda j: mjm.jnt_type[j] in (JointType.SLIDE,
+                                               JointType.HINGE)
+  for i in range(mjm.neq):
+    need(mjm.eq_type[i] == EqType.JOINT,
+         f'equality type {int(mjm.eq_type[i])}')
+    need(scalar_joint(mjm.eq_obj1id[i]) and (
+        mjm.eq_obj2id[i] < 0 or scalar_joint(mjm.eq_obj2id[i])),
+         'joint equalities other than on slide/hinge joints')
   for j in range(mjm.njnt):
     jt = int(mjm.jnt_type[j])
     scalar = jt in (JointType.SLIDE, JointType.HINGE)
@@ -217,7 +226,7 @@ _MJ_FLOAT_LEAVES = (
     'actuator_gainprm', 'actuator_biasprm', 'actuator_ctrlrange',
     'actuator_forcerange', 'actuator_gear', 'pair_solref',
     'pair_solreffriction', 'pair_solimp', 'pair_margin', 'pair_gap',
-    'pair_friction')
+    'pair_friction', 'eq_data', 'eq_solref', 'eq_solimp')
 
 
 def put_model(mjm, device='cuda') -> Model:
@@ -227,6 +236,7 @@ def put_model(mjm, device='cuda') -> Model:
   f32 = lambda x: np.asarray(x, np.float32)
   leaves = {k: f32(getattr(mjm, k)) for k in _MJ_FLOAT_LEAVES}
   leaves['cam_mat0'] = f32(mjm.cam_mat0).reshape(mjm.ncam, 3, 3)
+  leaves['eq_active0'] = np.asarray(mjm.eq_active0, bool)
   leaves['opt.timestep'] = f32(mjm.opt.timestep)
   leaves['opt.tolerance'] = f32(max(mjm.opt.tolerance, 1e-6))  # f32 floor
   leaves['opt.ls_tolerance'] = f32(mjm.opt.ls_tolerance)
@@ -312,6 +322,9 @@ def put_model(mjm, device='cuda') -> Model:
       actuator_trnid=_tup(mjm.actuator_trnid),
       actuator_ctrllimited=_tup(mjm.actuator_ctrllimited),
       actuator_forcelimited=_tup(mjm.actuator_forcelimited),
+      eq_type=_tup(mjm.eq_type),
+      eq_obj1id=_tup(mjm.eq_obj1id),
+      eq_obj2id=_tup(mjm.eq_obj2id),
       collision_pairs=collision_pairs,
       nxn_candidates=nxn_candidates,
       condim_max=max(condims),
@@ -337,13 +350,14 @@ def model_from_numpy(leaves: dict, statics: dict, device='cuda') -> Model:
   """Model from numpy leaves (names as in the JAX Model; Option and
   Statistic leaves as 'opt.<name>' / 'stat.<name>') and static fields
   (the JAX Model's meta fields; Option statics under statics['opt'])."""
-  t = lambda name: torch.tensor(np.asarray(leaves[name], np.float32),
-                                device=device)
+  t = lambda name, dtype=np.float32: torch.tensor(
+      np.asarray(leaves[name], dtype), device=device)
   ostat = statics['opt']
   opt = Option(**{k: t('opt.' + k) for k in types.OPTION_TENSORS},
                **{k: int(ostat[k]) for k in types.OPTION_STATICS})
   stat = Statistic(meaninertia=t('stat.meaninertia'))
   kw = {k: t(k) for k in types.MODEL_TENSORS}
+  kw['eq_active0'] = t('eq_active0', bool)
   kw.update({k: _as_tuple(statics[k]) for k in types.MODEL_STATICS})
   kw['has_damping'] = bool(kw['has_damping'])
   return Model(opt=opt, stat=stat, **kw)
@@ -429,8 +443,9 @@ def override_model(m: Model, overrides: list[str] | str) -> Model:
 
 def efc_layout(m: Model, nconmax: int):
   """Static efc row layout (ne, nf, nl, contact row stride, njmax):
-  rows live at fixed addresses, equality | friction | limit | contact."""
-  ne = 0  # equality constraints are outside the gate
+  rows live at fixed addresses, equality | friction | limit | contact;
+  one row per equality, all of type JOINT (the gate)."""
+  ne = m.neq
   nf = sum(m.dof_hasfrictionloss)
   nl = sum(m.jnt_limited)
   if m.opt.cone == ConeType.PYRAMIDAL:
@@ -474,6 +489,7 @@ def make_data(m: Model, nconmax: int | None = None, nworld: int = 1) -> Data:
       ncollision=zi(), solver_niter=zi(),
       qpos=m.qpos0[None].repeat(W, 1), qvel=z(nv), act=z(m.na), ctrl=z(m.nu),
       qacc_warmstart=z(nv), qfrc_applied=z(nv), xfrc_applied=z(nbody, 6),
+      eq_active=m.eq_active0[None].repeat(W, 1),
       xpos=z(nbody, 3), xquat=z(nbody, 4), xmat=z(nbody, 3, 3),
       xipos=z(nbody, 3), ximat=z(nbody, 3, 3), xanchor=z(m.njnt, 3),
       xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),

@@ -1,10 +1,13 @@
 """Benchmark scene assets: MJCF sources and their compiled `.npz` form.
 
-`humanoid.npz` is `io.save_model(io.put_model(MjModel(humanoid.xml)))`
-and `three_humanoids.npz` the same of the benchmark suite's scene
+`humanoid.npz` is `io.save_model(io.put_model(MjModel(humanoid.xml)))`,
+`three_humanoids.npz` the same of the benchmark suite's scene
 `benchmarks/scenes/humanoid/three_humanoids.xml` (three humanoids
-attached to one world, nv 81). Both are committed so that a machine
-without the `mujoco` bindings can load the models (`io.load_model`).
+attached to one world, nv 81) and `franka_emika_panda.npz` of the
+suite's `benchmarks/scenes/franka_emika_panda/scene.xml` (the Panda arm,
+nv 9; its meshes collide with nothing, and the Model holds no mesh
+data). They are committed so that a machine without the `mujoco`
+bindings can load the models (`io.load_model`).
 Regenerate them after a change to the compiler:
 
     python -m mujoco_warp_tpu_torch.models.regenerate
@@ -26,3 +29,6 @@ HUMANOID_NPZ = os.path.join(_DIR, 'humanoid.npz')
 THREE_HUMANOIDS = os.path.join(_ROOT, 'benchmarks', 'scenes', 'humanoid',
                                'three_humanoids.xml')
 THREE_HUMANOIDS_NPZ = os.path.join(_DIR, 'three_humanoids.npz')
+FRANKA = os.path.join(_ROOT, 'benchmarks', 'scenes', 'franka_emika_panda',
+                      'scene.xml')
+FRANKA_NPZ = os.path.join(_DIR, 'franka_emika_panda.npz')

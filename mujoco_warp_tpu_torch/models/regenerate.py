@@ -10,7 +10,8 @@ from mujoco_warp_tpu_torch import models
 
 # (MJCF source, committed .npz)
 SOURCES = ((models.HUMANOID, models.HUMANOID_NPZ),
-           (models.THREE_HUMANOIDS, models.THREE_HUMANOIDS_NPZ))
+           (models.THREE_HUMANOIDS, models.THREE_HUMANOIDS_NPZ),
+           (models.FRANKA, models.FRANKA_NPZ))
 
 
 def main():

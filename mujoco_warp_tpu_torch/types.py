@@ -3,12 +3,12 @@ Contact and Data as dataclasses of tensors.
 
 Field names follow the JAX package (`mujoco_warp_tpu/types.py`) so the
 parity tests compare like with like. Only the fields the ported
-`step_batched` paths (humanoid, three_humanoids) read or write are
-present. Two differences:
+`step_batched` paths (humanoid, three_humanoids, franka_emika_panda)
+read or write are present. Two differences:
 
 * Structural metadata (tree topology, joint types, collision pair lists)
   stays in static Python ints and tuples, as in the JAX Model; numeric
-  parameters are float32 tensors.
+  parameters are float32 tensors (the equalities' active flags bool).
 * Data is batch-native: every tensor leads with `nworld`, like the JAX
   batch after `parallel.make_batch`.
 """
@@ -303,6 +303,11 @@ class Model(_Tensors):
   actuator_trnid: Tuple[IntTuple, ...]
   actuator_ctrllimited: IntTuple
   actuator_forcelimited: IntTuple
+  # equality constraints: type (EqType) and the two objects (joint ids of
+  # a JOINT equality; obj2 -1 for one joint)
+  eq_type: IntTuple
+  eq_obj1id: IntTuple
+  eq_obj2id: IntTuple
   # collision structure: ((type1, type2, ((g1, g2, pairid), ...)), ...)
   collision_pairs: Tuple[Any, ...]
   nxn_candidates: int
@@ -368,6 +373,12 @@ class Model(_Tensors):
   pair_margin: torch.Tensor
   pair_gap: torch.Tensor
   pair_friction: torch.Tensor
+  # (neq, 11) data (a JOINT equality's polycoef in 0:5), (neq, 2),
+  # (neq, 5), (neq,) bool
+  eq_data: torch.Tensor
+  eq_solref: torch.Tensor
+  eq_solimp: torch.Tensor
+  eq_active0: torch.Tensor
   # keyframes: (nkey,), (nkey, nq), (nkey, nv), (nkey, na), (nkey, nu),
   # (nkey, nmocap, 3), (nkey, nmocap, 4)
   key_time: torch.Tensor
@@ -435,6 +446,7 @@ class Data(_Tensors):
   qacc_warmstart: torch.Tensor
   qfrc_applied: torch.Tensor
   xfrc_applied: torch.Tensor
+  eq_active: torch.Tensor      # (W, neq) bool
   xpos: torch.Tensor
   xquat: torch.Tensor
   xmat: torch.Tensor

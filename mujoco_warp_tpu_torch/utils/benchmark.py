@@ -27,9 +27,11 @@ from ..types import Data, Model
 # The Data fields that a step reads: its output depends on the input Data
 # only through these and the shapes of the rest (a test fills every other
 # field with NaN). A replayed step copies just these back into its static
-# input; the graph's outputs hold every other field.
+# input; the graph's outputs hold every other field. eq_active is the
+# user's to toggle between steps: a replayed step reads the static
+# input's, as an eager step reads the Data's.
 STATE_FIELDS = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qacc_warmstart',
-                'qfrc_applied', 'xfrc_applied')
+                'qfrc_applied', 'xfrc_applied', 'eq_active')
 
 
 def _halton_tables(bases, device) -> tuple:

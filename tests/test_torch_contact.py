@@ -57,7 +57,7 @@ def _jax_rows(jm, q, v, nconmax):
 
 
 def _assert_matches_jax(out, ref):
-  for name in ('ncon', 'ncollision', 'nl', 'nf', 'nefc'):
+  for name in ('ncon', 'ncollision', 'ne', 'nl', 'nf', 'nefc'):
     np.testing.assert_array_equal(out[name].numpy(),
                                   np.asarray(getattr(ref, name)), name)
   for name in POOL:

@@ -1,7 +1,7 @@
 """The port's benchmark harness and io functions against the JAX
 package's, on the CPU: the control noise with a device step index,
 STATE_FIELDS (the Data fields a step reads, which a replayed CUDA graph
-copies back), the replay predicate on the ten paths of PERF.md §4, the
+copies back), the replay predicate on the paths of PERF.md §4, the
 keyframe fields, and reset_data, reset_data_masked, find_keys,
 make_trajectory and benchmark_replay on an inline keyframed MJCF at 5e-5
 (tests/fixtures.py:140), scale-relative."""
@@ -93,12 +93,15 @@ def _path_model(scene, variant):
 
 @pytest.mark.parametrize('scene,variant,nconmax', [
     ('humanoid', None, 24), ('humanoid', 'rk4', 24), ('humanoid', 'cg', 24),
-    ('three_humanoids', None, 100), ('humanoid', 'implicitfast', 24)])
+    ('three_humanoids', None, 100), ('humanoid', 'implicitfast', 24),
+    ('franka_emika_panda', None, 1)])
 def test_state_fields_are_all_a_step_reads(scene, variant, nconmax):
   """A step from d and from d with every other field poisoned give the
   same bits in every field the step writes; the fields it neither reads
   nor writes pass through untouched (a replayed graph returns them as
-  the static input holds them, which is as the first step left them)."""
+  the static input holds them, which is as the first step left them).
+  A model with equalities reads eq_active, a state field: the step from
+  d with it negated gives other equality rows."""
   m = _path_model(scene, variant)
   mjm = build(scene)[0]
   q, v = states(mjm, 2, nstep=40, qpos_noise=0.02)
@@ -124,6 +127,9 @@ def test_state_fields_are_all_a_step_reads(scene, variant, nconmax):
                                   err_msg=k)
   assert 'actuator_moment' in passed
   assert not set(passed) & set(tbench.STATE_FIELDS)
+  if m.neq:
+    flipped = one_step(d.replace(eq_active=~d.eq_active), step)
+    assert not torch.equal(flipped.ne, out.ne)
 
 
 class _HostWatch(TorchDispatchMode):
@@ -175,6 +181,7 @@ PATHS = [
     ('P11', 'humanoid', 'implicitfast', False, True),
     ('P12', 'three_humanoids', 'implicitfast', False, False),
     ('P13', 'humanoid', 'implicitfast_cg', False, False),
+    ('P14', 'franka_emika_panda', None, False, True),
 ]
 
 
@@ -192,7 +199,7 @@ def test_replay_predicate_on_the_paths(path, scene, variant, fwd, replayed,
     m = m.replace(opt=m.opt.replace(integrator=int(IntegratorType.RK4)))
   else:
     m = _path_model(scene, variant)
-  nconmax = 24 if scene == 'humanoid' else 100
+  nconmax = {'humanoid': 24, 'franka_emika_panda': 1}.get(scene, 100)
   d = mt.make_data(m, nconmax=nconmax, nworld=2)
   stages = forward.forward_stages(m, d) if fwd else \
       forward.batched_stages(m, d)

@@ -390,11 +390,11 @@ def _contact_inputs(device, model, cone, nworld=256):
              sm['subtree_com'], sm['cdof']), nconmax
 
 
-def _contact_matches_plain(m, c_in, nconmax):
+def _contact_matches_plain(m, c_in, nconmax, eq_active=None):
   """Kernel B2 against its plain version at this nconmax; both outputs."""
-  out = kc.contact(m, *c_in, nconmax)
+  out = kc.contact(m, *c_in, nconmax, eq_active)
   torch.cuda.synchronize()
-  ref = kc.plain(m, *c_in, nconmax)
+  ref = kc.plain(m, *c_in, nconmax, eq_active)
   for name in ref:
     # aref = -b vel - k imp pos carries vel's rounding times b (~135)
     _close(out[name], ref[name], name, 2e-3 if name == 'efc_aref' else 2e-5)
@@ -450,6 +450,29 @@ def test_contact_kernel_three_humanoids_matches_plain(cuda, cone):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('cone', CONES)
+@pytest.mark.parametrize('nconmax', [1, 12])
+def test_contact_kernel_franka_matches_plain(cuda, cone, nconmax):
+  """Both entries of B2 on franka's reach state (chip_smoke phase r):
+  plane-box contacts (a box pair's four candidate rows, the corners'
+  depth ranks), the joint-equality row, off in a tenth of the worlds; at
+  the suite's nconmax 1 and at 12."""
+  m = mt.load_model(models.FRANKA_NPZ, device=cuda)
+  if cone == 'elliptic':
+    m = mt.override_model(m, ELLIPTIC)
+  d = chip_smoke._reach_state(m, 256, nconmax, torch.Generator(
+      device=cuda).manual_seed(0))
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  c_in = (sm['qpos'], d.qvel, sm['geom_xpos'], sm['geom_xmat'],
+          sm['subtree_com'], sm['cdof'])
+  out, ref = _contact_matches_plain(m, c_in, nconmax, d.eq_active)
+  assert kc.entry(m) == ('eqbox_ell_' if cone == 'elliptic' else 'eqbox_')
+  assert int((ref['ncollision'] >= 8).sum()) > 0
+  assert torch.equal(ref['ne'], d.eq_active[:, 0].int())
+  assert not bool(d.eq_active.all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('model', sorted(CONTACT_MODELS))
 def test_contact_kernel_is_deterministic_and_fits_its_design(cuda, model):
   """Both entries of B2 give the same bits in two launches; they launch 4
@@ -465,7 +488,8 @@ def test_contact_kernel_is_deterministic_and_fits_its_design(cuda, model):
     grid, block, smem, per_sm = _build.shapes[('contact', entry)]
     assert (grid, block) == (256 // 4, 128), (grid, block)
     assert smem == 4 * 4 * (17 * nconmax + 33 * stride) and per_sm >= 1
-  for kernel in ('contact_kernel', 'contact_ell_kernel'):
+  for kernel in ('contact_kernel', 'contact_ell_kernel',
+                 'contact_eqbox_kernel', 'contact_eqbox_ell_kernel'):
     info, = [v for k, v in _build.ptxas_info('contact').items()
              if k.startswith(f'_Z{len(kernel)}{kernel}')]
     assert info['spill_stores'] == 0 and info['stack'] <= 1024, info

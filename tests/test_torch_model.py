@@ -50,13 +50,16 @@ def test_model_from_numpy_takes_jax_leaves():
                       jm)
 
 
-@pytest.mark.parametrize('scene', ['humanoid', 'three_humanoids'])
+@pytest.mark.parametrize('scene', ['humanoid', 'three_humanoids',
+                                   'franka_emika_panda'])
 def test_committed_npz_matches_jax(tmp_path, scene):
   """The committed .npz equals a fresh put_model of its MJCF (and so the
-  JAX Model's shared leaves, camera and light fields included)."""
+  JAX Model's shared leaves, camera, light and equality fields
+  included)."""
   _, jm, m = build(scene)
   npz = {'humanoid': models.HUMANOID_NPZ,
-         'three_humanoids': models.THREE_HUMANOIDS_NPZ}[scene]
+         'three_humanoids': models.THREE_HUMANOIDS_NPZ,
+         'franka_emika_panda': models.FRANKA_NPZ}[scene]
   _assert_model_equal(io.load_model(npz, device='cpu'), jm)
   path = str(tmp_path / 'm.npz')
   io.save_model(m, path)
@@ -120,6 +123,12 @@ def test_data_from_numpy_and_make_batch():
     mt.make_batch(m, one, 5, qpos_noise=0.01)
 
 
+# two free geoms of the given types (sphere and capsule sizes read the
+# first values), a pair the gate tests
+_PAIR = """<mujoco><worldbody><body><freejoint/><geom type="{}"
+  size=".1 .1 .1"/></body><body pos="0 0 1"><freejoint/><geom type="{}"
+  size=".1 .1 .1"/></body></worldbody></mujoco>"""
+
 _OUTSIDE = {
     'tendon': """<mujoco><worldbody><body><joint type="slide"/>
       <geom size=".1" contype="0" conaffinity="0"/><site name="a"/></body>
@@ -134,42 +143,64 @@ _OUTSIDE = {
       </mujoco>""",
     'pgs': """<mujoco><option solver="PGS"/><worldbody><body>
       <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
-    'box_pair': """<mujoco><worldbody><geom type="plane" size="1 1 1"/>
-      <body><freejoint/><geom type="box" size=".1 .1 .1"/></body>
-      </worldbody></mujoco>""",
     'sensor': """<mujoco><worldbody><body><joint name="j"/>
       <geom size=".1"/></body></worldbody><sensor><jointpos joint="j"/>
       </sensor></mujoco>""",
-    'equality': """<mujoco><worldbody><body><joint name="a"/>
-      <geom size=".1"/><body><joint name="b"/><geom size=".1"/></body>
-      </body></worldbody><equality><joint joint1="a" joint2="b"/>
+    'connect': """<mujoco><worldbody><body name="b"><freejoint/>
+      <geom size=".1"/></body></worldbody><equality><connect body1="b"
+      anchor="0 0 1"/></equality></mujoco>""",
+    'weld': """<mujoco><worldbody><body name="b"><freejoint/>
+      <geom size=".1"/></body></worldbody><equality><weld body1="b"/>
       </equality></mujoco>""",
+    'tendon_equality': """<mujoco><worldbody><body><joint name="a"
+      type="slide"/><geom size=".1"/></body></worldbody><tendon><fixed
+      name="t"><joint joint="a" coef="1"/></fixed></tendon><equality>
+      <tendon tendon1="t"/></equality></mujoco>""",
+    'flex_equality': """<mujoco><worldbody><body name="b1"><freejoint/>
+      <geom size=".1"/></body><body name="b2" pos="1 0 0"><freejoint/>
+      <geom size=".1"/></body></worldbody><deformable><flex name="f"
+      dim="1" body="b1 b2" vertex="0 0 0 0 0 0" element="0 1"/>
+      </deformable><equality><flex flex="f"/></equality></mujoco>""",
+    'sphere_box': _PAIR.format('sphere', 'box'),
+    'capsule_box': _PAIR.format('capsule', 'box'),
+    'box_box': _PAIR.format('box', 'box'),
 }
 
 
-# options the gate has opened since: the same test holds that they pass
+# options and models the gate has opened since: the same test holds that
+# they pass, and what the Model then holds (a field of m, or of m.opt)
 _INSIDE = {
     'rk4': ("""<mujoco><option integrator="RK4"/><worldbody><body>
       <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
-            'integrator', 1),
+            'opt.integrator', 1),
     'cg': ("""<mujoco><option solver="CG"/><worldbody><body>
       <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
-           'solver', 1),
+           'opt.solver', 1),
     'elliptic': ("""<mujoco><option cone="elliptic"/><worldbody><body>
       <freejoint/><geom size=".1"/></body></worldbody></mujoco>""",
-                 'cone', 1),
+                 'opt.cone', 1),
     'implicitfast': ("""<mujoco><option integrator="implicitfast"/>
       <worldbody><body><freejoint/><geom size=".1"/></body></worldbody>
-      </mujoco>""", 'integrator', 3),
+      </mujoco>""", 'opt.integrator', 3),
+    'box_pair': ("""<mujoco><worldbody><geom type="plane" size="1 1 1"/>
+      <body><freejoint/><geom type="box" size=".1 .1 .1"/></body>
+      </worldbody></mujoco>""", 'collision_pairs',
+                 ((0, 6, ((0, 1, -1),)),)),
+    'equality': ("""<mujoco><worldbody><body><joint name="a"/>
+      <geom size=".1"/><body><joint name="b"/><geom size=".1"/></body>
+      </body></worldbody><equality><joint joint1="a" joint2="b"/>
+      </equality></mujoco>""", 'neq', 1),
 }
 
 
 @pytest.mark.parametrize('case', sorted(_OUTSIDE) + sorted(_INSIDE))
 def test_put_model_rejects_models_outside_the_gate(case):
   if case in _INSIDE:
-    xml, option, value = _INSIDE[case]
+    xml, field, value = _INSIDE[case]
     m = mt.put_model(mujoco.MjModel.from_xml_string(xml), device='cpu')
-    assert getattr(m.opt, option) == value
+    for name in field.split('.'):
+      m = getattr(m, name)
+    assert m == value
     return
   mjm = mujoco.MjModel.from_xml_string(_OUTSIDE[case])
   with pytest.raises(NotImplementedError):

@@ -64,7 +64,8 @@ KEYED = """
 """
 
 # scenes read from their files (they include other files)
-FILES = {'three_humanoids': models.THREE_HUMANOIDS}
+FILES = {'three_humanoids': models.THREE_HUMANOIDS,
+         'franka_emika_panda': models.FRANKA}
 ALL_SCENES = sorted(SCENES) + sorted(FILES)
 
 
