@@ -114,8 +114,10 @@ Phases:
       mujoco_warp_tpu_torch.bench` at BENCH_NSTEP steps (dispatch graph),
       `python -m mujoco_warp_tpu_torch.testspeed` on
       three_humanoids.npz at 8192 worlds, nconmax 100, 12 steps
-      (dispatch eager) and on franka_emika_panda.npz at 32768 worlds,
-      nconmax 1, 120 steps (dispatch graph); print their JSON lines.
+      (dispatch eager), on franka_emika_panda.npz at 32768 worlds,
+      nconmax 1, 120 steps and on apptronik_apollo_flat.npz at 8192
+      worlds, nconmax 16, 120 steps (both dispatch graph); print their
+      JSON lines.
   Then franka_emika_panda (nv 9, a joint equality, plane-capsule and
   plane-box pairs, implicitfast: the glue list with B3 in mode 2), the
   suite's row at 32768 worlds and nconmax 1:
@@ -138,6 +140,30 @@ Phases:
       ones bit for bit, one replayed step after eq_active was flipped in
       place against the eager step; the same from the reach state; time
       B2 on both states and B3 in mode 2, with their bounds.
+  Then apptronik_apollo_flat (nv 25, plane-capsule, plane-box,
+  capsule-capsule, capsule-box and box-box pairs, 19 friction-loss and
+  19 limit rows, four IMU sensors, Euler: the glue list with the sensor
+  stages and the advance after sensor_acc), the suite's row at 8192
+  worlds and nconmax 16:
+  (s) on P15's state (qpos0 with seeded noise, APOLLO_PREP steps: the
+      soles on the floor) and on the contact-rich state (`_apollo_rich`:
+      hinges across their ranges, the base lowered, the legs drawn
+      together in every other world), print the active contacts of each
+      pair type and fail if the rich state has no capsule-box or no
+      box-box contact; hold B2's `box_` entry against the plain rows at
+      nconmax 16 and 48 (as in (c): the same contact and row sets but at
+      thresholds, a tie only on a verified plane-box corner), over two
+      launches, with its launch shape; B3 in mode 0 on both states by
+      phase (c)'s rules, or where the lottery shows by the counts rule,
+      its objective against the float64 solve's (see RICH_LEGS);
+      from counts at 0, run P15 (the harness's protocol, replayed): B1,
+      B2 and B3 once a step on the card over COUNT_STEPS, then NSTEP
+      steps timed, printed as `step_apollo`; one step against the
+      all-plain step (counts against the all-plain step's 1-ulp
+      spread, as P14's, and each excused world against the float64
+      solve); 20 replayed steps against 20 eager
+      ones bit for bit, sensordata included; time B2 on both states and
+      B3, with their bounds.
 One JSON line lists every kernel's record; a replayed path's launches
 are those the card ran, by kernel name.
 
@@ -354,6 +380,44 @@ REACH = (0.0, 0.9, 0.0, -1.6, 0.0, 2.4, 0.785, 0.04, 0.04)
 REACH_NOISE = 0.05
 REACH_QVEL = 0.1
 EQ_OFF = 0.1
+# apptronik_apollo_flat (phase s): the suite's row (benchmarks/scenes/
+# config.txt:16), APOLLO_NWORLD worlds at nconmax APOLLO_NCONMAX; B2 is
+# also held at APOLLO_NCONMAX_WIDE, where no world overflows. P15's state
+# is qpos0 with QPOS_NOISE, after APOLLO_PREP steps; the contact-rich
+# state draws every hinge across its range, lowers the base by
+# RICH_DROP m, gives qvel N(0, RICH_QVEL^2), and in every other world
+# draws the legs together (RICH_LEGS: joint id, range) so that the soles,
+# boxes, meet each other and the capsules of the other leg
+APOLLO_NWORLD = 8192
+APOLLO_NCONMAX = 16
+APOLLO_NCONMAX_WIDE = 48
+APOLLO_PREP = 10
+RICH_DROP = 0.2
+RICH_QVEL = 0.2
+RICH_LEGS = ((9, -0.218, -0.05), (15, 0.05, 0.218), (11, 0.0, 0.3),
+             (17, 0.0, 0.3), (10, -0.3, 0.3), (16, -0.3, 0.3))
+# On the contact-rich state the float32 plain solve is noisy against
+# itself: after a 1-ulp change of qfx it ends more than TOL_OBJ units
+# above itself in 80 of 8192 worlds (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md §6), B3 in 185, so two float32 solves do not make a reference
+# for each other there. B3 on apollo is held against the plain solve in
+# float64 on the same inputs (_check_ell_solve's `exact_noise`): the
+# worlds where a float32 solve ends more than TOL_OBJ units above it, on
+# four seeds of this state (`utils/rich_spread.py`, same card, PERF.md):
+# plain 171, 172, 178, 191; after qfx +1 ulp 163, 186, 175, 184, -1 ulp
+# 174, 169, 174, 195; B3 204, 196, 189, 187; B3 built with --fmad=false
+# 162, 183, 195, 174 (in all 776 for B3, 712 for the plain solve, 714
+# without contraction). The same source without contraction lands where
+# the plain solve does: B3's excess (0.96-1.17 times the largest float32
+# plain count) is its multiply-adds' rounding. B3's count may be
+# max(8, nworld / 1000) plus EXACT_OBJ_FACTOR times the largest count of
+# the plain solve and its two 1-ulp perturbations: an excess of 25%,
+# about 1.5 times the largest read (17%). P15's step holds each of its
+# excused worlds against the float64 solve too, and a world that no
+# iteration count excuses by whether its outcome turns on at most
+# ULP_WITNESS ulps of qfx (_check_excused's `exact`).
+EXACT_OBJ_FACTOR = 1.25
+ULP_WITNESS = 4
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -684,9 +748,15 @@ def _flops_b2(m, W, c_out, nconmax) -> float:
   import mujoco_warp_tpu_torch as mt
   # plane-box: four candidate rows, each the center's and the axes' depths
   # (26), its corner and point (24) and the frame (20); row k takes k + 1
-  # passes over the 8 corners, each a depth (3 sums) and 3 comparisons
+  # passes over the 8 corners, each a depth (3 sums) and 3 comparisons.
+  # capsule-box: 33 + 2 x 5 x 9 distances to the box (40 each) and two
+  # contacts (100). box-box: eight candidate rows, each the separating
+  # axes (480) and the 24 candidates of a manifold (40 each), row k then
+  # k + 1 passes over them (3 comparisons each)
   pair_flops = {(0, 2): 25, (0, 3): 50, (2, 2): 30, (2, 3): 55, (3, 3): 90,
-                (0, 6): 4 * 70 + (1 + 2 + 3 + 4) * 8 * 6}
+                (0, 6): 4 * 70 + (1 + 2 + 3 + 4) * 8 * 6,
+                (3, 6): 123 * 40 + 2 * 100,
+                (6, 6): 8 * (480 + 24 * 40) + 36 * 24 * 3}
   per_pair = sum(len(gl) * pair_flops[(t1, t2)]
                  for t1, t2, gl in m.collision_pairs)
   ncon = c_out['ncon'].double().sum().item()
@@ -921,6 +991,8 @@ WARP_KERNELS = (('glue', 'glue_kernel', ''), ('newton', 'newton_kernel', ''),
                 ('contact', 'contact_ell_kernel', 'ell_'),
                 ('contact', 'contact_eqbox_kernel', 'eqbox_'),
                 ('contact', 'contact_eqbox_ell_kernel', 'eqbox_ell_'),
+                ('contact', 'contact_box_kernel', 'box_'),
+                ('contact', 'contact_box_ell_kernel', 'box_ell_'),
                 ('smooth', 'smooth_stages<63>', ''),
                 ('smooth', 'smooth_stages<2>', 'kin_'),
                 ('smooth', 'smooth_stages<8>', 'com_'),
@@ -1034,7 +1106,8 @@ def _expect_counts(label, expect, counts=None):
 CARD_NAMES = {
     'smooth': ('smooth_stages<63>',),
     'contact': ('contact_kernel', 'contact_ell_kernel',
-                'contact_eqbox_kernel', 'contact_eqbox_ell_kernel'),
+                'contact_eqbox_kernel', 'contact_eqbox_ell_kernel',
+                'contact_box_kernel', 'contact_box_ell_kernel'),
     'glue': ('glue_kernel',), 'glue_ell': ('glue_ell_kernel',),
     'newton': ('newton_kernel',), 'newton_ell': ('newton_ell_kernel',),
     'front': ('smooth_stages<26>',), 'kinematics': ('smooth_stages<2>',),
@@ -1289,7 +1362,8 @@ def _objective(m, qM, J, D, aref, fl, qfs, qacc, cone=None):
       qM, qfs), f64(qacc), ne, nf, cone=K)
 
 
-def _check_excused(label, m, solves, worlds, tol_obj, per_world=True):
+def _check_excused(label, m, solves, worlds, tol_obj, per_world=True,
+                   exact=False):
   """Hold the worlds that a step comparison lets miss its tolerance (a
   bool mask over worlds). Such a world comes from a solve that stopped
   early in one version: when the last polish step of the linesearch
@@ -1303,9 +1377,18 @@ def _check_excused(label, m, solves, worlds, tol_obj, per_world=True):
   stopped in fewer iterations than the plain solve. A world whose
   objective is higher after as many iterations fails, unless not
   `per_world` (the elliptic cone, see ELLIPTIC): then those worlds are
-  held by their count alone, in the caller, and printed here."""
+  held by their count alone, in the caller, and printed here. With
+  `exact` (P15, see RICH_LEGS), each solve is also run in float64 on the
+  same inputs, both versions' objectives are printed against it, and a
+  kernel solve with a higher objective in as many iterations as the
+  plain solve still passes if it ended in fewer iterations than the
+  float64 solve (it stopped early), or else if its outcome turns on an
+  ulp: with qfx moved by up to ULP_WITNESS ulps either way, the kernel
+  ends within tol_obj of the plain solve's objective, or the plain solve
+  ends more than tol_obj above it; any other fails."""
   import torch
   from mujoco_warp_tpu_torch import forward, solver
+  from mujoco_warp_tpu_torch.kernels import glue as kg
   idx = worlds.nonzero()[:, 0]
   if not idx.numel():
     return
@@ -1332,23 +1415,60 @@ def _check_excused(label, m, solves, worlds, tol_obj, per_world=True):
     niter, niter_p = out['solver_niter'][idx], ref['solver_niter']
     over = gap > tol_obj
     higher += int(over.sum())
-    same_iter += int((over & (niter >= niter_p)).sum())
+    fmt = lambda t: [float(f'{g:.3g}') for g in t.tolist()]
     print(f'  {label} solve {i}, worlds {idx.tolist()}: objective less '
-          f'the plain solve\'s on the same inputs '
-          f'{[float(f"{g:.3g}") for g in gap.tolist()]} units (tol '
+          f'the plain solve\'s on the same inputs {fmt(gap)} units (tol '
           f'{tol_obj:g}); solver_niter {niter.tolist()}, plain '
           f'{niter_p.tolist()}')
+    if exact:
+      if kind != 'glue':
+        raise ValueError(f'{label}: `exact` holds glue solves only')
+      f64 = lambda x: (x.double() if torch.is_tensor(x) and
+                       x.is_floating_point() else x)
+      ref_x = forward.glue(*[f64(x) for x in args],
+                           **{k: f64(v) for k, v in kw.items()})
+      o_x, niter_x = objective(ref_x['qacc']), ref_x['solver_niter']
+      print(f'  {label} solve {i}: objective less the float64 plain '
+            f'solve\'s: kernel '
+            f'{fmt((objective(out["qacc"][idx]) - o_x) / unit)}, plain '
+            f'{fmt((objective(ref["qacc"]) - o_x) / unit)} units; float64 '
+            f'solver_niter {niter_x.tolist()}')
+      over &= niter >= niter_x
+      left = over & (niter >= niter_p)
+      if bool(left.any()):
+        if not torch.equal(kg.glue(*args, **kw)['qacc'], out['qacc'][idx]):
+          raise RuntimeError(f'{label}: B3 on these worlds alone differs '
+                             f'from B3 in the batch')
+        turned = torch.zeros_like(left)
+        for j in [j for u in range(1, ULP_WITNESS + 1) for j in (u, -u)]:
+          qfx = args[9]
+          for _ in range(abs(j)):
+            qfx = torch.nextafter(qfx, torch.full_like(
+                qfx, float('inf') if j > 0 else float('-inf')))
+          nudged = (*args[:9], qfx, *args[10:])
+          g_k, g_p = ((objective(fn(*nudged, **kw)['qacc']) -
+                       objective(ref['qacc'])) / unit
+                      for fn in (kg.glue, forward.glue))
+          turned |= (g_k <= tol_obj) | (g_p > tol_obj)
+          print(f'  {label} solve {i}, qfx {j:+d} ulp: objective less the '
+                f'plain solve\'s: kernel {fmt(g_k[left])}, plain '
+                f'{fmt(g_p[left])} units (worlds {idx[left].tolist()})')
+        over &= ~(left & turned)
+    same_iter += int((over & (niter >= niter_p)).sum())
     if per_world and bool((over & (niter >= niter_p)).any()):
       raise RuntimeError(f'{label}: a world outside the tolerance has a '
                          f'higher objective than the plain solve reaches '
-                         f'in as many iterations')
+                         f'in as many iterations'
+                         f'{" as it and the float64 solve, and no nudge of "
+                            "qfx turns it" if exact else ""}')
   print(f'  {label}: {idx.numel()} worlds over the tolerance, {higher} of '
         f'their {idx.numel() * len(solves)} solves with a higher objective, '
-        f'{same_iter} of those after as many iterations as the plain solve')
+        f'{same_iter} of those after as many iterations as the plain solve'
+        f'{" and the float64 solve" if exact else ""}')
 
 
 def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ,
-                  spread=False):
+                  spread=False, exact=False):
   """One step of the kernel path against the all-plain step on the same
   state: keys over the worlds whose contact and row sets agree in every
   evaluation of the dynamics (an RK4 step has four, and its qacc
@@ -1358,7 +1478,8 @@ def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ,
   early in one version: those are held by `_check_excused`, every other
   world at tol. With `spread` (the elliptic cone, see ELLIPTIC), each of
   those counts may also grow by twice the all-plain step's own after a
-  1-ulp change of qvel."""
+  1-ulp change of qvel, and the excused worlds are held by count, unless
+  `exact` (P15) holds each against the float64 solve."""
   import torch
   W = d.nworld
   d_k, sets_k, solves = _step_recording(m, d)
@@ -1389,9 +1510,10 @@ def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ,
   allowed = len(sets_k) * max(8, W // 1000)
   same_u = agree(sets_u) if spread else None
   extra = 2 * (W - int(same_u.sum())) if spread else 0
+  ulp = lambda e: f'; the 1-ulp spread {e // 2}' if spread else ''
   print(f'  {label}: {nbad} of {W} worlds with a different '
         f'contact/row set in one of {len(sets_k)} evaluations (allowed '
-        f'{allowed + extra})')
+        f'{allowed + extra}{ulp(extra)})')
   if nbad > allowed + extra:
     raise RuntimeError(f'{label}: {nbad} worlds differ in their row sets')
   excused = torch.zeros_like(same)
@@ -1402,14 +1524,16 @@ def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ,
     held = same & ~o
     extra = 2 * int(over(d_u, same_u, k)[0].sum()) if spread else 0
     print(f'  {label} {k}: {n} of {W - nbad} worlds over {tol:g} of '
-          f'scale {scale:.1f} (allowed {allowed + extra}; their max '
+          f'scale {scale:.1f} (allowed {allowed + extra}{ulp(extra)}; '
+          f'their max '
           f'{float(err[same].max()):.3e}); the rest within '
           f'{float(err[held].max()):.3e}; median '
           f'{float(err[same].median()):.3e}')
     if n > allowed + extra:
       raise RuntimeError(f'{label}: {k} differs from the all-plain step '
                          f'in {n} worlds')
-  _check_excused(label, m, solves, excused, tol_obj, per_world=not spread)
+  _check_excused(label, m, solves, excused, tol_obj,
+                 per_world=exact or not spread, exact=exact)
   dn = (d_k.solver_niter - d_p.solver_niter).abs()
   print(f'  {label}: solver_niter |diff| histogram {dn.bincount().tolist()}')
 
@@ -1964,7 +2088,7 @@ def _next_ulp(x):
 
 
 def _check_ell_solve(label, m, out, ref, ulp, args, cone, qfs,
-                     resolve=False, exact=None) -> float:
+                     resolve=False, exact=None, exact_noise=None) -> float:
   """Hold B3e's or B4-elliptic's outputs `out` to B3's tolerances against
   the plain version's `ref`, measured against `ulp`, the plain version
   after a 1-ulp change of qfrc_smooth (see ELLIPTIC): the worlds over
@@ -1981,8 +2105,13 @@ def _check_ell_solve(label, m, out, ref, ulp, args, cone, qfs,
   franka after ELLIPTIC): the kernel's share of worlds within
   NITER_SLACK of exact's at least the plain solve's less
   EXACT_NITER_MARGIN, its mean at most the plain solve's plus
-  NITER_MEAN_SLACK. Returns the max abs error of the worlds within the
-  tolerances."""
+  NITER_MEAN_SLACK. With `exact_noise` too (apollo, see RICH_LEGS: more
+  float32 plain solves on perturbed inputs), the objective is held
+  against exact's in place of the plain solve's: the kernel's worlds more
+  than TOL_OBJ units above the float64 solve's may number max(8, nworld
+  / 1000) plus EXACT_OBJ_FACTOR times the largest count of such worlds
+  of the float32 plain solve, `ulp` and `exact_noise`. Returns the max
+  abs error of the worlds within the tolerances."""
   import torch
   tol = dict(qacc=TOL_B3_OTHER, qacc_smooth=TOL_B3_OTHER, qLD=TOL_B3_OTHER,
              qacc_euler=5e-4 if resolve else TOL_B3_OTHER,
@@ -2024,7 +2153,22 @@ def _check_ell_solve(label, m, out, ref, ulp, args, cone, qfs,
   if int(over.sum()) > allowed + 2 * int(over_u.sum()):
     raise RuntimeError(f'{label}: {int(over.sum())} worlds over the '
                        f'tolerances')
-  if int(worse.sum()) > allowed + 2 * int(worse_u.sum()):
+  if exact_noise is not None:
+    o_x = objective(exact['qacc'])
+    above = [(objective(x['qacc']) - o_x) / unit
+             for x in (out, ref, ulp, *exact_noise)]
+    n_x = [int((g > TOL_OBJ).sum()) for g in above]
+    limit = allowed + EXACT_OBJ_FACTOR * max(n_x[1:])
+    print(f'  {label} objective more than {TOL_OBJ:g} unit above the '
+          f'float64 plain solve\'s: kernel {n_x[0]} worlds, float32 plain '
+          f'solve and its perturbations {n_x[1:]} (allowed {allowed} + '
+          f'{EXACT_OBJ_FACTOR:g} x {max(n_x[1:])} = {limit:g}); their '
+          f'units above it in all '
+          f'{[float(f"{float(g[g > TOL_OBJ].sum()):.4g}") for g in above]}')
+    if n_x[0] > limit:
+      raise RuntimeError(f'{label}: {n_x[0]} worlds more than {TOL_OBJ:g} '
+                         f'unit above the float64 solve\'s objective')
+  elif int(worse.sum()) > allowed + 2 * int(worse_u.sum()):
     raise RuntimeError(f'{label}: a higher objective in {int(worse.sum())} '
                        f'worlds')
   if exact is not None:
@@ -2541,6 +2685,194 @@ def _franka(card) -> list:
   return records
 
 
+def _apollo_rich(m, nworld, gen):
+  """apollo's contact-rich state (see RICH_DROP) at nworld worlds, seeded
+  by gen, ctrl holding qpos0's pose."""
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch.types import JointType
+  dev = m.device
+  rand = lambda n: torch.rand(n, generator=gen, device=dev)
+  q = m.qpos0.repeat(nworld, 1)
+  for j in range(m.njnt):
+    if m.jnt_type[j] == JointType.HINGE:
+      lo, hi = m.jnt_range[j]
+      q[:, m.jnt_qposadr[j]] = lo + (hi - lo) * rand(nworld)
+  q[:, 2] -= RICH_DROP
+  legs = torch.arange(nworld, device=dev) % 2 == 0
+  for j, lo, hi in RICH_LEGS:
+    adr = m.jnt_qposadr[j]
+    q[:, adr] = torch.where(legs, lo + (hi - lo) * rand(nworld), q[:, adr])
+  qvel = RICH_QVEL * torch.randn((nworld, m.nv), generator=gen, device=dev)
+  d = mt.make_data(m, nconmax=APOLLO_NCONMAX, nworld=nworld)
+  return d.replace(qpos=q, qvel=qvel,
+                   ctrl=m.qpos0[7:].repeat(nworld, 1).contiguous())
+
+
+def _pair_counts(m, con) -> dict:
+  """Active contacts (dist below includemargin) of each geom-type pair in
+  a pool (kc.plain's outputs), by the pair's type names."""
+  import torch
+  from mujoco_warp_tpu_torch.types import GeomType
+  geom = con['geom'].long()
+  active = (geom[..., 0] >= 0) & (con['dist'] < con['includemargin'])
+  gtype = torch.tensor(m.geom_type, device=geom.device)
+  t1, t2 = gtype[geom[..., 0].clamp(min=0)], gtype[geom[..., 1].clamp(min=0)]
+  out = {}
+  for a, b, _ in m.collision_pairs:
+    name = f'{GeomType(a).name.lower()}-{GeomType(b).name.lower()}'
+    out[name] = int((active & (t1 == a) & (t2 == b)).sum())
+  return out
+
+
+def _apollo(card) -> list:
+  """Phase (s) on apptronik_apollo_flat: B2's capsule-box and box-box
+  branches (entry `box_`) against the plain rows on P15's state and on
+  the contact-rich state, at APOLLO_NCONMAX and APOLLO_NCONMAX_WIDE; B3
+  in mode 0 on both states with apollo's 19 friction-loss rows; P15 (the
+  glue step with the four IMU sensors and rne_postconstraint, the
+  advance after sensor_acc) counted, timed, replayed against eager steps
+  (sensordata too) and one step against the all-plain step; returns the
+  records of B2 on both states and of B3."""
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import forward, models
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  m = mt.load_model(models.APOLLO_NPZ, device='cuda')
+  W, C = APOLLO_NWORLD, APOLLO_NCONMAX
+  d0 = mt.make_data(m, nconmax=C)
+  names = [n for n, _ in forward.batched_stages(m, d0)]
+  print(f'model: apptronik_apollo_flat nq={m.nq} nv={m.nv} '
+        f'nbody={m.nbody} ngeom={m.ngeom} nu={m.nu} nsensor={m.nsensor} '
+        f'pairs {[(t1, t2, len(gl)) for t1, t2, gl in m.collision_pairs]} '
+        f'candidates={m.nxn_candidates}; efc layout (ne, nf, nl, stride, '
+        f'njmax) {mt.efc_layout(m, C)} at nconmax {C}; glue mode '
+        f'{forward.glue_mode(m)}; B2 entry {kc.entry(m)!r}; stages: '
+        f'{" -> ".join(names)}')
+  if names != ['smooth_mega[cuda]', 'camlight', 'contact_efc_mega[cuda]',
+               'act_len_vel', 'sensor_pos', 'sensor_vel',
+               'solve_glue[cuda]', 'sensor_acc', 'advance'] or \
+      forward.glue_mode(m) != 0 or not forward.replays(m, d0) or \
+      kc.entry(m) != 'box_':
+    raise RuntimeError('apollo does not take the glue list with sensors '
+                       'in mode 0, or B2\'s box_ entry')
+  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  d15 = mt.make_batch(m, d0, W, qpos_noise=QPOS_NOISE, generator=gen)
+  standing = bench.rollout(m, d15, APOLLO_PREP)
+  rich = _apollo_rich(m, W, gen)
+
+  # ---- B2 on both states, two pool sizes ----
+  errs = {}
+  for tag, state in (('', standing), (' rich', rich)):
+    for nconmax in (C, APOLLO_NCONMAX_WIDE):
+      label = f'B2 apollo{tag}, nconmax {nconmax}'
+      _, c_in, c_out, _ = _glue_inputs(m, state, nconmax)
+      c_ref = kc.plain(m, *c_in, nconmax, state.eq_active)
+      err = _check_contact(label, m, c_in, c_out, c_ref)
+      errs['contact'] = max(errs.get('contact', 0.0), err)
+      _check_repeat(label, lambda: kc.contact(m, *c_in, nconmax,
+                                              state.eq_active))
+      ncol = c_ref['ncollision']
+      counts = _pair_counts(m, c_ref)
+      print(f'  {label}: active contacts by pair type {counts}; '
+            f'ncollision mean {float(ncol.float().mean()):.2f} max '
+            f'{int(ncol.max())}, worlds past nconmax '
+            f'{int((ncol > nconmax).sum())}; nf {int(c_ref["nf"][0])}, nl '
+            f'mean {float(c_ref["nl"].float().mean()):.2f}')
+      if tag and nconmax == APOLLO_NCONMAX_WIDE and (
+          not counts['capsule-box'] or not counts['box-box']):
+        raise RuntimeError(f'{label}: no capsule-box or no box-box '
+                           f'contact in the contact-rich state')
+  _print_warp_shapes('apollo', ('contact_box_kernel',), W)
+
+  # ---- B3 in mode 0 on both states ----
+  f64 = lambda args: [x.double() if torch.is_tensor(x) and
+                      x.is_floating_point() else x for x in args]
+  keys = [k for k in kg.OUTPUTS if k != 'solver_niter']
+  tol3 = {k: TOL_B3.get(k, TOL_B3_OTHER) for k in keys}
+  for tag, state in (('', standing), (' rich', rich)):
+    label = f'B3 apollo{tag}'
+    _, _, c_out, g_in = _glue_inputs(m, state, C)
+    g_ref = forward.glue(m, *g_in)
+    g_out = kg.glue(m, *g_in)
+    print(f'  {label}: {int((c_out["nf"] == 19).sum())} worlds with the 19 '
+          f'friction-loss rows, acting limits mean '
+          f'{float(c_out["nl"].float().mean()):.2f}, contacts mean '
+          f'{float(c_out["ncon"].float().mean()):.2f}')
+    if not bool((c_out['nf'] == 19).all()):
+      raise RuntimeError(f'{label}: a world without its friction-loss rows')
+
+    def counts_rule():
+      g_ulp = [forward.glue(m, *g_in[:8], torch.nextafter(
+          g_in[8], torch.full_like(g_in[8], to)), g_in[9])
+               for to in (float('inf'), float('-inf'))]
+      return _check_ell_solve(label, m, g_out, g_ref, g_ulp[0], g_in[:5],
+                              None, g_out['qfrc_smooth'],
+                              exact=forward.glue(m, *f64(g_in)),
+                              exact_noise=g_ulp[1:])
+    errs['glue'] = max(errs.get('glue', 0.0), _hold_or_count(
+        label, lambda: _hold_solve(label, m, g_out, g_ref, tol3,
+                                   g_in[:5] + (g_ref['qfrc_smooth'],)),
+        counts_rule))
+    _check_repeat(label, lambda: kg.glue(m, *g_in))
+
+  # ---- P15: the suite's apollo step, replayed ----
+  (_, res), on_card = _replayed_counts(
+      'P15', lambda: bench.benchmark(m, d15, nstep=_bench_nstep(COUNT_STEPS)),
+      COUNT_STEPS)
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'P15 ran {res["dispatch"]}')
+  _expect_no_entries('P15')
+  _expect_counts('P15, on the card', dict(
+      _zero_counts(), smooth=COUNT_STEPS, contact=COUNT_STEPS,
+      glue=COUNT_STEPS), on_card)
+  _reset_counts()
+  d, res = bench.benchmark(m, d15, nstep=NSTEP)
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'P15 ran {res["dispatch"]}')
+  for k in ('qpos', 'qvel', 'qacc', 'efc_force', 'sensordata'):
+    if not bool(torch.isfinite(getattr(d, k)).all()):
+      raise RuntimeError(f'P15: non-finite {k}')
+  quat = d.sensordata[:, :4].norm(dim=1)
+  print(f'P15: {res["steps_per_sec"]:.1f} steps/s, '
+        f'{res["step_time_us"]:.1f} us/step over {res["nstep"]} timed of '
+        f'{bench.total_steps(NSTEP)} steps at {W} worlds, nconmax {C}; '
+        f'final ncon mean {res["ncon_mean"]:.3f}, nefc mean '
+        f'{res["nefc_mean"]:.2f}, solver_niter mean '
+        f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}; '
+        f'{res["converged_worlds"]} worlds without NaN; framequat norm in '
+        f'[{float(quat.min()):.6f}, {float(quat.max()):.6f}], '
+        f'accelerometer z mean {float(d.sensordata[:, 9].mean()):.3f}; '
+        f'dispatch {res["dispatch"]} ({card})')
+  print(json.dumps({'step_apollo': dict(res, card=card)}))
+  _compare_step('P15 step', m, d, TOL_STEP_QACC, ('qacc', 'qvel'),
+                spread=True, exact=True)
+  _replay_against_eager('P15', m, d, dict(smooth=1, contact=1, glue=1),
+                        PROFILE_STEPS, card)
+
+  # ---- times, plain times, bounds ----
+  records = []
+  for name, state in (('contact[apollo]', d), ('contact[apollo rich]',
+                                               rich)):
+    _, c_in, c_out, _ = _glue_inputs(m, state, C)
+    _record(records, name, on_card['contact'], errs['contact'],
+            'mujoco_warp_tpu_torch/csrc/contact.cu',
+            'mujoco_warp_tpu/pallas/contact_kernels.py:1643',
+            lambda: kc.contact(m, *c_in, C),
+            lambda: kc.plain(m, *c_in, C),
+            _bytes_b2(m, c_in, c_out), _flops_b2(m, W, c_out, C))
+  _, _, c_out, g_in = _glue_inputs(m, d, C)
+  g_out = kg.glue(m, *g_in)
+  _record(records, 'glue[apollo]', on_card['glue'], errs['glue'],
+          'mujoco_warp_tpu_torch/csrc/glue.cu',
+          'mujoco_warp_tpu/pallas/solver_kernels.py:1207',
+          lambda: kg.glue(m, *g_in), lambda: forward.glue(m, *g_in),
+          *_glue_cost(m, g_in, g_out, c_out['nefc'], 'glue[apollo]'))
+  return records
+
+
 def _flops_entry(m, W, stages) -> float:
   """B9-B12's operations, estimated from the model's sizes per stage:
   'kin' (FK), 'com' (body frames, subtree com, cinert, cdof), 'crb'
@@ -2637,10 +2969,11 @@ def _smooth_entries(tag, m, d) -> list:
 def _entry_points(card) -> None:
   """Phase (q): `python -m mujoco_warp_tpu_torch.bench` at BENCH_NSTEP
   steps (the humanoid, replayed) and `python -m
-  mujoco_warp_tpu_torch.testspeed` on three_humanoids.npz (eager) and on
+  mujoco_warp_tpu_torch.testspeed` on three_humanoids.npz (eager), on
   franka_emika_panda.npz at the suite's FRANKA_NWORLD worlds and nconmax
-  FRANKA_NCONMAX (replayed), each in a process of its own; their JSON
-  lines are printed."""
+  FRANKA_NCONMAX and on apptronik_apollo_flat.npz at APOLLO_NWORLD and
+  APOLLO_NCONMAX (both replayed), each in a process of its own; their
+  JSON lines are printed."""
   import os
   root = os.path.dirname(os.path.abspath(__file__))
 
@@ -2674,6 +3007,12 @@ def _entry_points(card) -> None:
        '--nstep', str(NSTEP), '--output', 'json'], dict(os.environ),
       'graph', ('steps_per_sec', 'jit_time', 'ncon_p95', 'solver_niter_p95',
                 'model_memory_mb', 'data_memory_mb'), FRANKA_NWORLD)
+  run('testspeed apptronik_apollo_flat',
+      ['mujoco_warp_tpu_torch.testspeed', models.APOLLO_NPZ,
+       '--nworld', str(APOLLO_NWORLD), '--nconmax', str(APOLLO_NCONMAX),
+       '--nstep', str(NSTEP), '--output', 'json'], dict(os.environ),
+      'graph', ('steps_per_sec', 'jit_time', 'ncon_p95', 'solver_niter_p95',
+                'model_memory_mb', 'data_memory_mb'), APOLLO_NWORLD)
 
 
 def main() -> int:
@@ -2877,6 +3216,7 @@ def main() -> int:
   records += _elliptic_humanoid(card, m, d)
   records += _elliptic_three(card)
   records += _franka(card)
+  records += _apollo(card)
   records += _smooth_entries('', m, d_c)
   _entry_points(card)
   print(json.dumps({'kernels': records}))

@@ -5,6 +5,15 @@ Mirrors `mujoco_warp_tpu/collision_driver.py` (`_candidate_params` :25,
 the static-pair path of `collision` :177, `finalize` :121). Together with
 `constraint.py` this is the plain PyTorch version of kernel B2
 (`kernels/contact.py`).
+
+One deliberate difference, C MuJoCo's rule (mujoco 3.10): a geom pair's
+margin and gap are the sums of the two geoms' (explicit <pair>s keep
+their own), a contact is found below margin + gap, and its includemargin
+is the margin, so that a contact in the gap has no active rows. The JAX
+package takes the larger margin and gap, finds contacts below the
+margin, and includes them below margin - gap (`collision_driver.py:60`).
+The two agree where the geoms have no gap and at most one has a margin
+(ROADMAP §C, C5).
 """
 
 from __future__ import annotations
@@ -22,8 +31,9 @@ _EMPTY_DIST = 1e10
 def candidate_params(m: Model) -> dict:
   """Mixed contact parameters of every candidate pair, in pair-list order
   (C mj_contactParam): friction (P, 5), solref, solreffriction (P, 2),
-  solimp (P, 5), margin, includemargin (P,), condim (P,) int32, plus the
-  geom ids g1, g2 (P,) int32."""
+  solimp (P, 5), margin (the detection margin: the pair's margin plus its
+  gap), includemargin (the pair's margin) (P,), condim (P,) int32, plus
+  the geom ids g1, g2 (P,) int32."""
   g1s = [g for _, _, gl in m.collision_pairs for g, _, _ in gl]
   g2s = [g for _, _, gl in m.collision_pairs for _, g, _ in gl]
   pids = [p for _, _, gl in m.collision_pairs for _, _, p in gl]
@@ -57,8 +67,8 @@ def candidate_params(m: Model) -> dict:
                        (1 - mix)[:, None] * sr2, torch.minimum(sr1, sr2))
   solimp = (mix[:, None] * m.geom_solimp[g1s] +
             (1 - mix)[:, None] * m.geom_solimp[g2s])
-  margin = torch.maximum(m.geom_margin[g1s], m.geom_margin[g2s])
-  gap = torch.maximum(m.geom_gap[g1s], m.geom_gap[g2s])
+  margin = m.geom_margin[g1s] + m.geom_margin[g2s]
+  gap = m.geom_gap[g1s] + m.geom_gap[g2s]
   solreffriction = torch.zeros_like(solref)
 
   condim = []
@@ -79,8 +89,8 @@ def candidate_params(m: Model) -> dict:
     margin = torch.where(is_pair, m.pair_margin[pid], margin)
     gap = torch.where(is_pair, m.pair_gap[pid], gap)
   return dict(friction=friction, solref=solref,
-              solreffriction=solreffriction, solimp=solimp, margin=margin,
-              includemargin=margin - gap, condim=ivec(condim),
+              solreffriction=solreffriction, solimp=solimp,
+              margin=margin + gap, includemargin=margin, condim=ivec(condim),
               g1=ivec(g1s), g2=ivec(g2s))
 
 
@@ -114,11 +124,13 @@ def collision(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
     g1 = [g for g, _, _ in glist]
     g2 = [g for _, g, _ in glist]
     fn = collision_primitive.COLLIDERS[(t1, t2)]
+    n = len(glist)
+    extra = ((params['margin'][start:start + n],)
+             if (t1, t2) in collision_primitive.NEEDS_MARGIN else ())
     dist, pos, frame = fn(geom_xpos[:, g1], geom_xmat[:, g1],
                           m.geom_size[g1], geom_xpos[:, g2],
-                          geom_xmat[:, g2], m.geom_size[g2])
+                          geom_xmat[:, g2], m.geom_size[g2], *extra)
     k = MAX_CONTACTS[(t1, t2)]
-    n = len(glist)
     dists.append(dist.reshape(W, n * k))
     poss.append(pos.reshape(W, n * k, 3))
     frames.append(frame.reshape(W, n * k, 3, 3))

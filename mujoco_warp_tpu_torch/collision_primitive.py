@@ -1,27 +1,30 @@
-"""Analytic narrowphase for the plane / sphere / capsule pairs and
-plane-box.
+"""Analytic narrowphase for the plane / sphere / capsule pairs,
+plane-box, capsule-box and box-box (`collision_box`).
 
 Each collider takes batched geometry (pos (..., 3), mat (..., 3, 3),
 size (..., 3) of both geoms) and returns a fixed number K of candidate
 contacts: dist (..., K), pos (..., K, 3), frame (..., K, 3, 3). A
 candidate is a contact when dist < margin; `collision_driver` masks the
 rest.
-Mirrors `mujoco_warp_tpu/collision_primitive.py:45-91` and `plane_box`
-(:137).
+Mirrors `mujoco_warp_tpu/collision_primitive.py:45-91`, `plane_box`
+(:137), `_point_box` (:152), `capsule_box` (:217) and `_box_box_entry`
+(:287). A collider in NEEDS_MARGIN also takes the pair's margin.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import collision_box
 from . import math
 from .io import MAX_CONTACTS
 from .types import GeomType
 
 
 def _sphere_like(p1, n_raw, r1, r2, ref):
-  """Shared tail of the sphere-vs-point colliders."""
-  cdist = math.norm(n_raw)
+  """Shared tail of the sphere-vs-point colliders (the sums in one order,
+  as kernel B2's box entries sum them)."""
+  cdist = torch.sqrt(math.dot3(n_raw, n_raw))
   small = (cdist < 1e-12)[..., None]
   n = n_raw / torch.where(small, torch.ones_like(cdist[..., None]),
                           cdist[..., None])
@@ -110,6 +113,86 @@ def capsule_capsule(p1, m1, s1, p2, m2, s2):
   return _sphere_like(p1, pb - pa, s1[..., 0], s2[..., 0], pa)
 
 
+def _point_box(c, half):
+  """Closest point on boxes of half-sizes half (..., 3) (box frames) to
+  the points c (..., 3): (closest (..., 3), normal from the box toward c
+  (..., 3), signed distance from the surface (...)); a point inside is
+  pushed out through the face of least clearance (the first of equal
+  ones). The sums run in one order, as kernel B2 runs them."""
+  c, half = torch.broadcast_tensors(c, half)
+  clamped = torch.minimum(torch.maximum(c, -half), half)
+  inside = torch.all(torch.abs(c) < half, dim=-1)
+  dvec = c - clamped
+  dn = torch.sqrt(math.dot3(dvec, dvec))
+  n_out = dvec / torch.where(dn < 1e-12, torch.ones_like(dn), dn)[..., None]
+  clearance = half - torch.abs(c)
+  ax = torch.argmin(clearance, dim=-1, keepdim=True)
+  c_ax = torch.gather(c, -1, ax)
+  sign = torch.where(c_ax >= 0, 1.0, -1.0).to(c.dtype)
+  onehot = torch.zeros_like(c).scatter_(-1, ax, 1.0)
+  n_in = onehot * sign
+  surf_in = torch.where(onehot > 0, sign * torch.gather(half, -1, ax), c)
+  closest = torch.where(inside[..., None], surf_in, clamped)
+  normal = torch.where(inside[..., None], n_in, n_out)
+  sdist = torch.where(inside, -torch.gather(clearance, -1, ax)[..., 0], dn)
+  return closest, normal, sdist
+
+
+def capsule_box(p1, m1, s1, p2, m2, s2):
+  """Capsule vs box, 2 candidates: the least signed distance from the
+  capsule's segment to the box over 33 samples, the first and the last
+  sample within 1e-4 (1 + |min|) of it, each refined by 5 rounds of a
+  shrinking 9-point window (ties to the point nearest the current one);
+  a capsule lying on a face gives the two ends of the flat interval.
+  Each product is rounded and the sums run in one order, as kernel B2
+  computes them without contraction: which samples reach the minimum
+  decides the contact point of a capsule lying on a face."""
+  half = s2[..., :3]
+  ax = m1[..., :, 2] * s1[..., 1:2]
+  a_loc = math.mtv3(m2, (p1 + ax) - p2)
+  b_loc = math.mtv3(m2, (p1 - ax) - p2)
+  seg = b_loc - a_loc
+  dt = p1.dtype
+
+  def sdist_at(t):                                  # t (..., k)
+    pts = a_loc[..., None, :] + t[..., None] * seg[..., None, :]
+    return _point_box(pts, half[..., None, :])[2]
+
+  ts = torch.arange(33, dtype=dt, device=p1.device) * (1.0 / 32.0)
+  sds = sdist_at(ts.expand(p1.shape[:-1] + (33,)))
+  sdmin = torch.min(sds, dim=-1, keepdim=True).values
+  tol = 1e-4 * (1.0 + torch.abs(sdmin))
+  at_min = sds <= sdmin + tol
+  t_first = torch.min(torch.where(at_min, ts, 2.0), dim=-1).values
+  t_last = torch.max(torch.where(at_min, ts, -1.0), dim=-1).values
+  offs = (torch.arange(9, dtype=dt, device=p1.device) - 4.0) * 0.25
+
+  def refine(t):
+    delta = 1.0 / 32.0
+    for _ in range(5):
+      cand = torch.clamp(t[..., None] + offs * delta, 0.0, 1.0)
+      vals = sdist_at(cand) + 1e-6 * torch.abs(cand - t[..., None])
+      t = torch.gather(cand, -1, torch.argmin(vals, -1, keepdim=True)
+                       )[..., 0]
+      delta = delta * 0.25
+    return t
+
+  dists, poss, frames = [], [], []
+  for t in (refine(t_first), refine(t_last)):
+    pt = a_loc + t[..., None] * seg
+    cp, normal, sdist = _point_box(pt, half)
+    dist = sdist - s1[..., 0]
+    n_world = math.mv3(m2, normal)
+    dists.append(dist)
+    poss.append((p2 + math.mv3(m2, cp)) + (0.5 * dist)[..., None] * n_world)
+    frames.append(math.make_frame(-n_world))
+  return (torch.stack(dists, -1), torch.stack(poss, -2),
+          torch.stack(frames, -3))
+
+
+# colliders that take the pair's margin
+NEEDS_MARGIN = frozenset({(GeomType.BOX, GeomType.BOX)})
+
 COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): plane_sphere,
     (GeomType.PLANE, GeomType.CAPSULE): plane_capsule,
@@ -117,5 +200,7 @@ COLLIDERS = {
     (GeomType.SPHERE, GeomType.SPHERE): sphere_sphere,
     (GeomType.SPHERE, GeomType.CAPSULE): sphere_capsule,
     (GeomType.CAPSULE, GeomType.CAPSULE): capsule_capsule,
+    (GeomType.CAPSULE, GeomType.BOX): capsule_box,
+    (GeomType.BOX, GeomType.BOX): collision_box.box_box,
 }
 assert COLLIDERS.keys() == MAX_CONTACTS.keys()

@@ -4,16 +4,21 @@
 // the contacts into the pool, and the efc rows: joint equalities, dof
 // friction, joint limits and contacts of the pyramidal cone
 // (contact_kernel) or of the elliptic cone (contact_ell_kernel); all run
-// contact_warp<ELL, EQBOX>(). A model with joint equalities or plane-box
-// pairs launches the EQBOX entries (contact_eqbox_kernel,
+// contact_warp<ELL, EQBOX, BOXES>(). A model with joint equalities or
+// plane-box pairs launches the EQBOX entries (contact_eqbox_kernel,
 // contact_eqbox_ell_kernel), whose branches need more registers: the
-// other entries keep 64 registers and their code. The JAX
+// other entries keep 64 registers and their code. A model with
+// capsule-box or box-box pairs launches the BOXES entries
+// (contact_box_kernel, contact_box_ell_kernel), which also take EQBOX's
+// branches, at their own launch bound. The JAX
 // package builds elliptic rows with XLA (its contact kernel takes the
 // pyramidal cone alone, contact_kernels.py:57); this kernel builds them
 // as mujoco_warp_tpu/constraint.py:479-517 does.
 //
 // Replaces: mujoco_warp_tpu/pallas/contact_kernels.py, contact_efc
-// (:1643; body built by make_contact_kernel :1061). Plain version:
+// (:1643; body built by make_contact_kernel :1061; the capsule-box and
+// box-box colliders _capsule_box_batch :260 and _box_box_batch :410).
+// Plain version:
 // mujoco_warp_tpu_torch/kernels/contact.py, plain() (collision_driver +
 // constraint).
 //
@@ -21,16 +26,24 @@
 // subtree com and cdof (about 450 floats) and writes the efc rows, of
 // which efc_J alone is 117 x 27 floats = 12.6 KB at nconmax 24: about
 // 14 KB per world, 115 MB at 8192 worlds, 34 us at 3.35 TB/s. The
-// narrowphase of 177 candidates is about 20k flops per world.
+// narrowphase of 177 candidates is about 20k flops per world; a
+// capsule-box pair takes 123 point-box distances, a box-box row the
+// separating axes and a manifold of 24 candidates, so on apollo (48 and
+// 6 such pairs) the narrowphase's instructions, not the bytes, set the
+// time.
 //
 // The design, one warp per world:
 // - narrowphase: lane l takes the candidate rows 32k + l of the table (a
-//   row per pair, or per contact of a plane-box pair: its row k holds the
-//   corner of depth rank k); a warp scan of each lane's count of contacts
-//   within the margin (a plane-capsule pair has two, its end caps in
-//   order) gives every contact its slot, so slot k is the k-th candidate
-//   with dist < margin in pair order, then rank order, as in the JAX
-//   package (collision_driver.finalize); candidates past nconmax are
+//   row per pair, or per contact of a plane-box or a box-box pair: its row
+//   k holds the contact of depth rank k, a box-box lane repeating the
+//   separating-axis test and the manifold, its 24 candidates in local
+//   memory, for its rank, so that the pool order needs no second pass and
+//   a lane holds at most two contacts); a warp scan of each lane's count
+//   of contacts within the margin (a plane-capsule or a capsule-box pair
+//   has two, in order) gives every contact its slot, so slot k is the
+//   k-th candidate with dist < margin in pair order, then rank order, as
+//   in the JAX package (collision_driver.finalize); candidates past
+//   nconmax are
 //   dropped and counted in ncollision. The slots stay in shared memory
 //   (PoolMem);
 // - lanes over slots (impedances, the empty slots' fields) and over rows
@@ -56,6 +69,10 @@
 // the entries with equality rows and plane-box pairs (EQBOX): their
 // branches need 72 registers (ptxas spilled them at 64)
 #define MIN_BLOCKS_EQBOX 7
+// the entries with capsule-box and box-box pairs (BOXES): up to 168
+// registers (ptxas spilled them at 128), the box-box candidates in local
+// memory
+#define MIN_BLOCKS_BOX 3
 
 struct Params {
   const float* qpos;
@@ -252,9 +269,613 @@ DEV float corner_depth(float base, const float* a, int i) {
                  ((i & 1) ? a[2] : -a[2]));
 }
 
+// ---- capsule-box and box-box (the BOXES entries) ----
+// Every product that feeds a sum is rounded (__fmul_rn: no fused
+// multiply-add) and the sums run in the order of collision_primitive's
+// capsule_box and collision_box.box_box, so that the kernel keeps the
+// plain version's bits: which samples reach a flat minimum, or which
+// candidate is valid at a clipping boundary, decides a contact.
+
+// a . b, the products rounded and summed in order
+DEV float dot3r(const float* a, const float* b) {
+  return (__fmul_rn(a[0], b[0]) + __fmul_rn(a[1], b[1])) +
+         __fmul_rn(a[2], b[2]);
+}
+
+// signed distance from the surface of a box of half-sizes h (box frame)
+// to the point c, the closest point and the normal from the box toward c
+// (collision_primitive._point_box): a point inside is pushed out through
+// the face of least clearance, the first of equal ones
+DEV float point_box(const float* c, const float* h, float* closest,
+                    float* normal) {
+  float cl[3], dv[3], clear[3];
+  bool inside = true;
+  for (int i = 0; i < 3; ++i) {
+    cl[i] = fminf(fmaxf(c[i], -h[i]), h[i]);
+    dv[i] = c[i] - cl[i];
+    clear[i] = h[i] - fabsf(c[i]);
+    inside = inside && fabsf(c[i]) < h[i];
+  }
+  if (inside) {
+    int ax = 0;
+    if (clear[1] < clear[ax]) ax = 1;
+    if (clear[2] < clear[ax]) ax = 2;
+    const float sign = c[ax] >= 0.0f ? 1.0f : -1.0f;
+    for (int i = 0; i < 3; ++i) {
+      closest[i] = i == ax ? sign * h[ax] : c[i];
+      normal[i] = i == ax ? sign : 0.0f;
+    }
+    return -clear[ax];
+  }
+  const float dn = sqrtf(dot3r(dv, dv));
+  const float inv = dn < 1e-12f ? 1.0f : dn;
+  for (int i = 0; i < 3; ++i) {
+    closest[i] = cl[i];
+    normal[i] = dv[i] / inv;
+  }
+  return dn;
+}
+
+// point_box's distance alone, at a + t seg
+DEV float point_box_sd(const float* a, const float* seg, float t,
+                       const float* h) {
+  float c[3], cl[3], nrm[3];
+  for (int i = 0; i < 3; ++i) c[i] = a[i] + __fmul_rn(t, seg[i]);
+  return point_box(c, h, cl, nrm);
+}
+
+// m^T v and m v of a row-major 3x3 matrix
+DEV void mtv3(const float* m, const float* v, float* out) {
+  for (int i = 0; i < 3; ++i)
+    out[i] = (__fmul_rn(m[i], v[0]) + __fmul_rn(m[3 + i], v[1])) +
+             __fmul_rn(m[6 + i], v[2]);
+}
+
+DEV void mv3(const float* m, const float* v, float* out) {
+  for (int i = 0; i < 3; ++i) out[i] = dot3r(m + 3 * i, v);
+}
+
+// capsule (1) - box (2), two candidates (collision_primitive.capsule_box):
+// the least signed distance of the capsule's segment to the box over 33
+// samples, the first and the last sample within 1e-4 (1 + |min|) of it,
+// each refined by 5 rounds of a shrinking 9-point window
+DEV void capsule_box(const float* p1, const float* m1, const float* s1,
+                     const float* p2, const float* m2, const float* s2,
+                     Cand& c) {
+  float ax[3], d[3], a[3], b[3], seg[3];
+  zaxis(m1, ax);
+  for (int i = 0; i < 3; ++i) d[i] = (p1[i] + __fmul_rn(ax[i], s1[1])) - p2[i];
+  mtv3(m2, d, a);
+  for (int i = 0; i < 3; ++i) d[i] = (p1[i] - __fmul_rn(ax[i], s1[1])) - p2[i];
+  mtv3(m2, d, b);
+  for (int i = 0; i < 3; ++i) seg[i] = b[i] - a[i];
+  float sds[33];
+  float sdmin = 0.0f;
+  for (int i = 0; i < 33; ++i) {
+    sds[i] = point_box_sd(a, seg, (float)i * (1.0f / 32.0f), s2);
+    sdmin = i == 0 ? sds[i] : fminf(sdmin, sds[i]);
+  }
+  const float tol = __fmul_rn(1e-4f, 1.0f + fabsf(sdmin));
+  int first = 33, last = -1;
+  for (int i = 0; i < 33; ++i) {
+    if (sds[i] <= sdmin + tol) {
+      first = min(first, i);
+      last = i;
+    }
+  }
+  float ends[2] = {(float)first * (1.0f / 32.0f),
+                   (float)last * (1.0f / 32.0f)};
+  for (int e = 0; e < 2; ++e) {
+    float t = ends[e], delta = 1.0f / 32.0f;
+    for (int r = 0; r < 5; ++r) {
+      float best = 0.0f, tbest = 0.0f;
+      for (int o = 0; o < 9; ++o) {
+        const float cand = fminf(fmaxf(
+            t + __fmul_rn(((float)o - 4.0f) * 0.25f, delta), 0.0f), 1.0f);
+        const float v = point_box_sd(a, seg, cand, s2) +
+                        __fmul_rn(1e-6f, fabsf(cand - t));
+        if (o == 0 || v < best) {
+          best = v;
+          tbest = cand;
+        }
+      }
+      t = tbest;
+      delta = delta * 0.25f;
+    }
+    float pt[3], cp[3], nl[3], nw[3], off[3], pos[3];
+    for (int i = 0; i < 3; ++i) pt[i] = a[i] + __fmul_rn(t, seg[i]);
+    const float dist = point_box(pt, s2, cp, nl) - s1[0];
+    mv3(m2, nl, nw);
+    mv3(m2, cp, off);
+    for (int i = 0; i < 3; ++i) {
+      pos[i] = (p2[i] + off[i]) + __fmul_rn(0.5f * dist, nw[i]);
+      nw[i] = -nw[i];
+    }
+    cand(c, e, dist, pos, nw);
+  }
+  c.n = 2;
+}
+
+// the rotations that take face k of a box to +z (C mjc_BoxBox's rotmore;
+// collision_box.ROTMORE), row-major
+__device__ const float kRotmore[6][9] = {
+    {0, 0, -1, 0, 1, 0, 1, 0, 0}, {1, 0, 0, 0, 0, -1, 0, 1, 0},
+    {1, 0, 0, 0, 1, 0, 0, 0, 1},  {0, 0, 1, 0, 1, 0, -1, 0, 0},
+    {1, 0, 0, 0, 0, 1, 0, -1, 0}, {-1, 0, 0, 0, 1, 0, 0, 0, -1}};
+
+// a b of row-major 3x3 matrices, and a b^T
+DEV void mm3(const float* a, const float* b, float* out) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      out[3 * i + j] = (__fmul_rn(a[3 * i], b[j]) +
+                        __fmul_rn(a[3 * i + 1], b[3 + j])) +
+                       __fmul_rn(a[3 * i + 2], b[6 + j]);
+}
+
+DEV void mmt3(const float* a, const float* b, float* out) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      out[3 * i + j] = dot3r(a + 3 * i, b + 3 * j);
+}
+
+// The 24 candidates of a box-box manifold: depth, world point (the
+// point in the reference face's frame until the last loop of box_face or
+// box_edge moves it), validity, and the pair's normal; in local memory
+struct BoxCands {
+  float depth[24];
+  float world[24][3];
+  bool valid[24];
+  float normal[3];
+};
+
+// the separating-axis scan (collision_box._sat); returns whether the
+// boxes are apart
+DEV bool box_sat(const float* pos21, const float* pos12, const float* r21,
+                 const float* a21, const float* s1, const float* s2,
+                 float margin, int* code, float* clnorm, bool* inv,
+                 int* cle1, int* cle2) {
+  float plen1[3], plen2[3];
+  for (int i = 0; i < 3; ++i) {
+    plen2[i] = dot3r(a21 + 3 * i, s2);
+  }
+  mtv3(a21, s1, plen1);
+  float sep = margin + __fmul_rn(3.0f, (s1[0] + s2[0]) + (s1[1] + s2[1]) +
+                                           (s1[2] + s2[2]));
+  bool fail = false;
+  *code = -1;
+  for (int i = 0; i < 3; ++i) {
+    const float c1 = -fabsf(pos21[i]) + s1[i] + plen2[i];
+    const float c2 = -fabsf(pos12[i]) + s2[i] + plen1[i];
+    fail = fail || c1 < -margin || c2 < -margin;
+    if (c1 < sep) {
+      *code = i + (pos21[i] < 0.0f ? 3 : 0);
+      sep = c1;
+    }
+    if (c2 < sep) {
+      *code = i + (pos12[i] < 0.0f ? 3 : 0) + 6;
+      sep = c2;
+    }
+  }
+  clnorm[0] = clnorm[1] = clnorm[2] = 0.0f;
+  *inv = false;
+  *cle1 = *cle2 = 0;
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) {
+      // rot12 row j = rot21 column j
+      const float r0 = r21[j], r1 = r21[3 + j], r2 = r21[6 + j];
+      float cr[3];
+      if (i == 0) {
+        cr[0] = 0.0f; cr[1] = -r2; cr[2] = r1;
+      } else if (i == 1) {
+        cr[0] = r2; cr[1] = 0.0f; cr[2] = -r0;
+      } else {
+        cr[0] = -r1; cr[1] = r0; cr[2] = 0.0f;
+      }
+      const float clen = sqrtf(dot3r(cr, cr));
+      const bool ok = clen >= 1e-9f;
+      const float clen_s = ok ? clen : 1.0f;
+      float axis[3];
+      for (int k = 0; k < 3; ++k) axis[k] = cr[k] / clen_s;
+      const float box_dist = dot3r(pos21, axis);
+      float c3 = -fabsf(box_dist);
+      for (int k = 0; k < 3; ++k) {
+        if (k != i) c3 = c3 + __fmul_rn(s1[k], fabsf(axis[k]));
+        if (k != j) c3 = c3 + s2[k] * a21[3 * i + 3 - k - j] / clen_s;
+      }
+      fail = fail || (ok && c3 < -margin);
+      if (ok && c3 < sep * (1.0f - 1e-12f)) {
+        int b1 = 0, b2 = 0;
+        for (int k = 0; k < 3; ++k) {
+          if (k != i && ((axis[k] > 0.0f) != (box_dist < 0.0f)))
+            b1 += 1 << k;
+          if (k != j && (((r21[3 * i + 3 - k - j] > 0.0f) !=
+                          (box_dist < 0.0f)) != ((k - j + 3) % 3 == 1)))
+            b2 += 1 << k;
+        }
+        sep = c3;
+        *code = 12 + 3 * i + j;
+        for (int k = 0; k < 3; ++k) clnorm[k] = axis[k];
+        *inv = box_dist < 0.0f;
+        *cle1 = b1;
+        *cle2 = b2;
+      }
+    }
+  }
+  return fail || *code < 0;
+}
+
+// the manifold of a face axis (collision_box._face_case)
+DEV void box_face(int axis_code, const float* pos21, const float* pos12,
+                  const float* r21, const float* p1, const float* m1,
+                  const float* s1, const float* p2, const float* m2,
+                  const float* s2, float margin, BoxCands& bc) {
+  const int code = min(max(axis_code, 0), 11);
+  const float* R = kRotmore[code % 6];
+  const bool bi = code / 6 == 1;
+  float rsel[9], r[9], p[3], ss[3], s_o[3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      rsel[3 * i + j] = bi ? r21[3 * j + i] : r21[3 * i + j];
+  mm3(R, rsel, r);
+  mv3(R, bi ? pos12 : pos21, p);
+  mv3(R, bi ? s2 : s1, ss);
+  for (int i = 0; i < 3; ++i) {
+    ss[i] = fabsf(ss[i]);
+    s_o[i] = bi ? s1[i] : s2[i];
+  }
+  const float lx = ss[0], ly = ss[1], hz = ss[2];
+  p[2] = p[2] - hz;
+  float lp[3] = {p[0], p[1], p[2]};
+  float cns[3][3];
+  bool w[3];
+  int dirs = 0;
+  for (int i = 0; i < 3; ++i) {
+    const bool clc = r[6 + i] < 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      const float rs = r[3 * k + i] * s_o[i];
+      lp[k] = lp[k] + rs * (clc ? 1.0f : -1.0f);
+      cns[i][k] = rs * (clc ? -2.0f : 2.0f);
+    }
+    w[i] = fabsf(r[6 + i]) < 0.5f;
+    dirs += w[i];
+  }
+  // the first and the second lateral direction (zero where none)
+  float cn1[3] = {0.0f, 0.0f, 0.0f}, cn2[3] = {0.0f, 0.0f, 0.0f};
+  int found = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (!w[i]) continue;
+    for (int k = 0; k < 3; ++k) (found == 0 ? cn1 : cn2)[k] = cns[i][k];
+    ++found;
+    if (found == 2) break;
+  }
+  const bool dirs2 = dirs == 2;
+  float (*pts)[3] = bc.world;
+  int n = 0;
+  for (int line = 0; line < 4; ++line) {
+    float la[3], lb[3];
+    bool lex = line == 0 ? dirs >= 1 : dirs2;
+    for (int k = 0; k < 3; ++k) {
+      la[k] = line == 2 ? lp[k] + cn1[k] :
+              line == 3 ? lp[k] + cn2[k] : lp[k];
+      lb[k] = (line == 0 || line == 3) ? cn1[k] : cn2[k];
+    }
+    for (int q = 0; q < 2; ++q) {
+      const bool denom_ok = fabsf(lb[q]) > 1e-9f;
+      const float br = 1.0f / (denom_ok ? lb[q] : 1.0f);
+      for (int jj = 0; jj < 2; ++jj) {
+        const float l = ss[q] * (jj == 0 ? -1.0f : 1.0f);
+        const float c1 = (l - la[q]) * br;
+        const float c2 = la[1 - q] + __fmul_rn(lb[1 - q], c1);
+        bc.valid[n] = lex && denom_ok && c1 >= 0.0f && c1 <= 1.0f &&
+                      fabsf(c2) <= ss[1 - q];
+        for (int k = 0; k < 3; ++k) pts[n][k] = la[k] + __fmul_rn(c1, lb[k]);
+        ++n;
+      }
+    }
+  }
+  const float ax_ = cn1[0], bx_ = cn2[0], ay_ = cn1[1], by_ = cn2[1];
+  const float det = __fmul_rn(ax_, by_) - __fmul_rn(bx_, ay_);
+  const float cdet = 1.0f / (fabsf(det) < 1e-12f ? 1.0f : det);
+  for (int i = 0; i < 4; ++i) {
+    const float llx = i / 2 ? lx : -lx, lly = i % 2 ? ly : -ly;
+    const float x = llx - lp[0], y = lly - lp[1];
+    const float u = (__fmul_rn(x, by_) - __fmul_rn(y, bx_)) * cdet;
+    const float v = (__fmul_rn(y, ax_) - __fmul_rn(x, ay_)) * cdet;
+    bc.valid[n] = dirs2 && u > 0.0f && v > 0.0f && u < 1.0f && v < 1.0f;
+    pts[n][0] = llx;
+    pts[n][1] = lly;
+    pts[n][2] = (lp[2] + __fmul_rn(u, cn1[2])) + __fmul_rn(v, cn2[2]);
+    ++n;
+  }
+  for (int i = 0; i < 4; ++i) {
+    const bool exist = dirs2 || i < 2;
+    const float f1 = (float)(i & 1), f2 = (i & 2) ? 1.0f : 0.0f;
+    for (int k = 0; k < 3; ++k)
+      pts[n][k] = (lp[k] + __fmul_rn(f1, cn1[k])) + __fmul_rn(f2, cn2[k]);
+    bc.valid[n] = exist && pts[n][0] > -lx && pts[n][0] < lx &&
+                  pts[n][1] > -ly && pts[n][1] < ly;
+    ++n;
+  }
+  // rw = (bi ? m2 : m1) R^T; the normal is its column 2
+  float rw[9];
+  mmt3(bi ? m2 : m1, R, rw);
+  const float* pw = bi ? p2 : p1;
+  for (int k = 0; k < 3; ++k)
+    bc.normal[k] = (bi ? -1.0f : 1.0f) * rw[3 * k + 2];
+  for (int c = 0; c < 24; ++c) {
+    bc.depth[c] = pts[c][2];
+    bc.valid[c] = bc.valid[c] && pts[c][2] <= margin;
+    const float loc[3] = {pts[c][0], pts[c][1], pts[c][2] * 0.5f + hz};
+    for (int k = 0; k < 3; ++k) pts[c][k] = dot3r(rw + 3 * k, loc) + pw[k];
+  }
+}
+
+// the manifold of an edge-edge axis (collision_box._edge_case)
+DEV void box_edge(int axis_code, const float* pos21, const float* r21,
+                  const float* a21, const float* clnorm, bool inv, int cle1,
+                  int cle2, const float* p1, const float* m1,
+                  const float* s1, const float* s2, float margin,
+                  BoxCands& bc) {
+  const int code = min(max(axis_code - 12, 0), 8);
+  const int edge1 = code / 3, edge2 = code % 3;
+  int ax1 = 1 - (edge2 & 1), ax2 = 2 - (edge2 & 2);
+  if (a21[3 * edge1 + ax1] < a21[3 * edge1 + ax2]) {
+    const int t = ax1; ax1 = ax2; ax2 = t;
+  }
+  int pax1 = 1 - (edge1 & 1), pax2 = 2 - (edge1 & 2);
+  if (a21[3 * pax1 + edge2] < a21[3 * pax2 + edge2]) {
+    const int t = pax1; pax1 = pax2; pax2 = t;
+  }
+  const float* R = kRotmore[((cle1 >> pax2) & 1) ? pax2 : pax2 + 3];
+  float p[3], rnorm[3], r[9], s[3], st[3];
+  mv3(R, pos21, p);
+  mv3(R, clnorm, rnorm);
+  mm3(R, r21, r);
+  mtv3(R, s1, st);
+  for (int i = 0; i < 3; ++i) s[i] = fabsf(st[i]);
+  const float lx = s[0], ly = s[1], hz = s[2];
+  p[2] = p[2] - hz;
+  // rows ax1, ax2 and edge2 of r^T: columns of r
+  const float sg1 = ((cle2 >> ax1) & 1) ? 1.0f : -1.0f;
+  const float sg2 = ((cle2 >> ax2) & 1) ? 1.0f : -1.0f;
+  float quad[4][3];
+  for (int k = 0; k < 3; ++k) {
+    const float e1 = __fmul_rn(r[3 * k + ax1], s2[ax1]);
+    const float e2 = __fmul_rn(r[3 * k + ax2], s2[ax2]);
+    const float ee = __fmul_rn(r[3 * k + edge2], s2[edge2]);
+    const float q0 = (p[k] + __fmul_rn(e1, sg1)) + __fmul_rn(e2, sg2);
+    const float q2 = (p[k] + __fmul_rn(e1, -sg1)) + __fmul_rn(e2, sg2);
+    quad[1][k] = q0 - ee;
+    quad[0][k] = q0 + ee;
+    quad[3][k] = q2 - ee;
+    quad[2][k] = q2 + ee;
+  }
+  float axi_cn1[3], axi_cn2[3];
+  for (int k = 0; k < 3; ++k) {
+    axi_cn1[k] = quad[1][k] - quad[0][k];
+    axi_cn2[k] = quad[2][k] - quad[0][k];
+  }
+  const bool norm_ok = fabsf(rnorm[2]) >= 1e-9f;
+  const float isign = inv ? -1.0f : 1.0f;
+  const float innorm = isign / (norm_ok ? rnorm[2] : 1.0f);
+  float proj[3][3];
+  for (int i = 0; i < 3; ++i) {
+    const float c_scl = quad[i][2] * isign * innorm;
+    for (int k = 0; k < 3; ++k)
+      proj[i][k] = quad[i][k] - __fmul_rn(rnorm[k], c_scl);
+  }
+  float pts_cn1[3], pts_cn2[3];
+  for (int k = 0; k < 3; ++k) {
+    pts_cn1[k] = proj[1][k] - proj[0][k];
+    pts_cn2[k] = proj[2][k] - proj[0][k];
+  }
+  float (*pts)[3] = bc.world;
+  int n = 0, nl = 0;
+  for (int line = 0; line < 4; ++line) {
+    float la[3], lb[3], lua[3], lub[3];
+    for (int k = 0; k < 3; ++k) {
+      la[k] = line == 2 ? proj[0][k] + pts_cn1[k] :
+              line == 3 ? proj[0][k] + pts_cn2[k] : proj[0][k];
+      lb[k] = (line == 0 || line == 3) ? pts_cn1[k] : pts_cn2[k];
+      lua[k] = line == 2 ? quad[0][k] + axi_cn1[k] :
+               line == 3 ? quad[0][k] + axi_cn2[k] : quad[0][k];
+      lub[k] = (line == 0 || line == 3) ? axi_cn1[k] : axi_cn2[k];
+    }
+    for (int q = 0; q < 2; ++q) {
+      const bool denom_ok = fabsf(lb[q]) > 1e-9f;
+      const float br = 1.0f / (denom_ok ? lb[q] : 1.0f);
+      for (int jj = 0; jj < 2; ++jj) {
+        const float l = s[q] * (jj == 0 ? -1.0f : 1.0f);
+        const float c1 = (l - la[q]) * br;
+        const float c2 = la[1 - q] + __fmul_rn(lb[1 - q], c1);
+        const float zval = (lua[2] + __fmul_rn(lub[2], c1)) * innorm;
+        bc.valid[n] = denom_ok && c1 >= 0.0f && c1 <= 1.0f &&
+                      fabsf(c2) <= s[1 - q] && zval <= margin;
+        for (int k = 0; k < 3; ++k)
+          pts[n][k] = __fmul_rn(lua[k], 0.5f) +
+                      __fmul_rn(__fmul_rn(c1, lub[k]), 0.5f);
+        pts[n][q] = pts[n][q] + __fmul_rn(0.5f, l);
+        pts[n][1 - q] = pts[n][1 - q] + __fmul_rn(0.5f, c2);
+        bc.depth[n] = pts[n][2] * innorm * 2.0f;
+        nl += bc.valid[n];
+        ++n;
+      }
+    }
+  }
+  const float ax_ = pts_cn1[0], bx_ = pts_cn2[0];
+  const float ay_ = pts_cn1[1], by_ = pts_cn2[1];
+  const float det = __fmul_rn(ax_, by_) - __fmul_rn(bx_, ay_);
+  const float cdet = 1.0f / (fabsf(det) < 1e-12f ? 1.0f : det);
+  int nf = 0;
+  for (int i = 0; i < 4; ++i) {
+    const float llx = i / 2 ? lx : -lx, lly = i % 2 ? ly : -ly;
+    const float x = llx - proj[0][0], y = lly - proj[0][1];
+    const float u = (__fmul_rn(x, by_) - __fmul_rn(y, bx_)) * cdet;
+    const float v = (__fmul_rn(y, ax_) - __fmul_rn(x, ay_)) * cdet;
+    const bool loose = !((u < 0.0f || u > 1.0f) && (v < 0.0f || v > 1.0f));
+    const bool strict = u >= 0.0f && v >= 0.0f && u <= 1.0f && v <= 1.0f;
+    bool accept = nl == 0 ? loose : strict;
+    const float uc = fminf(fmaxf(u, 0.0f), 1.0f);
+    const float vc = fminf(fmaxf(v, 0.0f), 1.0f);
+    const float wc = 1.0f - uc - vc;
+    float vtmp[3], dvec[3];
+    for (int k = 0; k < 3; ++k)
+      vtmp[k] = (__fmul_rn(quad[0][k], wc) + __fmul_rn(quad[1][k], uc)) +
+                __fmul_rn(quad[2][k], vc);
+    const float pt[3] = {llx, lly, 0.0f};
+    for (int k = 0; k < 3; ++k) dvec[k] = pt[k] - vtmp[k];
+    const float tc1 = dot3r(dvec, dvec);
+    accept = accept && !(vtmp[2] > 0.0f && tc1 > margin * margin);
+    for (int k = 0; k < 3; ++k) pts[n][k] = 0.5f * (pt[k] + vtmp[k]);
+    bc.depth[n] = sqrtf(tc1) * (vtmp[2] < 0.0f ? -1.0f : 1.0f);
+    bc.valid[n] = accept;
+    nf += accept;
+    ++n;
+  }
+  for (int i = 0; i < 4; ++i) {
+    const float* pu = quad[i];
+    const float x = pu[0], y = pu[1];
+    const bool loose = !((x < -lx || x > lx) && (y < -ly || y > ly));
+    const bool strict = x >= -lx && x <= lx && y >= -ly && y <= ly;
+    bool accept = (nl == 0 && nf != 0) ? loose : strict;
+    float c1v = 0.0f;
+    float tmp[2] = {x, y};
+    for (int jq = 0; jq < 2; ++jq) {
+      const bool below = pu[jq] < -s[jq], above = pu[jq] > s[jq];
+      const float lo = pu[jq] + s[jq], hi = pu[jq] - s[jq];
+      c1v = c1v + (below ? __fmul_rn(lo, lo) : above ? __fmul_rn(hi, hi)
+                                                     : 0.0f);
+      tmp[jq] = below ? -s[jq] * 0.5f : above ? s[jq] * 0.5f : tmp[jq];
+    }
+    const float zn = pu[2] * innorm;
+    c1v = c1v + __fmul_rn(zn, zn);
+    accept = accept && !(pu[2] > 0.0f && c1v > margin * margin);
+    pts[n][0] = (tmp[0] + pu[0]) * 0.5f;
+    pts[n][1] = (tmp[1] + pu[1]) * 0.5f;
+    pts[n][2] = (0.0f + pu[2]) * 0.5f;
+    bc.depth[n] = sqrtf(c1v) * (pu[2] < 0.0f ? -1.0f : 1.0f);
+    bc.valid[n] = accept;
+    ++n;
+  }
+  float rw[9], nl3[3];
+  mmt3(m1, R, rw);
+  mv3(rw, rnorm, nl3);
+  for (int k = 0; k < 3; ++k) bc.normal[k] = isign * nl3[k];
+  for (int c = 0; c < 24; ++c) {
+    bc.valid[c] = bc.valid[c] && norm_ok;
+    const float loc[3] = {pts[c][0], pts[c][1], pts[c][2] + hz};
+    for (int k = 0; k < 3; ++k) pts[c][k] = dot3r(rw + 3 * k, loc) + p1[k];
+  }
+}
+
+// box (1) - box (2): the contact of depth rank `rank` among the 8 deepest
+// valid candidates (collision_box.box_box; ties to the lower candidate
+// index, as jax.lax.top_k); dist 1e10 where that slot is empty
+DEV void box_box(const float* p1, const float* m1, const float* s1,
+                 const float* p2, const float* m2, const float* s2,
+                 float margin, int rank, Cand& c) {
+  float d[3], pos21[3], pos12[3], r21[9], a21[9];
+  for (int i = 0; i < 3; ++i) d[i] = p2[i] - p1[i];
+  mtv3(m1, d, pos21);
+  for (int i = 0; i < 3; ++i) d[i] = p1[i] - p2[i];
+  mtv3(m2, d, pos12);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      r21[3 * i + j] = (__fmul_rn(m1[i], m2[j]) +
+                        __fmul_rn(m1[3 + i], m2[3 + j])) +
+                       __fmul_rn(m1[6 + i], m2[6 + j]);
+      a21[3 * i + j] = fabsf(r21[3 * i + j]);
+    }
+  int code, cle1, cle2;
+  float clnorm[3];
+  bool inv;
+  const bool fail = box_sat(pos21, pos12, r21, a21, s1, s2, margin, &code,
+                            clnorm, &inv, &cle1, &cle2);
+  BoxCands bc;
+  if (code < 12)
+    box_face(code, pos21, pos12, r21, p1, m1, s1, p2, m2, s2, margin, bc);
+  else
+    box_edge(code, pos21, r21, a21, clnorm, inv, cle1, cle2, p1, m1, s1, s2,
+             margin, bc);
+  // rank + 1 passes, each taking the least (depth, index) of the valid
+  // candidates past the last pass's
+  int pick = -1;
+  float dist = 0.0f;
+  for (int r = 0; r <= rank; ++r) {
+    int best = -1;
+    float least = 0.0f;
+    for (int i = 0; i < 24; ++i) {
+      if (fail || !bc.valid[i]) continue;
+      const float dd = bc.depth[i];
+      const bool past = pick < 0 || dd > dist || (dd == dist && i > pick);
+      if (past && (best < 0 || dd < least)) {
+        best = i;
+        least = dd;
+      }
+    }
+    pick = best;
+    dist = least;
+    if (pick < 0) break;
+  }
+  const float zero[3] = {0.0f, 0.0f, 0.0f};
+  cand(c, 0, pick < 0 ? 1e10f : dist, pick < 0 ? zero : bc.world[pick],
+       bc.normal);
+  c.n = 1;
+}
+
+// capsule (1) - capsule (2) as the BOXES entries compute it: closest
+// points of the axes and the sphere-vs-point tail with every product
+// rounded and the sums in collision_primitive.capsule_capsule's order, so
+// that a pair whose axes nearly cross (its normal turns with the last
+// bits of pb - pa) keeps the plain version's bits. The other entries keep
+// closest_segment_segment and sphere_like, and their bits.
+DEV void capsule_capsule_rn(const float* p1, const float* m1,
+                            const float* s1, const float* p2,
+                            const float* m2, const float* s2, float* pos,
+                            float* n, float* dist) {
+  float ax1[3], ax2[3], a0[3], a1[3], b0[3], b1[3];
+  zaxis(m1, ax1);
+  zaxis(m2, ax2);
+  for (int i = 0; i < 3; ++i) {
+    const float h1 = __fmul_rn(ax1[i], s1[1]), h2 = __fmul_rn(ax2[i], s2[1]);
+    a0[i] = p1[i] - h1;
+    a1[i] = p1[i] + h1;
+    b0[i] = p2[i] - h2;
+    b1[i] = p2[i] + h2;
+  }
+  float d1[3], d2[3], r[3];
+  for (int i = 0; i < 3; ++i) {
+    d1[i] = a1[i] - a0[i]; d2[i] = b1[i] - b0[i]; r[i] = a0[i] - b0[i];
+  }
+  const float a = dot3r(d1, d1), e = dot3r(d2, d2), f = dot3r(d2, r);
+  const float c = dot3r(d1, r), b = dot3r(d1, d2);
+  const float denom = __fmul_rn(a, e) - __fmul_rn(b, b);
+  float s = denom > 1e-14f ? fminf(fmaxf(
+      (__fmul_rn(b, f) - __fmul_rn(c, e)) / denom, 0.0f), 1.0f) : 0.0f;
+  const float t = (__fmul_rn(b, s) + f) / (e > 1e-14f ? e : 1.0f);
+  const float tc = fminf(fmaxf(t, 0.0f), 1.0f);
+  if (t != tc)
+    s = fminf(fmaxf((__fmul_rn(b, tc) - c) / (a > 1e-14f ? a : 1.0f),
+                    0.0f), 1.0f);
+  float pa[3], nraw[3];
+  for (int i = 0; i < 3; ++i) {
+    pa[i] = a0[i] + __fmul_rn(d1[i], s);
+    nraw[i] = (b0[i] + __fmul_rn(d2[i], tc)) - pa[i];
+  }
+  const float cdist = sqrtf(dot3r(nraw, nraw));
+  if (cdist < 1e-12f) {
+    n[0] = 1.0f; n[1] = 0.0f; n[2] = 0.0f;
+  } else {
+    for (int i = 0; i < 3; ++i) n[i] = nraw[i] / cdist;
+  }
+  *dist = cdist - (s1[0] + s2[0]);
+  for (int i = 0; i < 3; ++i)
+    pos[i] = pa[i] + __fmul_rn(n[i], s1[0] + 0.5f * *dist);
+}
+
 // narrowphase of one candidate row (collision_primitive colliders; the
-// plane-box pair with EQBOX)
-template <bool EQBOX>
+// plane-box pair with EQBOX, capsule-box and box-box with BOXES)
+template <bool EQBOX, bool BOXES>
 DEV void collide(const Params& p, int w, int pr, Cand& c) {
   const int* pi = p.pair_int + 8 * pr;
   const int t1 = pi[0], t2 = pi[1], g1 = pi[2], g2 = pi[3];
@@ -325,6 +946,13 @@ DEV void collide(const Params& p, int w, int pr, Cand& c) {
     }
     return;
   }
+  if (BOXES && t2 == kBox) {
+    if (t1 == kCapsule)
+      capsule_box(p1, m1, s1, p2, m2, s2, c);
+    else
+      box_box(p1, m1, s1, p2, m2, s2, p.pair_float[18 * pr + 14], pi[7], c);
+    return;
+  }
   float nraw[3];
   const float* ref = p1;
   if (t1 == kSphere && t2 == kSphere) {
@@ -340,6 +968,13 @@ DEV void collide(const Params& p, int w, int pr, Cand& c) {
     closest_segment_point(a, b, p1, pt);
     for (int i = 0; i < 3; ++i) nraw[i] = pt[i] - p1[i];
   } else {                                     // capsule - capsule
+    if constexpr (BOXES) {
+      float dist;
+      capsule_capsule_rn(p1, m1, s1, p2, m2, s2, pos, n, &dist);
+      cand(c, 0, dist, pos, n);
+      c.n = 1;
+      return;
+    }
     float ax1[3], ax2[3], a1[3], b1[3], pa[3], pb[3];
     zaxis(m1, ax1);
     zaxis(m2, ax2);
@@ -430,7 +1065,7 @@ DEV float eq_joint(const int* ei, const float* ef, const float* qpos,
 #define NE (EQBOX ? p.ne_rows : 0)
 #define NEF (NE + p.nf_rows)
 
-template <bool ELL, bool EQBOX>
+template <bool ELL, bool EQBOX, bool BOXES>
 DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
                       int lane) {
   const int nv = p.nv, K = p.nconmax, S = p.stride;
@@ -447,7 +1082,7 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
     const int pr = k0 + lane;
     Cand c;
     c.n = 0;
-    if (pr < p.ncand) collide<EQBOX>(p, w, pr, c);
+    if (pr < p.ncand) collide<EQBOX, BOXES>(p, w, pr, c);
     const float margin = pr < p.ncand ? p.pair_float[18 * pr + 14] : 0.0f;
     const bool keep0 = c.n > 0 && c.dist[0] < margin;
     const bool keep1 = c.n > 1 && c.dist[1] < margin;
@@ -718,35 +1353,47 @@ DEV void contact_warp(const Params& p, const PoolMem& pool, int w,
 #undef NE
 #undef NEF
 
-template <bool ELL, bool EQBOX>
+template <bool ELL, bool EQBOX, bool BOXES>
 DEV void contact_block(const Params& p) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, wb = threadIdx.x >> 5;
   const int w = blockIdx.x * WARPS + wb;
   if (w >= p.nworld) return;
   const int words = pool_words(p.nconmax, p.stride);
-  contact_warp<ELL, EQBOX>(p, pool_at(smem + wb * words, p.nconmax), w,
-                           lane);
+  contact_warp<ELL, EQBOX, BOXES>(p, pool_at(smem + wb * words, p.nconmax),
+                                  w, lane);
 }
 
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 contact_kernel(const Params p) {
-  contact_block<false, false>(p);
+  contact_block<false, false, false>(p);
 }
 
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 contact_ell_kernel(const Params p) {
-  contact_block<true, false>(p);
+  contact_block<true, false, false>(p);
 }
 
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS_EQBOX)
 contact_eqbox_kernel(const Params p) {
-  contact_block<false, true>(p);
+  contact_block<false, true, false>(p);
 }
 
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS_EQBOX)
 contact_eqbox_ell_kernel(const Params p) {
-  contact_block<true, true>(p);
+  contact_block<true, true, false>(p);
+}
+
+// the entries with capsule-box or box-box pairs (BOXES, which also takes
+// EQBOX's branches): their candidates live in local memory
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS_BOX)
+contact_box_kernel(const Params p) {
+  contact_block<false, true, true>(p);
+}
+
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS_BOX)
+contact_box_ell_kernel(const Params p) {
+  contact_block<true, true, true>(p);
 }
 
 PORT_C_WARP_INTERFACE(Params, contact_kernel, WARPS,
@@ -756,4 +1403,8 @@ PORT_C_WARP_ENTRY(ell_, Params, contact_ell_kernel, WARPS,
 PORT_C_WARP_ENTRY(eqbox_, Params, contact_eqbox_kernel, WARPS,
                   4 * pool_words(p->nconmax, p->stride))
 PORT_C_WARP_ENTRY(eqbox_ell_, Params, contact_eqbox_ell_kernel, WARPS,
+                  4 * pool_words(p->nconmax, p->stride))
+PORT_C_WARP_ENTRY(box_, Params, contact_box_kernel, WARPS,
+                  4 * pool_words(p->nconmax, p->stride))
+PORT_C_WARP_ENTRY(box_ell_, Params, contact_box_ell_kernel, WARPS,
                   4 * pool_words(p->nconmax, p->stride))

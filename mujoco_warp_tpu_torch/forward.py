@@ -13,9 +13,18 @@ either cone:
   contact_efc_mega[cuda]  kernel B2: narrowphase, compaction, efc rows
                           (joint equalities by the Data's eq_active)
   act_len_vel             actuator lengths and velocities (tensor ops)
+  sensor_pos, sensor_vel  position and velocity sensors (tensor ops;
+                          models with sensors)
   solve_glue[cuda]        kernel B3 (pyramidal) or B3e (elliptic):
                           actuation, passive, Newton, the re-solve with
                           the integration diagonal (`glue_mode`), advance
+  sensor_acc              rne_postconstraint and acceleration sensors
+                          (models with sensors)
+  advance                 where an acceleration sensor reads the
+                          pre-advance velocity (`sensor.needs_rne_post`,
+                          JAX `_needs_preadv` :462): the kernel's qpos
+                          and qvel are dropped and the advance runs here,
+                          on its qacc_euler, after sensor_acc
 
 Otherwise `forward_batched`'s list (`forward_stages`: the `use_mega`
 branch of `batched_stages` :698-758, which never folds the back half)
@@ -24,8 +33,10 @@ and then the integrator, `_euler_batched` (:787-800), `_rk4_batched`
 
   smooth_mega[cuda], camlight, contact_efc_mega[cuda]   as above
   transmission            actuator lengths
+  sensor_pos              (models with sensors)
   velocity_glue           actuator velocities
   passive                 joint springs and dampers
+  sensor_vel              (models with sensors)
   fwd_actuation           actuator forces
   fwd_acceleration        qfrc_smooth; qacc_smooth and qLD by kernel B7
                           (nv > 32) or B5 (nv <= 32), unless B4 follows
@@ -35,6 +46,7 @@ and then the integrator, `_euler_batched` (:787-800), `_rk4_batched`
                           (nv > 32) or B6 (nv <= 32) on qLD per direction;
                           the parallel or, for the elliptic cone, the
                           iterative linesearch
+  sensor_acc              (models with sensors)
   euler                   eulerdamp: kernel B7 or B5 with diag h·damping;
                           advance, or
   rk4                     three more `forward_batched` and the Runge-Kutta
@@ -75,6 +87,7 @@ import torch
 
 from . import math
 from . import passive as passive_mod
+from . import sensor as sensor_mod
 from . import smooth as smooth_mod
 from . import solver
 from . import support
@@ -283,6 +296,13 @@ def _common_stages(m: Model, d: Data) -> list:
   return stages
 
 
+def _sensor_stage(m: Model, name: str) -> list:
+  """[(name, fn)] of the stage `name` of `sensor.py`, or [] for a model
+  without sensors (whose lists keep their stages as they were)."""
+  fn = getattr(sensor_mod, name)
+  return [(name, lambda dd: fn(m, dd))] if m.nsensor else []
+
+
 def glue_stages(m: Model, d: Data) -> list:
   """[(name, fn)] of the glue-folded step, fn: Data -> Data."""
   from .kernels import glue as glue_k
@@ -291,6 +311,8 @@ def glue_stages(m: Model, d: Data) -> list:
     length, velocity = act_len_vel(m, dd.qpos, dd.qvel)
     return dd.replace(actuator_length=length, actuator_velocity=velocity)
 
+  preadv = sensor_mod.needs_rne_post(m)
+
   def solve_stage(dd):
     qfx = dd.qfrc_applied + support.xfrc_accumulate(
         m, dd.xfrc_applied, dd.xipos, dd.subtree_com, dd.cdof) - dd.qfrc_bias
@@ -298,11 +320,19 @@ def glue_stages(m: Model, d: Data) -> list:
                       dd.efc_frictionloss, dd.qpos, dd.qvel, dd.ctrl, qfx,
                       dd.qacc_warmstart,
                       cone=solver.cone_inputs(m, dd.contact))
+    if preadv:                # the advance runs after sensor_acc
+      del out['qpos'], out['qvel']
+      return dd.replace(**out)
     return dd.replace(time=dd.time + m.opt.timestep,
                       qacc_warmstart=out['qacc'], **out)
 
-  return _common_stages(m, d) + [('act_len_vel', act_stage),
-                                 ('solve_glue[cuda]', solve_stage)]
+  stages = _common_stages(m, d) + [('act_len_vel', act_stage)]
+  stages += _sensor_stage(m, 'sensor_pos') + _sensor_stage(m, 'sensor_vel')
+  stages += [('solve_glue[cuda]', solve_stage)]
+  stages += _sensor_stage(m, 'sensor_acc')
+  if preadv:
+    stages.append(('advance', lambda dd: _advance(m, dd, dd.qacc_euler)))
+  return stages
 
 
 def uses_newton_kernel(m: Model, d: Data) -> bool:
@@ -402,11 +432,14 @@ def forward_stages(m: Model, d: Data) -> list:
         dd.efc_type, dd.qfrc_smooth, dd.qacc_smooth, dd.qacc_warmstart,
         qLD=dd.qLD, cone=solver.cone_inputs(m, dd.contact)))
 
-  return _common_stages(m, d) + [
-      ('transmission', transmission), ('velocity_glue', velocity_glue),
-      ('passive', passive), ('fwd_actuation', actuation),
-      ('fwd_acceleration', acceleration),
-      ('solve[cuda]', solve_newton_kernel) if fused else ('solve', solve)]
+  stages = _common_stages(m, d) + [('transmission', transmission)]
+  stages += _sensor_stage(m, 'sensor_pos')
+  stages += [('velocity_glue', velocity_glue), ('passive', passive)]
+  stages += _sensor_stage(m, 'sensor_vel')
+  stages += [('fwd_actuation', actuation), ('fwd_acceleration', acceleration),
+             ('solve[cuda]', solve_newton_kernel) if fused else
+             ('solve', solve)]
+  return stages + _sensor_stage(m, 'sensor_acc')
 
 
 def _run(stages: list, d: Data) -> Data:
@@ -507,8 +540,7 @@ def _split(stages: list) -> int:
 def step1(m: Model, d: Data) -> Data:
   """The position and velocity stages of the unfused list, for ctrl set
   between step1 and step2 (`step1` :881): B1, camlight, B2,
-  transmission, velocity_glue and passive (the JAX function's sensors
-  are outside the gate)."""
+  transmission, sensor_pos, velocity_glue, passive and sensor_vel."""
   stages = forward_stages(m, d)
   return _run(stages[:_split(stages)], d)
 
@@ -516,8 +548,9 @@ def step1(m: Model, d: Data) -> Data:
 def step2(m: Model, d: Data) -> Data:
   """Actuation onward and the integrator (`step2` :891): fwd_actuation,
   fwd_acceleration, the solve (kernel B4 where `uses_newton_kernel`, else
-  `solver.solve`), then Euler or implicitfast. step2(step1(d)) is the
-  unfused step. RK4 has no such split, as in the JAX package."""
+  `solver.solve`), sensor_acc, then Euler or implicitfast.
+  step2(step1(d)) is the unfused step. RK4 has no such split, as in the
+  JAX package."""
   if m.opt.integrator == IntegratorType.RK4:
     raise NotImplementedError('step1/step2 split with RK4')
   stages = unfused_stages(m, d)

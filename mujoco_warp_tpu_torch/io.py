@@ -20,8 +20,8 @@ import torch
 from . import types
 from .types import (BiasType, ConeType, Contact, Data, DisableBit, DynType,
                     EnableBit, EqType, GainType, GeomType, IntegratorType,
-                    JointType, Model, Option, SolverType, Statistic,
-                    TrnType)
+                    JointType, Model, ObjType, Option, SensorType,
+                    SolverType, Statistic, TrnType)
 
 # candidate contacts per supported geom-type pair (keys sorted by type)
 MAX_CONTACTS = {
@@ -31,7 +31,15 @@ MAX_CONTACTS = {
     (GeomType.SPHERE, GeomType.SPHERE): 1,
     (GeomType.SPHERE, GeomType.CAPSULE): 1,
     (GeomType.CAPSULE, GeomType.CAPSULE): 1,
+    (GeomType.CAPSULE, GeomType.BOX): 2,
+    (GeomType.BOX, GeomType.BOX): 8,
 }
+
+# the sensor types the port evaluates (`sensor.py`), and the objects they
+# may sit on
+SENSOR_TYPES = (SensorType.FRAMEQUAT, SensorType.GYRO,
+                SensorType.ACCELEROMETER, SensorType.MAGNETOMETER)
+SENSOR_OBJECTS = (ObjType.BODY, ObjType.XBODY, ObjType.SITE)
 
 
 def _tup(x) -> tuple:
@@ -67,7 +75,14 @@ def check_options(opt):
 def _validate(mjm):
   """Raise NotImplementedError for anything outside the port's gate."""
   need = _need
-  need(mjm.nsensor == 0, 'sensors')
+  for s in range(mjm.nsensor):
+    st = SensorType(int(mjm.sensor_type[s]))
+    need(st in SENSOR_TYPES, f'sensor type {st.name}')
+    for kind, obj in (('object', mjm.sensor_objtype[s]),
+                      ('reference', mjm.sensor_reftype[s])):
+      need(obj in SENSOR_OBJECTS or (kind == 'reference' and
+                                     mjm.sensor_refid[s] < 0),
+           f'sensor {kind} type {int(obj)}')
   need(mjm.ntendon == 0, 'tendons')
   need(mjm.na == 0, 'actuator activation states')
   need(mjm.nflex == 0, 'flex')
@@ -237,6 +252,8 @@ def put_model(mjm, device='cuda') -> Model:
   leaves = {k: f32(getattr(mjm, k)) for k in _MJ_FLOAT_LEAVES}
   leaves['cam_mat0'] = f32(mjm.cam_mat0).reshape(mjm.ncam, 3, 3)
   leaves['eq_active0'] = np.asarray(mjm.eq_active0, bool)
+  leaves['sensor_cutoff'] = f32(mjm.sensor_cutoff)
+  leaves['opt.magnetic'] = f32(mjm.opt.magnetic)
   leaves['opt.timestep'] = f32(mjm.opt.timestep)
   leaves['opt.tolerance'] = f32(max(mjm.opt.tolerance, 1e-6))  # f32 floor
   leaves['opt.ls_tolerance'] = f32(mjm.opt.ls_tolerance)
@@ -330,6 +347,16 @@ def put_model(mjm, device='cuda') -> Model:
       condim_max=max(condims),
       pair_dim=_tup(mjm.pair_dim),
       has_damping=bool(np.any(mjm.dof_damping > 0)),
+      sensor_type=_tup(mjm.sensor_type),
+      sensor_datatype=_tup(mjm.sensor_datatype),
+      sensor_needstage=_tup(mjm.sensor_needstage),
+      sensor_objtype=_tup(mjm.sensor_objtype),
+      sensor_objid=_tup(mjm.sensor_objid),
+      sensor_reftype=_tup(mjm.sensor_reftype),
+      sensor_refid=_tup(mjm.sensor_refid),
+      sensor_adr=_tup(mjm.sensor_adr),
+      sensor_dim=_tup(mjm.sensor_dim),
+      nsensordata=int(mjm.nsensordata),
       opt=dict(integrator=int(mjm.opt.integrator), cone=int(mjm.opt.cone),
                solver=int(mjm.opt.solver),
                iterations=int(mjm.opt.iterations),
@@ -509,7 +536,9 @@ def make_data(m: Model, nconmax: int | None = None, nworld: int = 1) -> Data:
       efc_J=z(njmax, nv), efc_pos=z(njmax), efc_margin=z(njmax),
       efc_D=z(njmax), efc_vel=z(njmax), efc_aref=z(njmax),
       efc_frictionloss=z(njmax), efc_force=z(njmax),
-      efc_active=torch.zeros((W, njmax), dtype=torch.bool, device=dev))
+      efc_active=torch.zeros((W, njmax), dtype=torch.bool, device=dev),
+      cfrc_ext=z(nbody, 6), cfrc_int=z(nbody, 6),
+      sensordata=z(m.nsensordata))
 
 
 def reset_data(m: Model, d: Data, keyframe: int | None = None) -> Data:

@@ -16,11 +16,13 @@
   smooth.com_pos           B11  (pallas/smooth_kernels.com_pos_batched)
   smooth.crb               B12  (pallas/smooth_kernels.crb_batched)
 
-B2 runs one warp per world (both its entries, the pyramidal and the
-elliptic rows), and so do B5-B8. B3, B4, B3e and B4-elliptic share the solve's device
-code, csrc/newton.cuh (one warp per world, with the elliptic cone for B3e
-and B4-elliptic); B9-B12 are instantiations of B1's kernel that run some
-of its stages.
+B2 runs one warp per world (each of its entries: the pyramidal and the
+elliptic rows, each also with the joint-equality and plane-box branches,
+`eqbox_`, or with those and the capsule-box and box-box branches,
+`box_`), and so do B5-B8. B3, B4, B3e and B4-elliptic share the solve's
+device code, csrc/newton.cuh (one warp per world, with the elliptic cone
+for B3e and B4-elliptic); B9-B12 are instantiations of B1's kernel that
+run some of its stages.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, counting launches in its module's

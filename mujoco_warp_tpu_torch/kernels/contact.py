@@ -5,17 +5,23 @@ cone) in one CUDA kernel, `csrc/contact.cu`: one warp per world, 4
 worlds a block, the pool's slots in shared memory; its entries (the
 pyramidal rows and, `ell_`, the elliptic rows; for a model with joint
 equalities or plane-box pairs, `eqbox_` and `eqbox_ell_`, `entry`)
-record their launch shapes in `_build.shapes[('contact', entry)]`.
+record their launch shapes in `_build.shapes[('contact', entry)]`; a
+model with capsule-box or box-box pairs launches `box_` or `box_ell_`,
+which also take the `eqbox_` branches.
 
 Replaces the TPU kernel `contact_efc` / `make_contact_kernel`
 (`mujoco_warp_tpu/pallas/contact_kernels.py:1643`, `:1061`) for plane,
-sphere and capsule pairs, plane-box pairs and joint equalities. A
-plane-box pair is four candidate rows of the kernel's table, one per
-depth rank of the box's corners (as `_build_static` expands a pair into
-its candidates, `:992-1006`), so that a lane holds at most the two
-contacts of a plane-capsule pair. That kernel refuses the elliptic cone
-(`:57`), for which the JAX package runs XLA `collision` and
-`make_constraint`; this one builds the elliptic rows too. Its plain
+sphere and capsule pairs, plane-box, capsule-box (`_capsule_box_batch`
+:260) and box-box pairs (`_box_box_batch` :410) and joint equalities. A
+plane-box pair is four candidate rows of the kernel's table and a
+box-box pair eight, one per depth rank of the pair's contacts (as
+`_build_static` expands a pair into its candidates, `:992-1006`): the
+lane of a box-box row repeats the separating-axis test and the manifold
+and keeps the contact of its rank, so that a lane holds at most the two
+contacts of a plane-capsule or a capsule-box pair. That kernel refuses
+the elliptic cone (`:57`), for which the JAX package runs XLA
+`collision` and `make_constraint`; this one builds the elliptic rows
+too. Its plain
 version (`plain`) is `collision_driver.collision` followed by
 `constraint.make_constraint`; it runs for CPU tensors, and a CUDA tensor
 launches the kernel or raises.
@@ -56,19 +62,28 @@ _INTS = ('nworld', 'nq', 'nv', 'nbody', 'ngeom', 'ncand', 'nconmax',
 Params = _build.struct('ContactParams', _PTRS, _FLOATS, _INTS)
 
 # pair types whose pairs take one candidate row of the kernel's table a
-# contact (MAX_CONTACTS rows: a box's corners by depth rank); a pair of
-# another type takes one row (a lane finds both contacts of a
-# plane-capsule pair)
-ROW_PER_CONTACT = frozenset({(GeomType.PLANE, GeomType.BOX)})
+# contact (MAX_CONTACTS rows, by depth rank: a box's corners, a box-box
+# manifold's contacts); a pair of another type takes one row (a lane
+# finds both contacts of a plane-capsule or a capsule-box pair)
+ROW_PER_CONTACT = frozenset({(GeomType.PLANE, GeomType.BOX),
+                             (GeomType.BOX, GeomType.BOX)})
+# pair types of the BOXES entries (`box_`, `box_ell_`)
+BOX_PAIRS = frozenset({(GeomType.CAPSULE, GeomType.BOX),
+                       (GeomType.BOX, GeomType.BOX)})
 
 
 def entry(m: Model) -> str:
-  """The C entry of csrc/contact.cu that m launches: `eqbox_` for joint
-  equalities or plane-box pairs, `ell_` for the elliptic cone."""
-  eqbox = m.neq > 0 or any((t1, t2) in ROW_PER_CONTACT
-                           for t1, t2, _ in m.collision_pairs)
-  return ('eqbox_' if eqbox else '') + (
-      'ell_' if m.opt.cone == ConeType.ELLIPTIC else '')
+  """The C entry of csrc/contact.cu that m launches: `box_` for
+  capsule-box or box-box pairs, else `eqbox_` for joint equalities or
+  plane-box pairs; `ell_` for the elliptic cone."""
+  types = {(t1, t2) for t1, t2, _ in m.collision_pairs}
+  if types & BOX_PAIRS:
+    prefix = 'box_'
+  elif m.neq > 0 or types & ROW_PER_CONTACT:
+    prefix = 'eqbox_'
+  else:
+    prefix = ''
+  return prefix + ('ell_' if m.opt.cone == ConeType.ELLIPTIC else '')
 
 
 def plain(m: Model, qpos, qvel, geom_xpos, geom_xmat, subtree_com, cdof,

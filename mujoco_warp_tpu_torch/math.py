@@ -25,6 +25,23 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return torch.sum(a * b, dim=-1)
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """a . b of 3-vectors, each product rounded and the sums in order (as
+  kernel B2's box entries sum them, where `dot` leaves the order to the
+  reduction)."""
+  return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def mv3(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """mat v of (..., 3, 3) matrices, summed as dot3."""
+  return torch.stack([dot3(mat[..., i, :], v) for i in range(3)], -1)
+
+
+def mtv3(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """mat^T v of (..., 3, 3) matrices, summed as dot3."""
+  return torch.stack([dot3(mat[..., :, i], v) for i in range(3)], -1)
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   a, b = torch.broadcast_tensors(a, b)
   return torch.stack([
@@ -131,15 +148,18 @@ def closest_segment_point(a, b, pt):
 
 
 def closest_segment_segment(a0, a1, b0, b1):
-  """Closest points between segments [a0, a1] and [b0, b1]."""
+  """Closest points between segments [a0, a1] and [b0, b1], each product
+  rounded and the sums in one order (dot3), as kernel B2 computes them:
+  where two axes nearly cross, the normal turns with the last bits of
+  pb - pa."""
   d1 = a1 - a0
   d2 = b1 - b0
   r = a0 - b0
-  a = dot(d1, d1)
-  e = dot(d2, d2)
-  f = dot(d2, r)
-  c = dot(d1, r)
-  b = dot(d1, d2)
+  a = dot3(d1, d1)
+  e = dot3(d2, d2)
+  f = dot3(d2, r)
+  c = dot3(d1, r)
+  b = dot3(d1, d2)
   denom = a * e - b * b
   one = torch.ones_like(denom)
   s = torch.where(denom > _EPS, torch.clamp(

@@ -6,7 +6,10 @@
 attached to one world, nv 81) and `franka_emika_panda.npz` of the
 suite's `benchmarks/scenes/franka_emika_panda/scene.xml` (the Panda arm,
 nv 9; its meshes collide with nothing, and the Model holds no mesh
-data). They are committed so that a machine without the `mujoco`
+data) and `apptronik_apollo_flat.npz` of the suite's
+`benchmarks/scenes/apptronik_apollo/scene_flat.xml` (the Apollo
+humanoid on a plane, nv 25, four IMU sensors; no mesh is read). They
+are committed so that a machine without the `mujoco`
 bindings can load the models (`io.load_model`).
 Regenerate them after a change to the compiler:
 
@@ -32,3 +35,6 @@ THREE_HUMANOIDS_NPZ = os.path.join(_DIR, 'three_humanoids.npz')
 FRANKA = os.path.join(_ROOT, 'benchmarks', 'scenes', 'franka_emika_panda',
                       'scene.xml')
 FRANKA_NPZ = os.path.join(_DIR, 'franka_emika_panda.npz')
+APOLLO = os.path.join(_ROOT, 'benchmarks', 'scenes', 'apptronik_apollo',
+                      'scene_flat.xml')
+APOLLO_NPZ = os.path.join(_DIR, 'apptronik_apollo_flat.npz')

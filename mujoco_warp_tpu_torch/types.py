@@ -3,8 +3,8 @@ Contact and Data as dataclasses of tensors.
 
 Field names follow the JAX package (`mujoco_warp_tpu/types.py`) so the
 parity tests compare like with like. Only the fields the ported
-`step_batched` paths (humanoid, three_humanoids, franka_emika_panda)
-read or write are present. Two differences:
+`step_batched` paths (humanoid, three_humanoids, franka_emika_panda,
+apptronik_apollo_flat) read or write are present. Two differences:
 
 * Structural metadata (tree topology, joint types, collision pair lists)
   stays in static Python ints and tuples, as in the JAX Model; numeric
@@ -227,6 +227,7 @@ class Option(_Tensors):
   ls_tolerance: torch.Tensor
   gravity: torch.Tensor
   impratio: torch.Tensor
+  magnetic: torch.Tensor
   integrator: int
   cone: int
   solver: int
@@ -314,6 +315,20 @@ class Model(_Tensors):
   condim_max: int
   pair_dim: IntTuple
   has_damping: bool
+  # sensors (FRAMEQUAT, GYRO, ACCELEROMETER, MAGNETOMETER: the gate):
+  # type (SensorType), datatype, needstage (1 pos, 2 vel, 3 acc), the
+  # object and the reference object (type ObjType, id; refid -1 for
+  # none), address and width in sensordata
+  sensor_type: IntTuple
+  sensor_datatype: IntTuple
+  sensor_needstage: IntTuple
+  sensor_objtype: IntTuple
+  sensor_objid: IntTuple
+  sensor_reftype: IntTuple
+  sensor_refid: IntTuple
+  sensor_adr: IntTuple
+  sensor_dim: IntTuple
+  nsensordata: int
   # numeric parameters
   opt: Option
   stat: Statistic
@@ -379,6 +394,8 @@ class Model(_Tensors):
   eq_solref: torch.Tensor
   eq_solimp: torch.Tensor
   eq_active0: torch.Tensor
+  # (nsensor,) each sensor's cutoff (0: none)
+  sensor_cutoff: torch.Tensor
   # keyframes: (nkey,), (nkey, nq), (nkey, nv), (nkey, na), (nkey, nu),
   # (nkey, nmocap, 3), (nkey, nmocap, 4)
   key_time: torch.Tensor
@@ -469,6 +486,8 @@ class Data(_Tensors):
   cvel: torch.Tensor
   cdof_dot: torch.Tensor
   cacc: torch.Tensor
+  cfrc_ext: torch.Tensor       # (W, nbody, 6) from rne_postconstraint
+  cfrc_int: torch.Tensor       # (W, nbody, 6)
   qM: torch.Tensor
   qLD: torch.Tensor
   actuator_length: torch.Tensor
@@ -498,6 +517,7 @@ class Data(_Tensors):
   efc_frictionloss: torch.Tensor
   efc_force: torch.Tensor
   efc_active: torch.Tensor
+  sensordata: torch.Tensor     # (W, nsensordata)
 
   @property
   def nworld(self) -> int:

@@ -27,7 +27,9 @@ fwd_acceleration calls it (qM and qfrc_smooth, the factor written) and as
 the Euler re-solve calls it (qfrc_smooth + qfrc_constraint after the
 solve, the diagonal h dof_damping, no factor); B8's are the factor of
 the first, from this checkout's B7, and the gradient at the warm start
-(as chip_smoke.py phase (j) builds them).
+(as chip_smoke.py phase (j) builds them). B2's inputs on franka_emika_panda
+at chip_smoke.py's reach state (8192 worlds; its `eqbox_` entries, at
+nconmax FRANKA_NCONMAX and FRANKA_NCONMAX_WIDE, and `eqbox_ell_`).
 `run` imports `mujoco_warp_tpu_torch` from the checkout at ROOT, builds
 its kernels there, runs each kernel on the saved inputs and saves the
 outputs and each kernel's time: the card's busy time per launch over 20
@@ -68,6 +70,8 @@ NCONMAX3 = 100
 ELLIPTIC = ['opt.cone=elliptic', 'opt.impratio=10']
 ELL_STEPS = 5
 ELL3_STEPS = 2
+FRANKA_NCONMAX = 1
+FRANKA_NCONMAX_WIDE = 12
 # kernels that `--redesigned` may name, and the calls of `run` that each
 # covers: they are held against their plain versions instead of bit for
 # bit (hold)
@@ -185,7 +189,13 @@ def make_inputs(path: str) -> None:
   d3e = mt.make_batch(m3e, mt.make_data(m3e, nconmax=NCONMAX3), NWORLD,
                       qpos_noise=0.01, generator=gen3)
   d3e = bench.rollout(m3e, d3e, ELL3_STEPS)
+  import chip_smoke
+  mf = mt.load_model(models.FRANKA_NPZ, device='cuda')
+  df = chip_smoke._reach_state(mf, NWORLD, FRANKA_NCONMAX_WIDE,
+                               torch.Generator(device='cuda').manual_seed(
+                                   SEED))
   torch.save(dict(s_in=(d.qpos, d.qvel), s3_in=(d3.qpos, d3.qvel),
+                  cf_in=contact_inputs(mf, df)[0], cf_eq=df.eq_active,
                   c_in=c_in, c3_in=contact_inputs(m3, d3)[0], ce_in=ce_in,
                   ce3_in=contact_inputs(m3e, d3e)[0],
                   g_in=g_in, n_in=g_in[:5] + (qfs, g_in[9]),
@@ -216,6 +226,8 @@ def run(root: str, path: str, out: str) -> None:
   m3 = mt.load_model(models.THREE_HUMANOIDS_NPZ, device='cuda')
   me = mt.override_model(m, ELLIPTIC)
   m3e = mt.override_model(m3, ELLIPTIC)
+  mf = mt.load_model(models.FRANKA_NPZ, device='cuda')
+  mfe = mt.override_model(mf, ELLIPTIC)
   hb = m.opt.timestep * m.dof_damping
   hb3 = m3.opt.timestep * m3.dof_damping
   parent3 = m3.dof_parentid
@@ -229,6 +241,12 @@ def run(root: str, path: str, out: str) -> None:
       contact_ell=lambda: kc.contact(me, *inp['ce_in'], NCONMAX),
       contact_ell_three_humanoids=lambda: kc.contact(m3e, *inp['ce3_in'],
                                                      NCONMAX3),
+      contact_franka=lambda: kc.contact(mf, *inp['cf_in'], FRANKA_NCONMAX,
+                                        inp['cf_eq']),
+      contact_franka_wide=lambda: kc.contact(
+          mf, *inp['cf_in'], FRANKA_NCONMAX_WIDE, inp['cf_eq']),
+      contact_ell_franka=lambda: kc.contact(
+          mfe, *inp['cf_in'], FRANKA_NCONMAX_WIDE, inp['cf_eq']),
       glue=lambda: kg.glue(m, *inp['g_in']),
       newton=lambda: kn.newton_solve(m, *inp['n_in']),
       newton_hb=lambda: kn.newton_solve(m, *inp['n_in'], hb=hb),

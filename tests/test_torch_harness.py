@@ -94,7 +94,7 @@ def _path_model(scene, variant):
 @pytest.mark.parametrize('scene,variant,nconmax', [
     ('humanoid', None, 24), ('humanoid', 'rk4', 24), ('humanoid', 'cg', 24),
     ('three_humanoids', None, 100), ('humanoid', 'implicitfast', 24),
-    ('franka_emika_panda', None, 1)])
+    ('franka_emika_panda', None, 1), ('apptronik_apollo_flat', None, 16)])
 def test_state_fields_are_all_a_step_reads(scene, variant, nconmax):
   """A step from d and from d with every other field poisoned give the
   same bits in every field the step writes; the fields it neither reads
@@ -182,6 +182,7 @@ PATHS = [
     ('P12', 'three_humanoids', 'implicitfast', False, False),
     ('P13', 'humanoid', 'implicitfast_cg', False, False),
     ('P14', 'franka_emika_panda', None, False, True),
+    ('P15', 'apptronik_apollo_flat', None, False, True),
 ]
 
 
@@ -199,7 +200,8 @@ def test_replay_predicate_on_the_paths(path, scene, variant, fwd, replayed,
     m = m.replace(opt=m.opt.replace(integrator=int(IntegratorType.RK4)))
   else:
     m = _path_model(scene, variant)
-  nconmax = {'humanoid': 24, 'franka_emika_panda': 1}.get(scene, 100)
+  nconmax = {'humanoid': 24, 'franka_emika_panda': 1,
+             'apptronik_apollo_flat': 16}.get(scene, 100)
   d = mt.make_data(m, nconmax=nconmax, nworld=2)
   stages = forward.forward_stages(m, d) if fwd else \
       forward.batched_stages(m, d)

@@ -473,6 +473,29 @@ def test_contact_kernel_franka_matches_plain(cuda, cone, nconmax):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('cone', CONES)
+@pytest.mark.parametrize('nconmax', [16, 48])
+def test_contact_kernel_apollo_matches_plain(cuda, cone, nconmax):
+  """Both `box_` entries of B2 on apollo's contact-rich state (chip_smoke
+  phase s): capsule-box contacts (two a pair), box-box contacts (a pair's
+  eight candidate rows, the contacts' depth ranks) and the 19 dof
+  friction rows; at the suite's nconmax 16 and at 48."""
+  m = mt.load_model(models.APOLLO_NPZ, device=cuda)
+  if cone == 'elliptic':
+    m = mt.override_model(m, ELLIPTIC)
+  d = chip_smoke._apollo_rich(m, 512, torch.Generator(
+      device=cuda).manual_seed(0))
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  c_in = (sm['qpos'], d.qvel, sm['geom_xpos'], sm['geom_xmat'],
+          sm['subtree_com'], sm['cdof'])
+  out, ref = _contact_matches_plain(m, c_in, nconmax)
+  assert kc.entry(m) == ('box_ell_' if cone == 'elliptic' else 'box_')
+  counts = chip_smoke._pair_counts(m, ref)
+  assert counts['capsule-box'] > 0 and counts['box-box'] > 0, counts
+  assert bool((ref['nf'] == 19).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('model', sorted(CONTACT_MODELS))
 def test_contact_kernel_is_deterministic_and_fits_its_design(cuda, model):
   """Both entries of B2 give the same bits in two launches; they launch 4
@@ -489,7 +512,8 @@ def test_contact_kernel_is_deterministic_and_fits_its_design(cuda, model):
     assert (grid, block) == (256 // 4, 128), (grid, block)
     assert smem == 4 * 4 * (17 * nconmax + 33 * stride) and per_sm >= 1
   for kernel in ('contact_kernel', 'contact_ell_kernel',
-                 'contact_eqbox_kernel', 'contact_eqbox_ell_kernel'):
+                 'contact_eqbox_kernel', 'contact_eqbox_ell_kernel',
+                 'contact_box_kernel', 'contact_box_ell_kernel'):
     info, = [v for k, v in _build.ptxas_info('contact').items()
              if k.startswith(f'_Z{len(kernel)}{kernel}')]
     assert info['spill_stores'] == 0 and info['stack'] <= 1024, info

@@ -51,7 +51,8 @@ def test_model_from_numpy_takes_jax_leaves():
 
 
 @pytest.mark.parametrize('scene', ['humanoid', 'three_humanoids',
-                                   'franka_emika_panda'])
+                                   'franka_emika_panda',
+                                   'apptronik_apollo_flat'])
 def test_committed_npz_matches_jax(tmp_path, scene):
   """The committed .npz equals a fresh put_model of its MJCF (and so the
   JAX Model's shared leaves, camera, light and equality fields
@@ -59,7 +60,8 @@ def test_committed_npz_matches_jax(tmp_path, scene):
   _, jm, m = build(scene)
   npz = {'humanoid': models.HUMANOID_NPZ,
          'three_humanoids': models.THREE_HUMANOIDS_NPZ,
-         'franka_emika_panda': models.FRANKA_NPZ}[scene]
+         'franka_emika_panda': models.FRANKA_NPZ,
+         'apptronik_apollo_flat': models.APOLLO_NPZ}[scene]
   _assert_model_equal(io.load_model(npz, device='cpu'), jm)
   path = str(tmp_path / 'm.npz')
   io.save_model(m, path)
@@ -162,8 +164,9 @@ _OUTSIDE = {
       dim="1" body="b1 b2" vertex="0 0 0 0 0 0" element="0 1"/>
       </deformable><equality><flex flex="f"/></equality></mujoco>""",
     'sphere_box': _PAIR.format('sphere', 'box'),
-    'capsule_box': _PAIR.format('capsule', 'box'),
-    'box_box': _PAIR.format('box', 'box'),
+    'framequat_on_a_geom': """<mujoco><worldbody><body><freejoint/>
+      <geom name="g" size=".1"/></body></worldbody><sensor><framequat
+      objtype="geom" objname="g"/></sensor></mujoco>""",
 }
 
 
@@ -186,6 +189,15 @@ _INSIDE = {
       <body><freejoint/><geom type="box" size=".1 .1 .1"/></body>
       </worldbody></mujoco>""", 'collision_pairs',
                  ((0, 6, ((0, 1, -1),)),)),
+    'capsule_box': (_PAIR.format('capsule', 'box'), 'collision_pairs',
+                    ((3, 6, ((0, 1, -1),)),)),
+    'box_box': (_PAIR.format('box', 'box'), 'collision_pairs',
+                ((6, 6, ((0, 1, -1),)),)),
+    'imu_sensors': ("""<mujoco><worldbody><body><freejoint/>
+      <geom size=".1"/><site name="s"/></body></worldbody><sensor>
+      <framequat objtype="site" objname="s"/><gyro site="s"/>
+      <accelerometer site="s"/><magnetometer site="s"/></sensor>
+      </mujoco>""", 'sensor_type', (27, 3, 1, 6)),
     'equality': ("""<mujoco><worldbody><body><joint name="a"/>
       <geom size=".1"/><body><joint name="b"/><geom size=".1"/></body>
       </body></worldbody><equality><joint joint1="a" joint2="b"/>
