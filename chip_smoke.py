@@ -115,9 +115,10 @@ Phases:
       `python -m mujoco_warp_tpu_torch.testspeed` on
       three_humanoids.npz at 8192 worlds, nconmax 100, 12 steps
       (dispatch eager), on franka_emika_panda.npz at 32768 worlds,
-      nconmax 1, 120 steps and on apptronik_apollo_flat.npz at 8192
-      worlds, nconmax 16, 120 steps (both dispatch graph); print their
-      JSON lines.
+      nconmax 1, 120 steps, on apptronik_apollo_flat.npz at 8192
+      worlds, nconmax 16, 120 steps and on apptronik_apollo_terrain.npz
+      at 8192 worlds, nconmax 48, 42 steps (the last three dispatch
+      graph); print their JSON lines.
   Then franka_emika_panda (nv 9, a joint equality, plane-capsule and
   plane-box pairs, implicitfast: the glue list with B3 in mode 2), the
   suite's row at 32768 worlds and nconmax 1:
@@ -164,6 +165,22 @@ Phases:
       solve); 20 replayed steps against 20 eager
       ones bit for bit, sensordata included; time B2 on both states and
       B3, with their bounds.
+  Then apptronik_apollo_terrain (apollo_flat's robot on 5,272 boxes of
+  terrain: 95,021 admissible pairs, past the large-scene threshold, so
+  its lists run `collision` and `make_constraint`, torch ops, where the
+  others run B2), the suite's row at 8192 worlds and nconmax 48:
+  (t) from qpos0 with seeded noise, step until the feet touch the
+      terrain (TERRAIN_TOUCH of the worlds with a contact); print the
+      contacts, each SAP family's overlapping pairs and the worlds that
+      drop pairs at the cull; hold B1 (5,290 geoms a world) against its
+      plain version at TOL_B1 and over two launches, and B3 in mode 0
+      as in (s); from counts at 0, run P16 (the harness's protocol,
+      replayed): B1 and B3 once a step on the card over COUNT_STEPS and
+      no B2, then TERRAIN_NSTEP steps timed, printed as `step_terrain`
+      with one eager step's peak memory; one step against the all-plain
+      step as P15's; 20 replayed steps against 20 eager ones bit for
+      bit, sensordata included; the card's time of each stage; time B1
+      and B3 on terrain, with their bounds.
 One JSON line lists every kernel's record; a replayed path's launches
 are those the card ran, by kernel name.
 
@@ -418,6 +435,22 @@ RICH_LEGS = ((9, -0.218, -0.05), (15, 0.05, 0.218), (11, 0.0, 0.3),
 # ULP_WITNESS ulps of qfx (_check_excused's `exact`).
 EXACT_OBJ_FACTOR = 1.25
 ULP_WITNESS = 4
+# apptronik_apollo_terrain (phase t): the suite's row (benchmarks/scenes/
+# config.txt:18), TERRAIN_NWORLD worlds at nconmax TERRAIN_NCONMAX; P16's
+# state is qpos0 with QPOS_NOISE, stepped TERRAIN_PREP steps at a time,
+# at most TERRAIN_PREP_MAX, until TERRAIN_TOUCH of the worlds have a
+# contact (the feet on the terrain)
+TERRAIN_NWORLD = 8192
+TERRAIN_NCONMAX = 48
+# P16's timed run and testspeed's on terrain take TERRAIN_NSTEP steps in
+# all (a first, 20 warm-up and 21 timed): a step takes ~0.23 s at 8192
+# worlds
+TERRAIN_NSTEP = 42
+TERRAIN_PREP = 10
+TERRAIN_PREP_MAX = 60
+TERRAIN_TOUCH = 0.9
+# worlds on which each culled SAP family's top-K is held against a sort
+CULL_HOLD_WORLDS = 256
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -1315,20 +1348,29 @@ def _replay_against_eager(label, m, d, per_step, nstep, card):
 
 def _step_recording(m, d):
   """step_batched(m, d) and, for every evaluation of the dynamics in it,
-  the contact and row sets that kernel B2 (or what stands in for it)
-  returned, and the solve's call: (its kind, 'newton' for B4's, 'glue'
+  the contact and row sets that kernel B2 (or what stands in for it, or
+  `make_constraint` on a model past the SAP threshold) returned, and the
+  solve's call: (its kind, 'newton' for B4's, 'glue'
   for B3's, 'solve' for the unfused one; arguments, keywords, result)."""
+  import torch
   import mujoco_warp_tpu_torch as mt
-  from mujoco_warp_tpu_torch import solver
+  from mujoco_warp_tpu_torch import constraint, solver
   from mujoco_warp_tpu_torch.kernels import contact as kc
   from mujoco_warp_tpu_torch.kernels import glue as kg
   from mujoco_warp_tpu_torch.kernels import newton as kn
   sets, solves = [], []
-  inner = kc.contact, kn.newton_solve, solver.solve, kg.glue
+  inner = (kc.contact, kn.newton_solve, solver.solve, kg.glue,
+           constraint.make_constraint)
 
   def contact(*args):
     out = inner[0](*args)
     sets.append((out['ncon'], out['efc_type'], out['efc_active']))
+    return out
+
+  def rows(m, qpos, qvel, cdof, subtree_com, con, eq_active=None):
+    out = inner[4](m, qpos, qvel, cdof, subtree_com, con, eq_active)
+    sets.append(((con['geom'][..., 0] >= 0).sum(1, dtype=torch.int32),
+                 out['type'], out['active']))
     return out
 
   def recording(fn, kind):
@@ -1338,11 +1380,14 @@ def _step_recording(m, d):
       return out
     return solve
   kc.contact = contact
+  if m.sap_families:      # its rows come from make_constraint, not B2
+    constraint.make_constraint = rows
   kn.newton_solve = recording(inner[1], 'newton')
   solver.solve = recording(inner[2], 'solve')
   kg.glue = recording(inner[3], 'glue')
   d = mt.step_batched(m, d)
-  kc.contact, kn.newton_solve, solver.solve, kg.glue = inner
+  (kc.contact, kn.newton_solve, solver.solve, kg.glue,
+   constraint.make_constraint) = inner
   return d, sets, solves
 
 
@@ -2725,6 +2770,44 @@ def _pair_counts(m, con) -> dict:
   return out
 
 
+def _hold_b3_apollo(label, m, g_in, rows) -> float:
+  """B3 in mode 0 on apollo's robot (apollo_flat, apollo_terrain) on the
+  inputs g_in, whose rows (`nf`, `nl`, `ncon`) hold the 19 friction-loss
+  rows in every world: by phase (c)'s rules, or where the lottery shows
+  by the counts rule, its objective against the float64 solve's (see
+  RICH_LEGS); two launches bit-equal. Returns the largest error."""
+  import torch
+  from mujoco_warp_tpu_torch import forward
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  f64 = lambda args: [x.double() if torch.is_tensor(x) and
+                      x.is_floating_point() else x for x in args]
+  keys = [k for k in kg.OUTPUTS if k != 'solver_niter']
+  tol3 = {k: TOL_B3.get(k, TOL_B3_OTHER) for k in keys}
+  g_ref = forward.glue(m, *g_in)
+  g_out = kg.glue(m, *g_in)
+  print(f'  {label}: {int((rows["nf"] == 19).sum())} worlds with the 19 '
+        f'friction-loss rows, acting limits mean '
+        f'{float(rows["nl"].float().mean()):.2f}, contacts mean '
+        f'{float(rows["ncon"].float().mean()):.2f}')
+  if not bool((rows['nf'] == 19).all()):
+    raise RuntimeError(f'{label}: a world without its friction-loss rows')
+
+  def counts_rule():
+    g_ulp = [forward.glue(m, *g_in[:8], torch.nextafter(
+        g_in[8], torch.full_like(g_in[8], to)), g_in[9])
+             for to in (float('inf'), float('-inf'))]
+    return _check_ell_solve(label, m, g_out, g_ref, g_ulp[0], g_in[:5],
+                            None, g_out['qfrc_smooth'],
+                            exact=forward.glue(m, *f64(g_in)),
+                            exact_noise=g_ulp[1:])
+  err = _hold_or_count(
+      label, lambda: _hold_solve(label, m, g_out, g_ref, tol3,
+                                 g_in[:5] + (g_ref['qfrc_smooth'],)),
+      counts_rule)
+  _check_repeat(label, lambda: kg.glue(m, *g_in))
+  return err
+
+
 def _apollo(card) -> list:
   """Phase (s) on apptronik_apollo_flat: B2's capsule-box and box-box
   branches (entry `box_`) against the plain rows on P15's state and on
@@ -2788,35 +2871,11 @@ def _apollo(card) -> list:
   _print_warp_shapes('apollo', ('contact_box_kernel',), W)
 
   # ---- B3 in mode 0 on both states ----
-  f64 = lambda args: [x.double() if torch.is_tensor(x) and
-                      x.is_floating_point() else x for x in args]
-  keys = [k for k in kg.OUTPUTS if k != 'solver_niter']
-  tol3 = {k: TOL_B3.get(k, TOL_B3_OTHER) for k in keys}
   for tag, state in (('', standing), (' rich', rich)):
     label = f'B3 apollo{tag}'
     _, _, c_out, g_in = _glue_inputs(m, state, C)
-    g_ref = forward.glue(m, *g_in)
-    g_out = kg.glue(m, *g_in)
-    print(f'  {label}: {int((c_out["nf"] == 19).sum())} worlds with the 19 '
-          f'friction-loss rows, acting limits mean '
-          f'{float(c_out["nl"].float().mean()):.2f}, contacts mean '
-          f'{float(c_out["ncon"].float().mean()):.2f}')
-    if not bool((c_out['nf'] == 19).all()):
-      raise RuntimeError(f'{label}: a world without its friction-loss rows')
-
-    def counts_rule():
-      g_ulp = [forward.glue(m, *g_in[:8], torch.nextafter(
-          g_in[8], torch.full_like(g_in[8], to)), g_in[9])
-               for to in (float('inf'), float('-inf'))]
-      return _check_ell_solve(label, m, g_out, g_ref, g_ulp[0], g_in[:5],
-                              None, g_out['qfrc_smooth'],
-                              exact=forward.glue(m, *f64(g_in)),
-                              exact_noise=g_ulp[1:])
-    errs['glue'] = max(errs.get('glue', 0.0), _hold_or_count(
-        label, lambda: _hold_solve(label, m, g_out, g_ref, tol3,
-                                   g_in[:5] + (g_ref['qfrc_smooth'],)),
-        counts_rule))
-    _check_repeat(label, lambda: kg.glue(m, *g_in))
+    errs['glue'] = max(errs.get('glue', 0.0), _hold_b3_apollo(
+        label, m, g_in, c_out))
 
   # ---- P15: the suite's apollo step, replayed ----
   (_, res), on_card = _replayed_counts(
@@ -2870,6 +2929,212 @@ def _apollo(card) -> list:
           'mujoco_warp_tpu/pallas/solver_kernels.py:1207',
           lambda: kg.glue(m, *g_in), lambda: forward.glue(m, *g_in),
           *_glue_cost(m, g_in, g_out, c_out['nefc'], 'glue[apollo]'))
+  return records
+
+
+def _sap_glue_inputs(m, d, nconmax):
+  """B1's outputs, the large-scene broadphase's pool, its rows and B3's
+  inputs on the state d, as the glue list of a model past the SAP
+  threshold computes them (`collision`, `make_constraint`)."""
+  from mujoco_warp_tpu_torch import collision_sap, constraint, support
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  sm = ks.smooth(m, d.qpos, d.qvel)
+  con = collision_sap.collision(m, sm['geom_xpos'], sm['geom_xmat'], nconmax)
+  efc = constraint.make_constraint(m, sm['qpos'], d.qvel, sm['cdof'],
+                                   sm['subtree_com'], con, d.eq_active)
+  qfx = d.qfrc_applied + support.xfrc_accumulate(
+      m, d.xfrc_applied, sm['xipos'], sm['subtree_com'], sm['cdof']) - \
+      sm['qfrc_bias']
+  g_in = (sm['qM'], efc['J'], efc['D'], efc['aref'], efc['frictionloss'],
+          sm['qpos'], d.qvel, d.ctrl, qfx, d.qacc_warmstart)
+  return sm, con, efc, g_in
+
+
+def _family_overlaps(m, geom_xpos, geom_xmat, nconmax) -> list:
+  """Per SAP family of m: (type1, type2, pairs, slots a step keeps, (W,)
+  overlapping pairs of each world) at these geom frames. Each culled
+  family's running top-K over all W worlds, in the main path's chunks,
+  is held on CULL_HOLD_WORLDS worlds spread over the batch against one
+  stable descending sort of the family's whole slack (ties to the lower
+  pair): the kept pairs and their order, which overlap, and the
+  overlap counts, exactly."""
+  import torch
+  from mujoco_warp_tpu_torch import collision_sap
+  cw, hw = collision_sap.world_aabbs(m, geom_xpos, geom_xmat)
+  W = cw.shape[0]
+  ws = torch.arange(0, W, max(1, W // CULL_HOLD_WORLDS), device=cw.device)
+  out = []
+  for t1, t2, start, count in m.sap_families:
+    g1, g2 = (m.sap_pairs[start:start + count, k].long() for k in (0, 1))
+    kk = collision_sap.family_slots(count, nconmax)
+    if kk < count:
+      sel, valid, nover = collision_sap.cull(cw, hw, g1, g2, kk)
+      sl = collision_sap.slack(cw[ws], hw[ws], g1, g2)
+      ref = torch.sort(torch.where(sl >= 0, sl, float('-inf')), dim=1,
+                       descending=True, stable=True).indices[:, :kk]
+      chunk = max(kk, collision_sap.CHUNK_ELEMENTS // W)
+      bad = dict(sel=int((sel[ws] != ref).sum()),
+                 valid=int((valid[ws] != (sl.gather(1, ref) >= 0)).sum()),
+                 noverlap=int((nover[ws] != (sl >= 0).sum(1)).sum()))
+      print(f'  cull ({t1}, {t2}) over {W} worlds in {-(-count // chunk)} '
+            f'chunks of {chunk} pairs, held on {len(ws)} worlds against a '
+            f'stable sort: mismatches {bad}')
+      if any(bad.values()):
+        raise RuntimeError(f'cull ({t1}, {t2}) disagrees with the sort: '
+                           f'{bad}')
+    else:
+      nover = (collision_sap.slack(cw, hw, g1, g2) >= 0).sum(
+          1, dtype=torch.int32)
+    out.append((t1, t2, count, kk, nover))
+  return out
+
+
+def _stage_times(label, m, d, card) -> dict:
+  """The card's busy time of each stage of m's step from d (eager, each
+  stage on its own inputs, torch.profiler over 3 calls; CUDA events
+  where the profile shows no device work): {stage: ms}."""
+  from mujoco_warp_tpu_torch import forward
+  from mujoco_warp_tpu_torch.utils.compare_trees import device_ms
+  times, dd = {}, d
+  for name, fn in forward.batched_stages(m, d):
+    times[name] = device_ms(lambda: fn(dd), 3) or _cuda_ms(lambda: fn(dd), 3)
+    dd = fn(dd)
+  total = sum(times.values())
+  for name, ms in times.items():
+    print(f'  {label} stage {name:20s} {ms:9.4f} ms on the card '
+          f'({ms / total:.3f} of {total:.4f})')
+  print(json.dumps({f'{label} stages': dict(times, card=card)}))
+  return times
+
+
+def _terrain(card) -> list:
+  """Phase (t) on apptronik_apollo_terrain: settle from qpos0 with noise
+  until the feet touch the terrain; the contacts and the SAP overlaps;
+  B1 (5,290 geoms a world) and B3 against their plain versions; P16
+  (the glue step with `collision` and `make_constraint` in B2's place)
+  counted (B1 and B3 once a step, no B2), timed, its peak memory, one
+  step against the all-plain step, 20 replayed steps against eager ones
+  (sensordata too) and the card's time of each stage; returns the records
+  of B1 and B3 on terrain."""
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import forward, models, smooth
+  from mujoco_warp_tpu_torch.kernels import _build
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  from mujoco_warp_tpu_torch.types import GeomType
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  m = mt.load_model(models.APOLLO_TERRAIN_NPZ, device='cuda')
+  W, C = TERRAIN_NWORLD, TERRAIN_NCONMAX
+  d0 = mt.make_data(m, nconmax=C)
+  names = [n for n, _ in forward.batched_stages(m, d0)]
+  fams = [(GeomType(a).name.lower(), GeomType(b).name.lower(), n)
+          for a, b, _, n in m.sap_families]
+  print(f'model: apptronik_apollo_terrain nv={m.nv} nbody={m.nbody} '
+        f'ngeom={m.ngeom} nsensor={m.nsensor}; SAP families {fams}, '
+        f'{m.nxn_candidates} admissible pairs; efc layout (ne, nf, nl, '
+        f'stride, njmax) {mt.efc_layout(m, C)} at nconmax {C}; stages: '
+        f'{" -> ".join(names)}')
+  if names != ['smooth_mega[cuda]', 'camlight', 'collision',
+               'make_constraint', 'act_len_vel', 'sensor_pos', 'sensor_vel',
+               'solve_glue[cuda]', 'sensor_acc', 'advance'] or \
+      not forward.replays(m, d0):
+    raise RuntimeError('terrain does not take the glue list with the SAP '
+                       'stages, or is not replayed')
+  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  d16 = mt.make_batch(m, d0, W, qpos_noise=QPOS_NOISE, generator=gen)
+  steps = 0
+  while steps < TERRAIN_PREP_MAX:
+    d16 = bench.rollout(m, d16, TERRAIN_PREP, start=steps)
+    steps += TERRAIN_PREP
+    touch = float((d16.ncon > 0).float().mean())
+    if touch >= TERRAIN_TOUCH:
+      break
+  print(f'  terrain settled {steps} steps: worlds in contact {touch:.4f} '
+        f'(need {TERRAIN_TOUCH}); ncon histogram '
+        f'{d16.ncon.bincount().tolist()}, ncollision max '
+        f'{int(d16.ncollision.max())}')
+  if touch < TERRAIN_TOUCH:
+    raise RuntimeError(f'terrain: only {touch:.4f} of the worlds touch the '
+                       f'terrain after {steps} steps')
+  drops = torch.zeros(W, dtype=torch.bool, device=d16.qpos.device)
+  for t1, t2, count, kk, nover in _family_overlaps(
+      m, d16.geom_xpos, d16.geom_xmat, C):
+    drops |= nover > kk
+    print(f'  terrain family ({t1}, {t2}): {count} pairs, {kk} kept a '
+          f'step; overlapping pairs max {int(nover.max())} mean '
+          f'{float(nover.float().mean()):.2f} over the worlds')
+  print(f'  terrain: {int(drops.sum())} of {W} worlds drop overlapping '
+        f'pairs at the cull')
+
+  # ---- B1 (5,290 geoms a world) and B3 against their plain versions ----
+  errs = {}
+  sm_out, con, efc, g_in = _sap_glue_inputs(m, d16, C)
+  sm_in = (d16.qpos, d16.qvel)
+  errs['smooth'] = _compare('B1 terrain', sm_out, smooth.smooth(m, *sm_in),
+                            TOL_B1, smooth.OUTPUTS)
+  _check_repeat('B1 terrain', lambda: ks.smooth(m, *sm_in))
+  errs['glue'] = _hold_b3_apollo('B3 terrain', m, g_in, dict(
+      nf=efc['nf'], nl=efc['nl'], ncon=con['ncon']))
+
+  # ---- P16: the suite's terrain step, replayed ----
+  (_, res), on_card = _replayed_counts(
+      'P16', lambda: bench.benchmark(m, d16, nstep=_bench_nstep(COUNT_STEPS)),
+      COUNT_STEPS)
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'P16 ran {res["dispatch"]}')
+  _expect_no_entries('P16')
+  _expect_counts('P16, on the card', dict(
+      _zero_counts(), smooth=COUNT_STEPS, glue=COUNT_STEPS), on_card)
+  _reset_counts()
+  d, res = bench.benchmark(m, d16, nstep=TERRAIN_NSTEP)
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'P16 ran {res["dispatch"]}')
+  for k in ('qpos', 'qvel', 'qacc', 'efc_force', 'sensordata'):
+    if not bool(torch.isfinite(getattr(d, k)).all()):
+      raise RuntimeError(f'P16: non-finite {k}')
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  before = torch.cuda.memory_allocated()
+  mt.step_batched(m, d)
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  print(f'P16: {res["steps_per_sec"]:.1f} steps/s, '
+        f'{res["step_time_us"]:.1f} us/step over {res["nstep"]} timed of '
+        f'{bench.total_steps(TERRAIN_NSTEP)} steps at {W} worlds, nconmax '
+        f'{C}; final ncon mean {res["ncon_mean"]:.3f}, nefc mean '
+        f'{res["nefc_mean"]:.2f}, solver_niter mean '
+        f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}; '
+        f'{res["converged_worlds"]} worlds without NaN; one eager step\'s '
+        f'peak memory {peak / 2**30:.2f} GiB ({(peak - before) / 2**30:.2f} '
+        f'GiB over the {before / 2**30:.2f} GiB held before it); dispatch '
+        f'{res["dispatch"]} ({card})')
+  print(json.dumps({'step_terrain': dict(
+      res, peak_memory_gib=peak / 2**30,
+      step_memory_gib=(peak - before) / 2**30, card=card)}))
+  _compare_step('P16 step', m, d, TOL_STEP_QACC, ('qacc', 'qvel'),
+                spread=True, exact=True)
+  _replay_against_eager('P16', m, d, dict(smooth=1, glue=1), PROFILE_STEPS,
+                        card)
+  _stage_times('P16', m, d, card)
+
+  # ---- times, plain times, bounds ----
+  records = []
+  sm_out, con, efc, g_in = _sap_glue_inputs(m, d, C)
+  sm_in = (d.qpos, d.qvel)
+  _record(records, 'smooth[terrain]', on_card['smooth'], errs['smooth'],
+          'mujoco_warp_tpu_torch/csrc/smooth.cu',
+          'mujoco_warp_tpu/pallas/smooth_kernels.py:557',
+          lambda: ks.smooth(m, *sm_in), lambda: smooth.smooth(m, *sm_in),
+          _nbytes(sm_in, sm_out, _build.model_tables(m, 'smooth',
+                                                     ks._tables)),
+          _flops_b1(m, W))
+  g_out = kg.glue(m, *g_in)
+  _record(records, 'glue[terrain]', on_card['glue'], errs['glue'],
+          'mujoco_warp_tpu_torch/csrc/glue.cu',
+          'mujoco_warp_tpu/pallas/solver_kernels.py:1207',
+          lambda: kg.glue(m, *g_in), lambda: forward.glue(m, *g_in),
+          *_glue_cost(m, g_in, g_out, efc['nefc'], 'glue[terrain]'))
   return records
 
 
@@ -2971,9 +3236,10 @@ def _entry_points(card) -> None:
   steps (the humanoid, replayed) and `python -m
   mujoco_warp_tpu_torch.testspeed` on three_humanoids.npz (eager), on
   franka_emika_panda.npz at the suite's FRANKA_NWORLD worlds and nconmax
-  FRANKA_NCONMAX and on apptronik_apollo_flat.npz at APOLLO_NWORLD and
-  APOLLO_NCONMAX (both replayed), each in a process of its own; their
-  JSON lines are printed."""
+  FRANKA_NCONMAX, on apptronik_apollo_flat.npz at APOLLO_NWORLD and
+  APOLLO_NCONMAX and on apptronik_apollo_terrain.npz at TERRAIN_NWORLD
+  and TERRAIN_NCONMAX (the last three replayed), each in a process of
+  its own; their JSON lines are printed."""
   import os
   root = os.path.dirname(os.path.abspath(__file__))
 
@@ -3013,6 +3279,12 @@ def _entry_points(card) -> None:
        '--nstep', str(NSTEP), '--output', 'json'], dict(os.environ),
       'graph', ('steps_per_sec', 'jit_time', 'ncon_p95', 'solver_niter_p95',
                 'model_memory_mb', 'data_memory_mb'), APOLLO_NWORLD)
+  run('testspeed apptronik_apollo_terrain',
+      ['mujoco_warp_tpu_torch.testspeed', models.APOLLO_TERRAIN_NPZ,
+       '--nworld', str(TERRAIN_NWORLD), '--nconmax', str(TERRAIN_NCONMAX),
+       '--nstep', str(TERRAIN_NSTEP), '--output', 'json'], dict(os.environ),
+      'graph', ('steps_per_sec', 'jit_time', 'ncon_p95', 'solver_niter_p95',
+                'model_memory_mb', 'data_memory_mb'), TERRAIN_NWORLD)
 
 
 def main() -> int:
@@ -3217,6 +3489,8 @@ def main() -> int:
   records += _elliptic_three(card)
   records += _franka(card)
   records += _apollo(card)
+  records += _terrain(card)
+  torch.cuda.empty_cache()
   records += _smooth_entries('', m, d_c)
   _entry_points(card)
   print(json.dumps({'kernels': records}))

@@ -13,6 +13,8 @@ a clipping boundary is valid in both or in neither.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -50,8 +52,15 @@ def _row(mat, idx):
       idx.shape + (1, 3)))[..., 0, :]
 
 
+@functools.lru_cache(maxsize=None)
+def _rotmore_table(device, dtype):
+  """ROTMORE on a device, made once: a step builds no tensor from host
+  data (a CUDA graph captures the large-scene broadphase's colliders)."""
+  return torch.as_tensor(ROTMORE, dtype=dtype, device=device)
+
+
 def _rotmore(idx, like):
-  return torch.as_tensor(ROTMORE, dtype=like.dtype, device=like.device)[idx]
+  return _rotmore_table(like.device, like.dtype)[idx]
 
 
 def _sign(b):

@@ -28,8 +28,8 @@ def _sphere_like(p1, n_raw, r1, r2, ref):
   small = (cdist < 1e-12)[..., None]
   n = n_raw / torch.where(small, torch.ones_like(cdist[..., None]),
                           cdist[..., None])
-  ex = torch.zeros_like(n)
-  ex[..., 0] = 1.0
+  ex = torch.cat([torch.ones_like(n[..., :1]), torch.zeros_like(n[..., 1:])],
+                 -1)
   n = torch.where(small, ex, n)
   dist = cdist - (r1 + r2)
   pos = ref + n * (r1 + 0.5 * dist)[..., None]

@@ -18,6 +18,7 @@ import torch
 
 from . import math
 from .io import efc_layout
+from .kernels import _build
 from .types import ConeType, ConstraintType, DisableBit, JointType, Model
 
 MINVAL = 1e-15
@@ -57,19 +58,22 @@ def _rows(m: Model, J, pos, invweight, solref, solimp, margin, vel,
   k, b, imp = kbi(m, solref, solimp, pos)
   act = exists.to(J.dtype)
   shape = J.shape[:-1]
-  full = lambda x: torch.as_tensor(x, device=J.device).expand(shape)
+
+  def full(x, dtype=J.dtype):   # a python number is filled on the device
+    if not torch.is_tensor(x):
+      x = J.new_full((), x, dtype=dtype)
+    return x.to(dtype).expand(shape)
   return dict(
       J=J * act[..., None],
-      pos=full(pos + margin).to(J.dtype),
-      margin=full(margin).to(J.dtype),
+      pos=full(pos + margin),
+      margin=full(margin),
       D=full(1.0 / torch.clamp(invweight * (1.0 - imp) / imp, min=MINVAL) *
              act),
       vel=full(vel),
       aref=full((-k * imp * pos - b * vel) * act),
-      frictionloss=full(frictionloss * act).to(J.dtype),
-      type=full(torch.as_tensor(ctype, dtype=torch.int32, device=J.device)),
-      id=full(torch.as_tensor(cid, dtype=torch.int32, device=J.device)),
-      active=full(exists))
+      frictionloss=full(frictionloss * act),
+      type=full(ctype, torch.int32), id=full(cid, torch.int32),
+      active=full(exists, torch.bool))
 
 
 def eq_active_or_start(m: Model, qpos, eq_active):
@@ -114,6 +118,27 @@ def _equality_rows(m: Model, qpos, qvel, eq_active) -> dict:
                0.0, vel, 0.0, ConstraintType.EQUALITY, ids, eq_active & on)
 
 
+def constraint_tables(m: Model) -> dict:
+  """Index tensors of the friction and limit rows and of the contacts'
+  bodies, built once per model, so that a step builds no tensor from
+  host data (a CUDA graph captures the torch rows of a model past the
+  large-scene threshold, `collision_sap.py`)."""
+  def make(m):
+    dev = m.device
+    idx = lambda x: torch.as_tensor(x, dtype=torch.long, device=dev)
+    fr = [i for i in range(m.nv) if m.dof_hasfrictionloss[i]]
+    lim = [j for j in range(m.njnt) if m.jnt_limited[j]]
+    assert all(m.jnt_type[j] in (JointType.SLIDE, JointType.HINGE)
+               for j in lim)
+    dadr = [m.jnt_dofadr[j] for j in lim]
+    eye = torch.eye(m.nv, device=dev)
+    return dict(fr=idx(fr), fr_J=eye[fr], lim=idx(lim),
+                lim_qadr=idx([m.jnt_qposadr[j] for j in lim]),
+                lim_dadr=idx(dadr), lim_J=eye[dadr],
+                geom_bodyid=idx(m.geom_bodyid), rootid=idx(m.body_rootid))
+  return _build.model_tables(m, 'constraint', make)
+
+
 def make_constraint(m: Model, qpos, qvel, cdof, subtree_com,
                     contact: dict, eq_active=None) -> dict:
   """All efc rows (W, njmax, ...) plus the row counts ne, nf, nl, nefc and
@@ -123,8 +148,7 @@ def make_constraint(m: Model, qpos, qvel, cdof, subtree_com,
   dev, dt = qpos.device, qpos.dtype
   nconmax = contact['dist'].shape[1]
   ne, nf, nl, stride, njmax = efc_layout(m, nconmax)
-  onehot = lambda ids: torch.eye(nv, dtype=dt, device=dev)[ids]
-  ivec = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+  t = constraint_tables(m)
   groups = []
 
   if ne:
@@ -132,25 +156,20 @@ def make_constraint(m: Model, qpos, qvel, cdof, subtree_com,
                                  eq_active_or_start(m, qpos, eq_active)))
 
   # dof friction
-  fr_ids = [i for i in range(nv) if m.dof_hasfrictionloss[i]]
-  if fr_ids:
-    n = len(fr_ids)
+  fr = t['fr']
+  if nf:
     on = not m.opt.disableflags & DisableBit.FRICTIONLOSS
     groups.append(_rows(
-        m, onehot(fr_ids).expand(W, n, nv), qvel.new_zeros((W, n)),
-        m.dof_invweight0[fr_ids], m.dof_solref[fr_ids],
-        m.dof_solimp[fr_ids], 0.0, qvel[:, fr_ids],
-        m.dof_frictionloss[fr_ids], ConstraintType.FRICTION_DOF,
-        ivec(fr_ids), torch.full((W, n), on, dtype=torch.bool, device=dev)))
+        m, t['fr_J'].to(dt).expand(W, nf, nv), qvel.new_zeros((W, nf)),
+        m.dof_invweight0[fr], m.dof_solref[fr], m.dof_solimp[fr], 0.0,
+        qvel[:, fr], m.dof_frictionloss[fr], ConstraintType.FRICTION_DOF,
+        fr.to(torch.int32), torch.full((W, nf), on, dtype=torch.bool,
+                                       device=dev)))
 
   # joint limits (slide / hinge; other limited joints are outside the gate)
-  lim = [j for j in range(m.njnt) if m.jnt_limited[j]]
-  if lim:
-    assert all(m.jnt_type[j] in (JointType.SLIDE, JointType.HINGE)
-               for j in lim)
-    qadr = [m.jnt_qposadr[j] for j in lim]
-    dadr = [m.jnt_dofadr[j] for j in lim]
-    q = qpos[:, qadr]
+  lim, dadr = t['lim'], t['lim_dadr']
+  if nl:
+    q = qpos[:, t['lim_qadr']]
     dist_min = q - m.jnt_range[lim, 0]
     dist_max = m.jnt_range[lim, 1] - q
     pos = torch.minimum(dist_min, dist_max) - m.jnt_margin[lim]
@@ -159,10 +178,10 @@ def make_constraint(m: Model, qpos, qvel, cdof, subtree_com,
       exists = torch.zeros_like(exists)
     sign = torch.where(dist_min < dist_max, 1.0, -1.0).to(dt)
     groups.append(_rows(
-        m, onehot(dadr) * sign[..., None], pos, m.dof_invweight0[dadr],
+        m, t['lim_J'].to(dt) * sign[..., None], pos, m.dof_invweight0[dadr],
         m.jnt_solref[lim], m.jnt_solimp[lim], m.jnt_margin[lim],
-        sign * qvel[:, dadr], 0.0, ConstraintType.LIMIT_JOINT, ivec(lim),
-        exists))
+        sign * qvel[:, dadr], 0.0, ConstraintType.LIMIT_JOINT,
+        lim.to(torch.int32), exists))
 
   if nconmax and stride:
     groups.append(_contact_rows(m, qvel, cdof, subtree_com, contact, stride))
@@ -191,8 +210,8 @@ def _contact_rows(m: Model, qvel, cdof, subtree_com, con: dict,
   """Contact rows of the model's cone, `stride` per pool slot."""
   W, C = con['dist'].shape
   dev = qvel.device
-  geom_bodyid = torch.tensor(m.geom_bodyid, device=dev)
-  rootid = torch.tensor(m.body_rootid, device=dev)
+  t = constraint_tables(m)
+  geom_bodyid, rootid = t['geom_bodyid'], t['rootid']
   g1, g2 = con['geom'][..., 0].long(), con['geom'][..., 1].long()
   valid = g1 >= 0
   b1 = torch.where(valid, geom_bodyid[g1.clamp(min=0)], 0)

@@ -26,6 +26,23 @@ either cone:
                           and qvel are dropped and the advance runs here,
                           on its qacc_euler, after sensor_acc
 
+A model past the large-scene threshold (`m.sap_families`, set by
+`io._sap_precompute`: apptronik_apollo_terrain) runs two stages in
+place of contact_efc_mega[cuda], on every list (glue, forward_batched,
+RK4, CG, implicitfast), under the JAX package's names:
+
+  collision               the large-scene broadphase (`collision_sap`):
+                          world AABBs, the top-K pairs a family, the
+                          narrowphase and the pool (torch ops)
+  make_constraint         the efc rows (`constraint.make_constraint`,
+                          torch ops)
+
+The JAX package runs XLA `collision` and `make_constraint` there: its
+contact kernel refuses a model with `sap_meta`
+(`pallas/contact_kernels.py:66`), so no TPU kernel stands on that path,
+and B2's table would hold every admissible pair. Every other model the
+port runs keeps B2.
+
 Otherwise `forward_batched`'s list (`forward_stages`: the `use_mega`
 branch of `batched_stages` :698-758, which never folds the back half)
 and then the integrator, `_euler_batched` (:787-800), `_rk4_batched`
@@ -85,6 +102,8 @@ from __future__ import annotations
 
 import torch
 
+from . import collision_sap
+from . import constraint
 from . import math
 from . import passive as passive_mod
 from . import sensor as sensor_mod
@@ -267,7 +286,9 @@ def glue(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
 
 
 def _common_stages(m: Model, d: Data) -> list:
-  """The stages both lists share: B1, camlight and B2."""
+  """The stages both lists share: B1, camlight and B2, or for a model
+  past the large-scene threshold (`m.sap_families`) `collision` and
+  `make_constraint` in B2's place."""
   from .kernels import contact as contact_k
   from .kernels import smooth as smooth_k
   nconmax = d.contact.dist.shape[1]
@@ -289,10 +310,30 @@ def _common_stages(m: Model, d: Data) -> list:
         nl=out['nl'], nefc=out['nefc'],
         **{k: out[k] for k in contact_k.EFC_FIELDS})
 
+  def collision_stage(dd):
+    con = collision_sap.collision(m, dd.geom_xpos, dd.geom_xmat, nconmax)
+    return dd.replace(
+        contact=dd.contact.replace(**{k: con[k] for k in CONTACT_TENSORS
+                                      if k != 'efc_address'}),
+        ncon=con['ncon'], ncollision=con['ncollision'])
+
+  def constraint_stage(dd):
+    efc = constraint.make_constraint(
+        m, dd.qpos, dd.qvel, dd.cdof, dd.subtree_com,
+        {k: getattr(dd.contact, k) for k in CONTACT_TENSORS}, dd.eq_active)
+    return dd.replace(
+        contact=dd.contact.replace(efc_address=efc['efc_address']),
+        ne=efc['ne'], nf=efc['nf'], nl=efc['nl'], nefc=efc['nefc'],
+        **{k: efc[k[4:]] for k in contact_k.EFC_FIELDS})
+
   stages = [('smooth_mega[cuda]', smooth_stage)]
   if m.ncam or m.nlight:
     stages.append(('camlight', camlight_stage))
-  stages.append(('contact_efc_mega[cuda]', contact_stage))
+  if m.sap_families:
+    stages += [('collision', collision_stage),
+               ('make_constraint', constraint_stage)]
+  else:
+    stages.append(('contact_efc_mega[cuda]', contact_stage))
   return stages
 
 

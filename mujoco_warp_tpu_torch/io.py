@@ -169,62 +169,148 @@ def _dof_ancestry(dof_parentid) -> tuple:
   return tuple(rows), mask
 
 
-def _pair_condim(mjm, g1: int, g2: int) -> int:
-  p1, p2 = int(mjm.geom_priority[g1]), int(mjm.geom_priority[g2])
-  if p1 > p2:
-    return int(mjm.geom_condim[g1])
-  if p2 > p1:
-    return int(mjm.geom_condim[g2])
-  return max(int(mjm.geom_condim[g1]), int(mjm.geom_condim[g2]))
+def _filter_matrix(mjm) -> np.ndarray:
+  """(ngeom, ngeom) bool: the geom pairs that the contype/conaffinity,
+  same-weld, parent-child and <exclude> filters admit, explicit <pair>s
+  aside (the predicate of `mujoco_warp_tpu/io.py:221`)."""
+  ct = np.asarray(mjm.geom_contype, np.int64)
+  ca = np.asarray(mjm.geom_conaffinity, np.int64)
+  ok = ((ct[:, None] & ca[None, :]) | (ct[None, :] & ca[:, None])) != 0
+  bid = np.asarray(mjm.geom_bodyid)
+  weld = mjm.body_weldid[bid]
+  ok &= weld[:, None] != weld[None, :]
+  if not mjm.opt.disableflags & DisableBit.FILTERPARENT:
+    wpar = mjm.body_weldid[mjm.body_parentid[mjm.body_weldid]][bid]
+    par = (wpar[:, None] == weld[None, :]) | (wpar[None, :] == weld[:, None])
+    ok &= ~(par & (weld[:, None] != 0) & (weld[None, :] != 0))
+  for s in mjm.exclude_signature:
+    on1, on2 = bid == int(s) >> 16, bid == int(s) & 0xFFFF
+    ok &= ~((on1[:, None] & on2[None, :]) | (on2[:, None] & on1[None, :]))
+  np.fill_diagonal(ok, False)
+  return ok
+
+
+def _pair_filter_matrices(mjm):
+  """(ok, pairid): the filter matrix with the explicit <pair>s admitted,
+  and each pair's <pair> id (-1 for none), both (ngeom, ngeom)
+  (`mujoco_warp_tpu/io.py:221`)."""
+  ok = _filter_matrix(mjm)
+  pairid = np.full(ok.shape, -1, np.int32)
+  for p in range(mjm.npair):
+    g1, g2 = int(mjm.pair_geom1[p]), int(mjm.pair_geom2[p])
+    ok[g1, g2] = ok[g2, g1] = True
+    pairid[g1, g2] = pairid[g2, g1] = p
+  np.fill_diagonal(ok, False)
+  return ok, pairid
+
+
+def _refuse_unported(keys):
+  """Raise for the first (type1, type2) of keys without a collider."""
+  for key in keys:
+    if key not in MAX_CONTACTS:
+      raise NotImplementedError(f'collision pair type {key} is not ported')
 
 
 def _collision_pairs(mjm):
   """Filtered geom pairs grouped by (type1, type2): contype/conaffinity,
   same-weld, parent-child and <exclude> filters, then explicit <pair>s
-  (mirrors `mujoco_warp_tpu/io.py:344`)."""
-  filterparent = not mjm.opt.disableflags & DisableBit.FILTERPARENT
-  exclude_sigs = set(int(s) for s in mjm.exclude_signature)
+  (mirrors `mujoco_warp_tpu/io.py:344`). Within a group the filtered
+  pairs keep the order of the reference's loop over g1 < g2, each pair
+  ordered by type, and the explicit pairs follow by (g1, g2)."""
   explicit = {}
   for p in range(mjm.npair):
     g1, g2 = int(mjm.pair_geom1[p]), int(mjm.pair_geom2[p])
     if mjm.geom_type[g1] > mjm.geom_type[g2]:
       g1, g2 = g2, g1
     explicit[(g1, g2)] = p
-  weld = mjm.body_weldid
-  weld_parent = mjm.body_weldid[mjm.body_parentid[weld]]
+  gtype = np.asarray(mjm.geom_type, np.int64)
+  i, j = np.nonzero(np.triu(_filter_matrix(mjm), 1))   # the loop's order
+  swap = gtype[i] > gtype[j]
+  g1, g2 = np.where(swap, j, i), np.where(swap, i, j)
+  if explicit:   # a pair listed as a <pair> takes its own parameters
+    keep = ~np.isin(g1 * mjm.ngeom + g2,
+                    [a * mjm.ngeom + b for a, b in explicit])
+    g1, g2 = g1[keep], g2[keep]
+  t1, t2 = gtype[g1], gtype[g2]
+  _refuse_unported(zip(t1.tolist(), t2.tolist()))
   groups: dict = {}
-
-  def add(g1, g2, pid):
-    key = (int(mjm.geom_type[g1]), int(mjm.geom_type[g2]))
-    if key not in MAX_CONTACTS:
-      raise NotImplementedError(f'collision pair type {key} is not ported')
-    groups.setdefault(key, []).append((g1, g2, pid))
-
-  for g1 in range(mjm.ngeom):
-    for g2 in range(g1 + 1, mjm.ngeom):
-      t1, t2 = int(mjm.geom_type[g1]), int(mjm.geom_type[g2])
-      gg1, gg2 = (g1, g2) if t1 <= t2 else (g2, g1)
-      if (gg1, gg2) in explicit:
-        continue
-      b1, b2 = int(mjm.geom_bodyid[g1]), int(mjm.geom_bodyid[g2])
-      w1, w2 = int(weld[b1]), int(weld[b2])
-      if w1 == w2:
-        continue
-      if filterparent and w1 != 0 and w2 != 0 and (
-          int(weld_parent[b1]) == w2 or int(weld_parent[b2]) == w1):
-        continue
-      sig = ((b1 << 16) + b2) if b1 < b2 else ((b2 << 16) + b1)
-      if sig in exclude_sigs:
-        continue
-      if not ((mjm.geom_contype[g1] & mjm.geom_conaffinity[g2]) or
-              (mjm.geom_contype[g2] & mjm.geom_conaffinity[g1])):
-        continue
-      add(gg1, gg2, -1)
-  for (g1, g2), p in sorted(explicit.items()):
-    add(g1, g2, p)
+  for key in sorted({(int(a), int(b)) for a, b in zip(t1, t2)}):
+    on = (t1 == key[0]) & (t2 == key[1])
+    groups[key] = [(int(a), int(b), -1) for a, b in zip(g1[on], g2[on])]
+  for (a, b), p in sorted(explicit.items()):
+    key = (int(mjm.geom_type[a]), int(mjm.geom_type[b]))
+    _refuse_unported([key])
+    groups.setdefault(key, []).append((a, b, p))
   pairs = tuple((k[0], k[1], tuple(v)) for k, v in sorted(groups.items()))
   ncand = sum(MAX_CONTACTS[(t1, t2)] * len(v) for t1, t2, v in pairs)
   return pairs, ncand
+
+
+# admissible geom pairs (explicit <pair>s included) from which put_model
+# takes the large-scene broadphase (`collision_sap.py`) over the static
+# pair list (`mujoco_warp_tpu/io.py:254`)
+SAP_THRESHOLD = 10_000
+# the largest group of primitive pairs the static list takes uncut: past
+# it the JAX package's static driver culls the group
+# (`_CULL_THRESHOLD_CHEAP`, `mujoco_warp_tpu/collision_driver.py:84`),
+# which neither kernel B2 nor `collision_driver.collision` does
+STATIC_GROUP_MAX = 2048
+
+
+def _sap_precompute(mjm):
+  """(families, sap_pairs, sap_pairid, count) of the large-scene
+  broadphase (mirrors `mujoco_warp_tpu/io.py:257`): families is
+  ((type1, type2, start, count), ...) over the rows of sap_pairs (P, 2)
+  int32, g1 of type1 (the colliders' argument order), sap_pairid (P,)
+  int32 the rows' <pair> ids, count the admissible pairs. families is ()
+  where the static pair list serves: fewer than SAP_THRESHOLD pairs, or
+  an hfield or SDF geom."""
+  empty = ((), np.zeros((0, 2), np.int32), np.zeros((0,), np.int32), 0)
+  ok, pairid = _pair_filter_matrices(mjm)
+  upper = np.triu(ok, 1)
+  count = int(upper.sum())
+  gtype = np.asarray(mjm.geom_type, np.int32)
+  if count < SAP_THRESHOLD or np.isin(
+      gtype, (GeomType.HFIELD, GeomType.SDF)).any():
+    return empty
+  i, j = np.nonzero(upper)
+  kmin = np.minimum(gtype[i], gtype[j])
+  kmax = np.maximum(gtype[i], gtype[j])
+  present = sorted({(int(a), int(b)) for a, b in zip(kmin, kmax)})
+  _refuse_unported(present)
+  _need(all(a != GeomType.PLANE for a, _ in present),
+        'plane pairs under the large-scene broadphase')
+  rows, pids, families = [], [], []
+  start = 0
+  for a, b in present:
+    on = (kmin == a) & (kmax == b)
+    i1, i2 = i[on], j[on]
+    swap = gtype[i1] != a
+    rows.append(np.stack([np.where(swap, i2, i1), np.where(swap, i1, i2)],
+                         1).astype(np.int32))
+    pids.append(pairid[i1, i2])
+    families.append((a, b, start, int(on.sum())))
+    start += int(on.sum())
+  return (tuple(families), np.concatenate(rows, 0),
+          np.concatenate(pids, 0).astype(np.int32), count)
+
+
+def _condim_max(mjm) -> int:
+  """The largest condim of a contact the model can make: each admissible
+  pair's condim (a <pair>'s own, else the geoms' by priority), the
+  static pairs and the large-scene broadphase's alike
+  (`mujoco_warp_tpu/io.py:887-900`)."""
+  ok, pairid = _pair_filter_matrices(mjm)
+  if not ok.any():
+    return 1
+  pr = np.asarray(mjm.geom_priority, np.int32)
+  cd = np.asarray(mjm.geom_condim, np.int32)
+  mixed = np.where(pr[:, None] > pr[None, :], cd[:, None],
+                   np.where(pr[None, :] > pr[:, None], cd[None, :],
+                            np.maximum(cd[:, None], cd[None, :])))
+  if mjm.npair:
+    mixed = np.where(pairid >= 0, mjm.pair_dim[np.maximum(pairid, 0)], mixed)
+  return int(mixed[ok].max())
 
 
 _MJ_FLOAT_LEAVES = (
@@ -291,10 +377,17 @@ def put_model(mjm, device='cuda') -> Model:
                 body_dof_ancestor_mask=body_dof_mask,
                 dof_vpre_mask=_dof_vpre_mask(mjm))
 
-  collision_pairs, nxn_candidates = _collision_pairs(mjm)
-  condims = [1] + [int(mjm.pair_dim[pid]) if pid >= 0 else
-                   _pair_condim(mjm, g1, g2)
-                   for _, _, gl in collision_pairs for g1, g2, pid in gl]
+  sap_families, sap_pairs, sap_pairid, sap_count = _sap_precompute(mjm)
+  if sap_families:
+    collision_pairs, nxn_candidates = (), sap_count
+  else:
+    collision_pairs, nxn_candidates = _collision_pairs(mjm)
+  for t1, t2, gl in collision_pairs:
+    _need(t1 == GeomType.PLANE or len(gl) <= STATIC_GROUP_MAX,
+          f'the cull of a group of {len(gl)} ({t1}, {t2}) pairs (past '
+          f'{STATIC_GROUP_MAX})')
+  leaves.update(sap_pairs=sap_pairs, sap_pairid=sap_pairid,
+                geom_aabb=f32(mjm.geom_aabb).reshape(mjm.ngeom, 2, 3))
   statics = dict(
       nq=mjm.nq, nv=mjm.nv, nu=mjm.nu, na=mjm.na, nbody=mjm.nbody,
       njnt=mjm.njnt, ngeom=mjm.ngeom, nsite=mjm.nsite, ncam=mjm.ncam,
@@ -344,7 +437,8 @@ def put_model(mjm, device='cuda') -> Model:
       eq_obj2id=_tup(mjm.eq_obj2id),
       collision_pairs=collision_pairs,
       nxn_candidates=nxn_candidates,
-      condim_max=max(condims),
+      sap_families=sap_families,
+      condim_max=_condim_max(mjm),
       pair_dim=_tup(mjm.pair_dim),
       has_damping=bool(np.any(mjm.dof_damping > 0)),
       sensor_type=_tup(mjm.sensor_type),
@@ -385,6 +479,8 @@ def model_from_numpy(leaves: dict, statics: dict, device='cuda') -> Model:
   stat = Statistic(meaninertia=t('stat.meaninertia'))
   kw = {k: t(k) for k in types.MODEL_TENSORS}
   kw['eq_active0'] = t('eq_active0', bool)
+  kw.update(sap_pairs=t('sap_pairs', np.int32).reshape(-1, 2),
+            sap_pairid=t('sap_pairid', np.int32))
   kw.update({k: _as_tuple(statics[k]) for k in types.MODEL_STATICS})
   kw['has_damping'] = bool(kw['has_damping'])
   return Model(opt=opt, stat=stat, **kw)

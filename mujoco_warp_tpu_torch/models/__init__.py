@@ -8,8 +8,10 @@ suite's `benchmarks/scenes/franka_emika_panda/scene.xml` (the Panda arm,
 nv 9; its meshes collide with nothing, and the Model holds no mesh
 data) and `apptronik_apollo_flat.npz` of the suite's
 `benchmarks/scenes/apptronik_apollo/scene_flat.xml` (the Apollo
-humanoid on a plane, nv 25, four IMU sensors; no mesh is read). They
-are committed so that a machine without the `mujoco`
+humanoid on a plane, nv 25, four IMU sensors; no mesh is read) and
+`apptronik_apollo_terrain.npz` of `scene_terrain.xml` (the same robot on
+5,272 boxes of terrain: 95,021 admissible pairs, so the Model takes the
+large-scene broadphase and holds its pair arrays). They are committed so that a machine without the `mujoco`
 bindings can load the models (`io.load_model`).
 Regenerate them after a change to the compiler:
 
@@ -38,3 +40,6 @@ FRANKA_NPZ = os.path.join(_DIR, 'franka_emika_panda.npz')
 APOLLO = os.path.join(_ROOT, 'benchmarks', 'scenes', 'apptronik_apollo',
                       'scene_flat.xml')
 APOLLO_NPZ = os.path.join(_DIR, 'apptronik_apollo_flat.npz')
+APOLLO_TERRAIN = os.path.join(_ROOT, 'benchmarks', 'scenes',
+                              'apptronik_apollo', 'scene_terrain.xml')
+APOLLO_TERRAIN_NPZ = os.path.join(_DIR, 'apptronik_apollo_terrain.npz')

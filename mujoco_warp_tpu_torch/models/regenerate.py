@@ -12,7 +12,8 @@ from mujoco_warp_tpu_torch import models
 SOURCES = ((models.HUMANOID, models.HUMANOID_NPZ),
            (models.THREE_HUMANOIDS, models.THREE_HUMANOIDS_NPZ),
            (models.FRANKA, models.FRANKA_NPZ),
-           (models.APOLLO, models.APOLLO_NPZ))
+           (models.APOLLO, models.APOLLO_NPZ),
+           (models.APOLLO_TERRAIN, models.APOLLO_TERRAIN_NPZ))
 
 
 def main():

@@ -312,6 +312,10 @@ class Model(_Tensors):
   # collision structure: ((type1, type2, ((g1, g2, pairid), ...)), ...)
   collision_pairs: Tuple[Any, ...]
   nxn_candidates: int
+  # the large-scene broadphase (`collision_sap.py`): ((type1, type2,
+  # start, count), ...) over the rows of sap_pairs; () where the static
+  # pair list serves (then collision_pairs is the list, else ())
+  sap_families: Tuple[Any, ...]
   condim_max: int
   pair_dim: IntTuple
   has_damping: bool
@@ -388,6 +392,13 @@ class Model(_Tensors):
   pair_margin: torch.Tensor
   pair_gap: torch.Tensor
   pair_friction: torch.Tensor
+  # (ngeom, 2, 3) each geom's box in its frame (center, half sizes)
+  geom_aabb: torch.Tensor
+  # (P, 2) int32 the admissible pairs of the large-scene broadphase by
+  # family, g1 of the family's type1; (P,) int32 their <pair> ids (-1
+  # for none); (0, 2) and (0,) without it
+  sap_pairs: torch.Tensor
+  sap_pairid: torch.Tensor
   # (neq, 11) data (a JOINT equality's polycoef in 0:5), (neq, 2),
   # (neq, 5), (neq,) bool
   eq_data: torch.Tensor

@@ -29,7 +29,7 @@ from mujoco_warp_tpu_torch.types import (CONTACT_TENSORS, DATA_TENSORS,
 
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from torch_parity import KEYED, assert_close, build, states
+from torch_parity import KEYED, assert_close, build, build_sap, states
 
 jbench = importlib.import_module('mujoco_warp_tpu.utils.benchmark')
 tbench = importlib.import_module('mujoco_warp_tpu_torch.utils.benchmark')
@@ -76,7 +76,7 @@ def _poison(d):
 
 
 def _path_model(scene, variant):
-  _, _, m = build(scene)
+  _, _, m = build_sap() if scene == 'sap_grid' else build(scene)
   if variant == 'rk4':
     m = m.replace(opt=m.opt.replace(integrator=int(IntegratorType.RK4)))
   elif variant == 'cg':
@@ -183,6 +183,9 @@ PATHS = [
     ('P13', 'humanoid', 'implicitfast_cg', False, False),
     ('P14', 'franka_emika_panda', None, False, True),
     ('P15', 'apptronik_apollo_flat', None, False, True),
+    # P16's list (`collision`, `make_constraint`) on the SAP grid, a
+    # model past the large-scene threshold that steps at a CPU test's cost
+    ('P16', 'sap_grid', None, False, True),
 ]
 
 
@@ -201,7 +204,7 @@ def test_replay_predicate_on_the_paths(path, scene, variant, fwd, replayed,
   else:
     m = _path_model(scene, variant)
   nconmax = {'humanoid': 24, 'franka_emika_panda': 1,
-             'apptronik_apollo_flat': 16}.get(scene, 100)
+             'apptronik_apollo_flat': 16, 'sap_grid': 8}.get(scene, 100)
   d = mt.make_data(m, nconmax=nconmax, nworld=2)
   stages = forward.forward_stages(m, d) if fwd else \
       forward.batched_stages(m, d)

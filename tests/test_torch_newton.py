@@ -27,7 +27,7 @@ from mujoco_warp_tpu.pallas import solver_kernels
 from mujoco_warp_tpu_torch import forward, solver
 from mujoco_warp_tpu_torch.kernels import newton as kn
 
-from torch_parity import assert_close, build, states
+from torch_parity import assert_close, build, shared, states
 
 NAMES = ('qacc', 'qfrc_constraint', 'efc_force', 'solver_niter',
          'qacc_smooth', 'qLD', 'qacc_euler')
@@ -104,16 +104,17 @@ def reference(presolve):
   """The TPU kernel's outputs at the humanoid state, with euler_damp and
   hb: the re-solve writes qacc_euler alone, so the other outputs are
   also those of the kernel without it (one interpret-mode compile for
-  both cases)."""
+  both cases, and for the run: `shared`)."""
   m, d = presolve
   hb = m.opt.timestep * m.dof_damping
   ne, nf, _, _, _ = mt.efc_layout(m, 24)
-  return hb, solver_kernels.newton_solve_batched(
-      *[jnp.asarray(x.numpy()) for x in _inputs(d)],
-      jnp.asarray(m.opt.tolerance.numpy()),
-      jnp.asarray(m.stat.meaninertia.numpy()), jnp.asarray(hb.numpy()),
-      ne=ne, nf=nf, iterations=m.opt.iterations, euler_damp=True,
-      interpret=True)
+  return hb, shared('newton_reference', lambda: tuple(
+      np.asarray(x) for x in solver_kernels.newton_solve_batched(
+          *[jnp.asarray(x.numpy()) for x in _inputs(d)],
+          jnp.asarray(m.opt.tolerance.numpy()),
+          jnp.asarray(m.stat.meaninertia.numpy()), jnp.asarray(hb.numpy()),
+          ne=ne, nf=nf, iterations=m.opt.iterations, euler_damp=True,
+          interpret=True)))
 
 
 @pytest.mark.parametrize('euler_damp', [False, True])

@@ -7,7 +7,8 @@ cam_xpos and light_xpos at 5e-6 (positions, as qpos), solver_niter within
 4 per world. qLD is not compared elementwise: the JAX package on the CPU
 stores a dense Cholesky factor there, the port the packed tree LD, so
 the test holds the port's factor to qM and to qacc_smooth instead. The
-JAX step is compiled once for the module (about a minute on the CPU)."""
+JAX step is compiled once for the module (about a minute on the CPU), by
+the one test that compares with it."""
 
 import jax
 import jax.numpy as jnp
@@ -29,27 +30,44 @@ NCONMAX = 100
 NSTEP = 3
 
 
-@pytest.fixture(scope='module')
-def stepped():
+def _start():
   mjm, jm, m = build('three_humanoids')
   q, v = states(mjm, NWORLD, nstep=150, qpos_noise=0.02)
   c = (0.3 * np.random.default_rng(1).standard_normal(
       (NWORLD, mjm.nu))).astype(np.float32)
-  jd = mjwt.make_data(jm, nconmax=NCONMAX)
-  br = jax.vmap(lambda qq, vv, cc: jd.replace(qpos=qq, qvel=vv, ctrl=cc))(
-      jnp.asarray(q), jnp.asarray(v), jnp.asarray(c))
-  step = jax.jit(jax.vmap(lambda dd: mjwt.step(jm, dd)))
+  return jm, m, q, v, c
+
+
+@pytest.fixture(scope='module')
+def stepped():
+  """The port's NSTEP steps, from launch and solve counts at 0; the JAX
+  reference is a fixture of its own, so that only the test that compares
+  with it compiles the JAX step (each xdist worker that runs a test of
+  this module builds the module's fixtures)."""
+  _, m, q, v, c = _start()
   d = mt.data_from_numpy(m, dict(qpos=q, qvel=v, ctrl=c), nconmax=NCONMAX)
   kb.launches.update(dict.fromkeys(kb.launches, 0))
   solver.counts.update(dict.fromkeys(solver.counts, 0))
   for _ in range(NSTEP):
-    br = step(br)
     d = mt.step_batched(m, d)
-  return m, d, br
+  return m, d
 
 
-def test_three_humanoids_step_matches_jax(stepped):
-  m, d, br = stepped
+@pytest.fixture(scope='module')
+def jax_stepped():
+  """NSTEP steps of jax.vmap(mujoco_warp_tpu.step) from the same state."""
+  jm, _, q, v, c = _start()
+  jd = mjwt.make_data(jm, nconmax=NCONMAX)
+  br = jax.vmap(lambda qq, vv, cc: jd.replace(qpos=qq, qvel=vv, ctrl=cc))(
+      jnp.asarray(q), jnp.asarray(v), jnp.asarray(c))
+  step = jax.jit(jax.vmap(lambda dd: mjwt.step(jm, dd)))
+  for _ in range(NSTEP):
+    br = step(br)
+  return br
+
+
+def test_three_humanoids_step_matches_jax(stepped, jax_stepped):
+  (m, d), br = stepped, jax_stepped
   assert int(np.asarray(br.ncon).sum()) > 0
   for name, tol in STEP_TOL + (('cam_xpos', 5e-6), ('light_xpos', 5e-6),
                                ('cam_xmat', 5e-6), ('light_xdir', 5e-6)):
@@ -64,7 +82,7 @@ def test_three_humanoids_step_matches_jax(stepped):
 def test_three_humanoids_packed_factor(stepped):
   """The port's qLD is the packed tree LD of qM: Lᵀ D L rebuilds qM and
   solving with it gives qacc_smooth."""
-  m, d, _ = stepped
+  m, d = stepped
   ld = d.qLD.double().numpy()
   nv = m.nv
   for w in range(d.nworld):
@@ -78,7 +96,7 @@ def test_three_humanoids_packed_factor(stepped):
 
 
 def test_three_humanoids_stages_and_counts(stepped):
-  m, d, _ = stepped
+  m, d = stepped
   names = [n for n, _ in forward.batched_stages(m, d)]
   assert names == ['smooth_mega[cuda]', 'camlight', 'contact_efc_mega[cuda]',
                    'transmission', 'velocity_glue', 'passive',

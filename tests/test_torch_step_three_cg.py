@@ -8,7 +8,7 @@ CG is held at its converged answer (see tests/test_torch_forward.py):
 what the solver moves at CG_STEP_TOL against the JAX package's CG step
 and against the port's own Newton step of the same states, the rest at
 STEP_TOL. The JAX step is compiled once for the module (about a minute
-and a half on the CPU)."""
+and a half on the CPU), by the one test that compares with it."""
 
 import jax
 import jax.numpy as jnp
@@ -32,34 +32,50 @@ NSTEP = 2
 TOLS = tuple((k, CG_STEP_TOL.get(k, t)) for k, t in STEP_TOL)
 
 
-@pytest.fixture(scope='module')
-def stepped():
+def _start():
   mjm, jm, m = build('three_humanoids')
-  jm = jm.replace(opt=jm.opt.replace(solver=int(SolverType.CG)))
-  newton = m
-  m = m.replace(opt=m.opt.replace(solver=int(SolverType.CG)))
   q, v = states(mjm, NWORLD, nstep=150, qpos_noise=0.02)
   c = (0.3 * np.random.default_rng(1).standard_normal(
       (NWORLD, mjm.nu))).astype(np.float32)
-  jd = mjwt.make_data(jm, nconmax=NCONMAX)
-  br = jax.vmap(lambda qq, vv, cc: jd.replace(qpos=qq, qvel=vv, ctrl=cc))(
-      jnp.asarray(q), jnp.asarray(v), jnp.asarray(c))
-  step = jax.jit(jax.vmap(lambda dd: mjwt.step(jm, dd)))
+  return jm, m, q, v, c
+
+
+@pytest.fixture(scope='module')
+def stepped():
+  """The port's NSTEP CG steps from solve counts at 0, and its Newton
+  steps from the same state; the JAX reference is a fixture of its own,
+  so that only the test that compares with it compiles the JAX step."""
+  _, newton, q, v, c = _start()
+  m = newton.replace(opt=newton.opt.replace(solver=int(SolverType.CG)))
   d = mt.data_from_numpy(m, dict(qpos=q, qvel=v, ctrl=c), nconmax=NCONMAX)
   d_newton = d
   kb.launches.update(dict.fromkeys(kb.launches, 0))
   solver.counts.update(dict.fromkeys(solver.counts, 0))
   for _ in range(NSTEP):
-    br = step(br)
     d = mt.step_batched(m, d)
   counts = dict(solver.counts)
   for _ in range(NSTEP):
     d_newton = mt.step_batched(newton, d_newton)
-  return m, d, br, d_newton, counts
+  return m, d, d_newton, counts
 
 
-def test_three_humanoids_cg_step_matches_jax(stepped):
-  m, d, br, _, _ = stepped
+@pytest.fixture(scope='module')
+def jax_stepped():
+  """NSTEP CG steps of jax.vmap(mujoco_warp_tpu.step) from the same
+  state."""
+  jm, _, q, v, c = _start()
+  jm = jm.replace(opt=jm.opt.replace(solver=int(SolverType.CG)))
+  jd = mjwt.make_data(jm, nconmax=NCONMAX)
+  br = jax.vmap(lambda qq, vv, cc: jd.replace(qpos=qq, qvel=vv, ctrl=cc))(
+      jnp.asarray(q), jnp.asarray(v), jnp.asarray(c))
+  step = jax.jit(jax.vmap(lambda dd: mjwt.step(jm, dd)))
+  for _ in range(NSTEP):
+    br = step(br)
+  return br
+
+
+def test_three_humanoids_cg_step_matches_jax(stepped, jax_stepped):
+  (m, d, _, _), br = stepped, jax_stepped
   assert int(np.asarray(br.ncon).sum()) > 0
   _compare(d, br, TOLS)
   np.testing.assert_array_equal(d.ncon.numpy(), np.asarray(br.ncon))
@@ -68,12 +84,12 @@ def test_three_humanoids_cg_step_matches_jax(stepped):
 
 
 def test_three_humanoids_cg_step_matches_the_newton_step(stepped):
-  _, d, _, d_newton, _ = stepped
+  _, d, d_newton, _ = stepped
   _compare(d, d_newton, TOLS)
 
 
 def test_three_humanoids_cg_stages_and_counts(stepped):
-  m, d, _, _, counts = stepped
+  m, d, _, counts = stepped
   names = [n for n, _ in forward.batched_stages(m, d)]
   assert names == ['smooth_mega[cuda]', 'camlight', 'contact_efc_mega[cuda]',
                    'transmission', 'velocity_glue', 'passive',
