@@ -1,5 +1,6 @@
 """Analytic narrowphase for the plane / sphere / capsule pairs,
-plane-box, capsule-box and box-box (`collision_box`).
+plane-box, sphere-box, capsule-box, box-box (`collision_box`) and
+plane-mesh.
 
 Each collider takes batched geometry (pos (..., 3), mat (..., 3, 3),
 size (..., 3) of both geoms) and returns a fixed number K of candidate
@@ -7,8 +8,10 @@ contacts: dist (..., K), pos (..., K, 3), frame (..., K, 3, 3). A
 candidate is a contact when dist < margin; `collision_driver` masks the
 rest.
 Mirrors `mujoco_warp_tpu/collision_primitive.py:45-91`, `plane_box`
-(:137), `_point_box` (:152), `capsule_box` (:217) and `_box_box_entry`
-(:287). A collider in NEEDS_MARGIN also takes the pair's margin.
+(:137), `_point_box` (:152), `sphere_box` (:174), `capsule_box` (:217),
+`plane_mesh` (:272) and `_box_box_entry` (:287). A collider in
+NEEDS_MARGIN also takes the pair's margin; one in NEEDS_HULLS the padded
+hulls of both geoms (None for a geom without one).
 """
 
 from __future__ import annotations
@@ -95,6 +98,42 @@ def plane_box(p1, m1, s1, p2, m2, s2):
   return dist, pos, frame
 
 
+def plane_mesh(p1, m1, s1, p2, m2, s2, v1, v2):
+  """The 4 hull vertices of the mesh deepest below the plane, deepest
+  first, ties to the lower vertex (the order of `jax.lax.top_k`), padding
+  at 1e10: four rounds of argmin (the first of equal ones), each taking
+  its vertex out. A vertex's depth is the mesh origin's plus the vertex
+  along the normal in the mesh frame (the JAX package moves every vertex
+  into the world first: the same value to rounding); the hull v2 (...,
+  V, 4) may be shared by leading axes of the poses (the worlds), whose
+  depths then come from one batched product."""
+  n = m1[..., :, 2]
+  dl = math.mtv3(m2, n)
+  batch, nv = v2.shape[:-2], v2.shape[-2]
+  lead = dl.shape[:dl.dim() - 1 - len(batch)]
+  nl = 1
+  for x in lead:
+    nl *= x
+  xt = dl.reshape((nl,) + batch + (3,)).movedim(0, -1)      # (batch, 3, L)
+  dots = (v2[..., :3] @ xt).movedim(-1, 0).reshape(lead + batch + (nv,))
+  dists = math.dot3(p2 - p1, n)[..., None] + dots
+  dists = torch.where(v2[..., 3] > 0, dists, 1e10)
+  left = dists.clone()
+  picks = []
+  for _ in range(4):
+    i = torch.argmin(left, -1, keepdim=True)
+    picks.append(i)
+    left.scatter_(-1, i, float('inf'))
+  idx = torch.cat(picks, -1)
+  dist = torch.gather(dists, -1, idx)
+  verts = torch.gather(v2[..., :3].expand(idx.shape[:-1] + (nv, 3)), -2,
+                       idx[..., None].expand(idx.shape + (3,)))
+  pts = p2[..., None, :] + math.mv3(m2[..., None, :, :], verts)
+  pos = pts - (0.5 * dist)[..., None] * n[..., None, :]
+  frame = math.make_frame(n)[..., None, :, :].expand(dist.shape + (3, 3))
+  return dist, pos, frame
+
+
 def sphere_sphere(p1, m1, s1, p2, m2, s2):
   return _sphere_like(p1, p2 - p1, s1[..., 0], s2[..., 0], p1)
 
@@ -136,6 +175,17 @@ def _point_box(c, half):
   normal = torch.where(inside[..., None], n_in, n_out)
   sdist = torch.where(inside, -torch.gather(clearance, -1, ax)[..., 0], dn)
   return closest, normal, sdist
+
+
+def sphere_box(p1, m1, s1, p2, m2, s2):
+  """Sphere vs box: the closest point of the box to the sphere's center
+  (`_point_box`), one candidate."""
+  closest, normal, sdist = _point_box(math.mtv3(m2, p1 - p2), s2[..., :3])
+  dist = sdist - s1[..., 0]
+  n_world = math.mv3(m2, normal)
+  pos = (p2 + math.mv3(m2, closest)) + (0.5 * dist)[..., None] * n_world
+  return (dist[..., None], pos[..., None, :],
+          math.make_frame(-n_world)[..., None, :, :])
 
 
 def capsule_box(p1, m1, s1, p2, m2, s2):
@@ -190,8 +240,9 @@ def capsule_box(p1, m1, s1, p2, m2, s2):
           torch.stack(frames, -3))
 
 
-# colliders that take the pair's margin
+# colliders that take the pair's margin, and the hulls
 NEEDS_MARGIN = frozenset({(GeomType.BOX, GeomType.BOX)})
+NEEDS_HULLS = frozenset({(GeomType.PLANE, GeomType.MESH)})
 
 COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): plane_sphere,
@@ -202,5 +253,7 @@ COLLIDERS = {
     (GeomType.CAPSULE, GeomType.CAPSULE): capsule_capsule,
     (GeomType.CAPSULE, GeomType.BOX): capsule_box,
     (GeomType.BOX, GeomType.BOX): collision_box.box_box,
+    (GeomType.SPHERE, GeomType.BOX): sphere_box,
+    (GeomType.PLANE, GeomType.MESH): plane_mesh,
 }
 assert COLLIDERS.keys() == MAX_CONTACTS.keys()

@@ -42,9 +42,6 @@ from .types import Model
 # 4096 pairs, each (nworld, chunk, 3) float32 temporary 400 MB
 CHUNK_ELEMENTS = 1 << 25
 
-_LOW = 1 << 32          # a composite key's pair-index part
-_INDEX_TOP = (1 << 31) - 1
-
 
 def family_slots(count: int, nconmax: int) -> int:
   """Pairs a family of `count` keeps a step (`_family_slots` :108)."""
@@ -79,12 +76,6 @@ def world_aabbs(m: Model, geom_xpos, geom_xmat):
   return cw, hw
 
 
-def _sortable(x):
-  """float32 -> int64 of the same order (-0.0 below +0.0)."""
-  bits = x.view(torch.int32)
-  return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
-
-
 def slack(cw, hw, g1, g2):
   """(W, P) each pair's least overlap over the axes, hw_a + hw_b - |cw_a -
   cw_b| (`collision` :160-163); g1, g2 (P,) long geom ids."""
@@ -97,31 +88,11 @@ def cull(cw, hw, g1, g2, kk: int):
   index: (sel (W, kk) long pair rows, most overlapping first; valid (W,
   kk) bool, the pair overlaps; noverlap (W,) int32 its overlapping
   pairs). g1, g2 (P,) long the family's geom ids."""
-  W, P = cw.shape[0], g1.shape[0]
-  chunk = max(kk, CHUNK_ELEMENTS // W)
-  best = None
-  noverlap = torch.zeros(W, dtype=torch.int32, device=cw.device)
-  for s in range(0, P, chunk):
-    a, b = g1[s:s + chunk], g2[s:s + chunk]
-    sl = slack(cw, hw, a, b)
-    mask = sl >= 0
-    noverlap += mask.sum(1, dtype=torch.int32)
-    key = torch.where(mask, sl, float('-inf'))
-    rows = torch.arange(s, s + a.shape[0], device=cw.device)
-    # the slack's order first, then the lower row: every key distinct
-    comp = _sortable(key) * _LOW + (_INDEX_TOP - rows)
-    if best is not None:
-      comp = torch.cat([best, comp], 1)
-    best = torch.topk(comp, kk, dim=1).values
-  sel = _INDEX_TOP - (best & (_LOW - 1))
-  valid = (best >> 32) > _sortable(cw.new_full((), float('-inf')))
-  return sel, valid, noverlap
-
-
-def _pick(x, g):
-  """x[w, g[w, k]] of per-world x (W, n, ...) at the per-world ids g."""
-  return torch.gather(x, 1, g.reshape(g.shape + (1,) * (x.dim() - 2)).expand(
-      g.shape + x.shape[2:]))
+  def score(s, e):
+    sl = slack(cw, hw, g1[s:e], g2[s:e])
+    return torch.where(sl >= 0, sl, float('-inf'))
+  return collision_driver.top_k_chunked(score, g1.shape[0], cw.shape[0], kk,
+                                        CHUNK_ELEMENTS)
 
 
 def collision(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
@@ -136,7 +107,7 @@ def collision(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
   params = tables['params']
   cw, hw = world_aabbs(m, geom_xpos, geom_xmat)
   dropped = torch.zeros(W, dtype=torch.int32, device=geom_xpos.device)
-  dists, poss, frames, cands = [], [], [], []
+  dists, poss, frames, rows = [], [], [], []
   for t1, t2, start, count in m.sap_families:
     g1, g2 = (tables[k][start:start + count] for k in ('g1', 'g2'))
     kk = family_slots(count, nconmax)
@@ -146,22 +117,21 @@ def collision(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
     else:
       sel = torch.arange(count, device=cw.device).expand(W, count)
       valid = slack(cw, hw, g1, g2) >= 0
-    rows = start + sel                                   # (W, kk)
-    cand = {k: v[rows] for k, v in params.items()}
-    ga, gb = cand['g1'].long(), cand['g2'].long()
-    extra = ((cand['margin'],)
+    row = start + sel                                    # (W, kk)
+    ga, gb = tables['g1'][row], tables['g2'][row]
+    extra = ((params['margin'][row],)
              if (t1, t2) in collision_primitive.NEEDS_MARGIN else ())
+    pick = collision_driver.pick
     dist, pos, frame = collision_primitive.COLLIDERS[(t1, t2)](
-        _pick(geom_xpos, ga), _pick(geom_xmat, ga), m.geom_size[ga],
-        _pick(geom_xpos, gb), _pick(geom_xmat, gb), m.geom_size[gb], *extra)
+        pick(geom_xpos, ga), pick(geom_xmat, ga), m.geom_size[ga],
+        pick(geom_xpos, gb), pick(geom_xmat, gb), m.geom_size[gb], *extra)
     k = MAX_CONTACTS[(t1, t2)]
     n = sel.shape[1]
     dists.append(torch.where(valid[..., None], dist,
                              collision_driver._EMPTY_DIST).reshape(W, n * k))
     poss.append(pos.reshape(W, n * k, 3))
     frames.append(frame.reshape(W, n * k, 3, 3))
-    cands.append({key: v.repeat_interleave(k, dim=1)
-                  for key, v in cand.items()})
-  cand = {key: torch.cat([c[key] for c in cands], 1) for key in cands[0]}
+    rows.append(row.repeat_interleave(k, dim=1))
   return collision_driver.pool(torch.cat(dists, 1), torch.cat(poss, 1),
-                               torch.cat(frames, 1), cand, nconmax, dropped)
+                               torch.cat(frames, 1), params,
+                               torch.cat(rows, 1), nconmax, dropped)

@@ -88,33 +88,21 @@ def _equality_rows(m: Model, qpos, qvel, eq_active) -> dict:
   """One row per joint equality (constraint.py:193-213): pos = q1 -
   qpos0[q1] - poly(dif), dif = q2 - qpos0[q2] (poly(0) = data[0] with one
   joint), J = 1 at dof 1 and -poly'(dif) at dof 2, vel = J qvel; active
-  where eq_active and the equality flag is clear."""
-  W = qpos.shape[0]
+  where eq_active and the equality flag is clear. The joints' addresses
+  come from `constraint_tables`."""
   on = not m.opt.disableflags & DisableBit.EQUALITY
-  J = qpos.new_zeros((W, m.neq, m.nv))
-  pos = qpos.new_zeros((W, m.neq))
-  vel = qpos.new_zeros((W, m.neq))
-  invweight = []
-  for i in range(m.neq):
-    j1, j2 = m.eq_obj1id[i], m.eq_obj2id[i]
-    d1, q1 = m.jnt_dofadr[j1], m.jnt_qposadr[j1]
-    c = m.eq_data[i]
-    J[:, i, d1] = 1.0
-    if j2 > -1:
-      d2, q2 = m.jnt_dofadr[j2], m.jnt_qposadr[j2]
-      dif = qpos[:, q2] - m.qpos0[q2]
-      rhs = c[0] + dif * (c[1] + dif * (c[2] + dif * (c[3] + dif * c[4])))
-      deriv = c[1] + dif * (2 * c[2] + dif * (3 * c[3] + dif * 4 * c[4]))
-      pos[:, i] = qpos[:, q1] - m.qpos0[q1] - rhs
-      J[:, i, d2] = -deriv
-      vel[:, i] = qvel[:, d1] - deriv * qvel[:, d2]
-      invweight.append(m.dof_invweight0[d1] + m.dof_invweight0[d2])
-    else:
-      pos[:, i] = qpos[:, q1] - m.qpos0[q1] - c[0]
-      vel[:, i] = qvel[:, d1]
-      invweight.append(m.dof_invweight0[d1])
+  t = constraint_tables(m)
+  c = [m.eq_data[:, k] for k in range(5)]
+  two = t['eq_two']
+  dif = torch.where(two, qpos[:, t['eq_q2']] - m.qpos0[t['eq_q2']], 0.0)
+  rhs = c[0] + dif * (c[1] + dif * (c[2] + dif * (c[3] + dif * c[4])))
+  deriv = c[1] + dif * (2 * c[2] + dif * (3 * c[3] + dif * 4 * c[4]))
+  pos = qpos[:, t['eq_q1']] - m.qpos0[t['eq_q1']] - rhs
+  J = t['eq_J1'] + t['eq_J2'] * (-deriv)[..., None]
+  v1 = qvel[:, t['eq_d1']]
+  vel = torch.where(two, v1 - deriv * qvel[:, t['eq_d2']], v1)
   ids = torch.arange(m.neq, dtype=torch.int32, device=qpos.device)
-  return _rows(m, J, pos, torch.stack(invweight), m.eq_solref, m.eq_solimp,
+  return _rows(m, J, pos, t['eq_invweight'], m.eq_solref, m.eq_solimp,
                0.0, vel, 0.0, ConstraintType.EQUALITY, ids, eq_active & on)
 
 
@@ -132,10 +120,28 @@ def constraint_tables(m: Model) -> dict:
                for j in lim)
     dadr = [m.jnt_dofadr[j] for j in lim]
     eye = torch.eye(m.nv, device=dev)
+    # joint equalities: each one's first and second joint (dof and qpos
+    # address; the first joint's where there is no second) and J's 1 at
+    # dof 1 and the one-hot of dof 2 (zero without a second joint)
+    j1, j2 = m.eq_obj1id, m.eq_obj2id
+    two = [j > -1 for j in j2]
+    d1 = [m.jnt_dofadr[j] for j in j1]
+    d2 = [m.jnt_dofadr[b] if ok else m.jnt_dofadr[a]
+          for a, b, ok in zip(j1, j2, two)]
+    q2 = [m.jnt_qposadr[b] if ok else m.jnt_qposadr[a]
+          for a, b, ok in zip(j1, j2, two)]
+    twot = torch.as_tensor(two, dtype=torch.bool, device=dev)
+    invw = m.dof_invweight0[idx(d1)] + torch.where(
+        twot, m.dof_invweight0[idx(d2)], 0.0)
     return dict(fr=idx(fr), fr_J=eye[fr], lim=idx(lim),
                 lim_qadr=idx([m.jnt_qposadr[j] for j in lim]),
                 lim_dadr=idx(dadr), lim_J=eye[dadr],
-                geom_bodyid=idx(m.geom_bodyid), rootid=idx(m.body_rootid))
+                geom_bodyid=idx(m.geom_bodyid), rootid=idx(m.body_rootid),
+                eq_two=twot, eq_d1=idx(d1), eq_d2=idx(d2),
+                eq_q1=idx([m.jnt_qposadr[j] for j in j1]), eq_q2=idx(q2),
+                eq_J1=eye[d1].reshape(m.neq, m.nv),
+                eq_J2=eye[d2].reshape(m.neq, m.nv) * twot[:, None],
+                eq_invweight=invw)
   return _build.model_tables(m, 'constraint', make)
 
 

@@ -26,22 +26,26 @@ either cone:
                           and qvel are dropped and the advance runs here,
                           on its qacc_euler, after sensor_acc
 
-A model past the large-scene threshold (`m.sap_families`, set by
-`io._sap_precompute`: apptronik_apollo_terrain) runs two stages in
-place of contact_efc_mega[cuda], on every list (glue, forward_batched,
-RK4, CG, implicitfast), under the JAX package's names:
+Where kernel B2 cannot take the model (`kernels.contact.supports`: a
+pair type it has no branch for, such as aloha_pot's mesh and sphere-box
+pairs; a static group the JAX driver culls; nconmax > `MAXCON`; or a
+model past the large-scene threshold, `m.sap_families`, set by
+`io._sap_precompute`: apptronik_apollo_terrain) every list (glue,
+forward_batched, RK4, CG, implicitfast) runs two stages in B2's place,
+under the JAX package's names:
 
-  collision               the large-scene broadphase (`collision_sap`):
-                          world AABBs, the top-K pairs a family, the
-                          narrowphase and the pool (torch ops)
+  collision               the static pair list (`collision_driver`: the
+                          bounding-sphere cull of a large group, the
+                          analytic colliders and MPR, the pool) or the
+                          large-scene broadphase (`collision_sap`: world
+                          AABBs, the top-K pairs a family, the
+                          narrowphase, the pool); torch ops
   make_constraint         the efc rows (`constraint.make_constraint`,
                           torch ops)
 
 The JAX package runs XLA `collision` and `make_constraint` there: its
-contact kernel refuses a model with `sap_meta`
-(`pallas/contact_kernels.py:66`), so no TPU kernel stands on that path,
-and B2's table would hold every admissible pair. Every other model the
-port runs keeps B2.
+contact kernel refuses such a model (`pallas/contact_kernels.py:50-82`),
+so no TPU kernel stands on that path. Every model B2 covers keeps it.
 
 Otherwise `forward_batched`'s list (`forward_stages`: the `use_mega`
 branch of `batched_stages` :698-758, which never folds the back half)
@@ -102,6 +106,7 @@ from __future__ import annotations
 
 import torch
 
+from . import collision_driver
 from . import collision_sap
 from . import constraint
 from . import math
@@ -286,8 +291,8 @@ def glue(m: Model, qM, efc_J, efc_D, efc_aref, efc_frictionloss, qpos,
 
 
 def _common_stages(m: Model, d: Data) -> list:
-  """The stages both lists share: B1, camlight and B2, or for a model
-  past the large-scene threshold (`m.sap_families`) `collision` and
+  """The stages both lists share: B1, camlight and B2, or where B2 cannot
+  take the model (`kernels.contact.supports`) `collision` and
   `make_constraint` in B2's place."""
   from .kernels import contact as contact_k
   from .kernels import smooth as smooth_k
@@ -310,8 +315,11 @@ def _common_stages(m: Model, d: Data) -> list:
         nl=out['nl'], nefc=out['nefc'],
         **{k: out[k] for k in contact_k.EFC_FIELDS})
 
+  collide = (collision_sap.collision if m.sap_families else
+             collision_driver.collision)
+
   def collision_stage(dd):
-    con = collision_sap.collision(m, dd.geom_xpos, dd.geom_xmat, nconmax)
+    con = collide(m, dd.geom_xpos, dd.geom_xmat, nconmax)
     return dd.replace(
         contact=dd.contact.replace(**{k: con[k] for k in CONTACT_TENSORS
                                       if k != 'efc_address'}),
@@ -329,7 +337,7 @@ def _common_stages(m: Model, d: Data) -> list:
   stages = [('smooth_mega[cuda]', smooth_stage)]
   if m.ncam or m.nlight:
     stages.append(('camlight', camlight_stage))
-  if m.sap_families:
+  if not contact_k.supports(m, nconmax):
     stages += [('collision', collision_stage),
                ('make_constraint', constraint_stage)]
   else:

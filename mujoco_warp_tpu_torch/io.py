@@ -17,6 +17,7 @@ import json
 import numpy as np
 import torch
 
+from . import collision_convex
 from . import types
 from .types import (BiasType, ConeType, Contact, Data, DisableBit, DynType,
                     EnableBit, EqType, GainType, GeomType, IntegratorType,
@@ -33,7 +34,18 @@ MAX_CONTACTS = {
     (GeomType.CAPSULE, GeomType.CAPSULE): 1,
     (GeomType.CAPSULE, GeomType.BOX): 2,
     (GeomType.BOX, GeomType.BOX): 8,
+    (GeomType.SPHERE, GeomType.BOX): 1,
+    (GeomType.PLANE, GeomType.MESH): 4,
 }
+# pair types without an analytic collider that go through MPR
+# (`collision_convex`; their slots: `collision_convex.manifold_ncon`)
+MPR_PAIRS = frozenset({(GeomType.SPHERE, GeomType.MESH),
+                       (GeomType.BOX, GeomType.MESH),
+                       (GeomType.MESH, GeomType.MESH)})
+# vertices of a decimated hull (`mesh_hullvert_small`), which the culled
+# narrowphase gathers per world (the JAX package's `MJWT_HULL_MAX`
+# default, `mujoco_warp_tpu/io.py:196`)
+HULL_SMALL = 64
 
 # the sensor types the port evaluates (`sensor.py`), and the objects they
 # may sit on
@@ -204,11 +216,70 @@ def _pair_filter_matrices(mjm):
   return ok, pairid
 
 
+def pair_slots(t1: int, t2: int, disableflags: int) -> int:
+  """Candidate contacts of one pair of types (t1, t2): MAX_CONTACTS for
+  an analytic collider, `collision_convex.manifold_ncon` for MPR."""
+  if (t1, t2) in MAX_CONTACTS:
+    return MAX_CONTACTS[(t1, t2)]
+  return collision_convex.manifold_ncon(t1, t2, disableflags)
+
+
 def _refuse_unported(keys):
   """Raise for the first (type1, type2) of keys without a collider."""
   for key in keys:
-    if key not in MAX_CONTACTS:
+    if key not in MAX_CONTACTS and key not in MPR_PAIRS:
       raise NotImplementedError(f'collision pair type {key} is not ported')
+
+
+def _mesh_hulls(mjm) -> np.ndarray:
+  """(nmesh, VMAX, 4) float32 each mesh's convex-hull vertices in the
+  geom frame, padded (xyz, 1 valid or 0 padding): the compiler's hull
+  graph (`mesh_graph`'s vert_globalid) where the mesh has one, else all
+  its vertices; (0, 1, 4) without meshes (mirrors
+  `mujoco_warp_tpu/io.py:160`)."""
+  hulls = []
+  for i in range(mjm.nmesh):
+    vadr, vnum = int(mjm.mesh_vertadr[i]), int(mjm.mesh_vertnum[i])
+    verts = mjm.mesh_vert[vadr:vadr + vnum]
+    gadr = int(mjm.mesh_graphadr[i])
+    if gadr >= 0:
+      numvert = int(mjm.mesh_graph[gadr])
+      verts = verts[mjm.mesh_graph[gadr + 2 + numvert:
+                                   gadr + 2 + 2 * numvert]]
+    hulls.append(verts)
+  out = np.zeros((len(hulls), max([len(h) for h in hulls], default=1), 4),
+                 np.float32)
+  for i, h in enumerate(hulls):
+    out[i, :len(h), :3] = h
+    out[i, :len(h), 3] = 1.0
+  return out
+
+
+def _decimate_hulls(hulls: np.ndarray, vmax: int = HULL_SMALL
+                    ) -> np.ndarray:
+  """Each padded hull cut to at most vmax vertices by farthest-point
+  sampling from its vertex of greatest x; the hulls as they are where
+  none is longer (mirrors `mujoco_warp_tpu/io.py:186`)."""
+  nmesh, v, _ = hulls.shape
+  if v <= vmax:
+    return hulls
+  out = np.zeros((nmesh, vmax, 4), dtype=hulls.dtype)
+  for i in range(nmesh):
+    verts = hulls[i][hulls[i, :, 3] > 0, :3]
+    n = len(verts)
+    if n <= vmax:
+      out[i, :n, :3] = verts
+      out[i, :n, 3] = 1.0
+      continue
+    chosen = [int(np.argmax(verts[:, 0]))]
+    dist = np.linalg.norm(verts - verts[chosen[0]], axis=1)
+    for _ in range(vmax - 1):
+      nxt = int(np.argmax(dist))
+      chosen.append(nxt)
+      dist = np.minimum(dist, np.linalg.norm(verts - verts[nxt], axis=1))
+    out[i, :vmax, :3] = verts[chosen]
+    out[i, :vmax, 3] = 1.0
+  return out
 
 
 def _collision_pairs(mjm):
@@ -242,7 +313,8 @@ def _collision_pairs(mjm):
     _refuse_unported([key])
     groups.setdefault(key, []).append((a, b, p))
   pairs = tuple((k[0], k[1], tuple(v)) for k, v in sorted(groups.items()))
-  ncand = sum(MAX_CONTACTS[(t1, t2)] * len(v) for t1, t2, v in pairs)
+  ncand = sum(pair_slots(t1, t2, mjm.opt.disableflags) * len(v)
+              for t1, t2, v in pairs)
   return pairs, ncand
 
 
@@ -250,11 +322,6 @@ def _collision_pairs(mjm):
 # takes the large-scene broadphase (`collision_sap.py`) over the static
 # pair list (`mujoco_warp_tpu/io.py:254`)
 SAP_THRESHOLD = 10_000
-# the largest group of primitive pairs the static list takes uncut: past
-# it the JAX package's static driver culls the group
-# (`_CULL_THRESHOLD_CHEAP`, `mujoco_warp_tpu/collision_driver.py:84`),
-# which neither kernel B2 nor `collision_driver.collision` does
-STATIC_GROUP_MAX = 2048
 
 
 def _sap_precompute(mjm):
@@ -280,6 +347,8 @@ def _sap_precompute(mjm):
   _refuse_unported(present)
   _need(all(a != GeomType.PLANE for a, _ in present),
         'plane pairs under the large-scene broadphase')
+  _need(not set(present) & MPR_PAIRS,
+        'MPR pairs under the large-scene broadphase')
   rows, pids, families = [], [], []
   start = 0
   for a, b in present:
@@ -382,18 +451,18 @@ def put_model(mjm, device='cuda') -> Model:
     collision_pairs, nxn_candidates = (), sap_count
   else:
     collision_pairs, nxn_candidates = _collision_pairs(mjm)
-  for t1, t2, gl in collision_pairs:
-    _need(t1 == GeomType.PLANE or len(gl) <= STATIC_GROUP_MAX,
-          f'the cull of a group of {len(gl)} ({t1}, {t2}) pairs (past '
-          f'{STATIC_GROUP_MAX})')
+  hulls = _mesh_hulls(mjm)
   leaves.update(sap_pairs=sap_pairs, sap_pairid=sap_pairid,
-                geom_aabb=f32(mjm.geom_aabb).reshape(mjm.ngeom, 2, 3))
+                geom_aabb=f32(mjm.geom_aabb).reshape(mjm.ngeom, 2, 3),
+                geom_rbound=f32(mjm.geom_rbound), mesh_hullvert=hulls,
+                mesh_hullvert_small=_decimate_hulls(hulls))
   statics = dict(
       nq=mjm.nq, nv=mjm.nv, nu=mjm.nu, na=mjm.na, nbody=mjm.nbody,
       njnt=mjm.njnt, ngeom=mjm.ngeom, nsite=mjm.nsite, ncam=mjm.ncam,
       nlight=mjm.nlight, neq=mjm.neq, nmocap=mjm.nmocap,
       ngravcomp=mjm.ngravcomp, nsensor=mjm.nsensor, npair=mjm.npair,
       nexclude=mjm.nexclude, ntendon=mjm.ntendon, nkey=mjm.nkey,
+      key_names=tuple(mjm.key(k).name for k in range(mjm.nkey)),
       body_parentid=_tup(mjm.body_parentid),
       body_rootid=_tup(mjm.body_rootid),
       body_weldid=_tup(mjm.body_weldid),
@@ -416,6 +485,7 @@ def put_model(mjm, device='cuda') -> Model:
       dof_hasfrictionloss=_tup(mjm.dof_frictionloss > 0),
       geom_type=_tup(mjm.geom_type),
       geom_bodyid=_tup(mjm.geom_bodyid),
+      geom_dataid=_tup(mjm.geom_dataid),
       geom_condim=_tup(mjm.geom_condim),
       geom_priority=_tup(mjm.geom_priority),
       site_bodyid=_tup(mjm.site_bodyid),
@@ -669,17 +739,17 @@ def reset_data_masked(m: Model, d: Data, reset_mask: torch.Tensor,
                    **mix_all(fresh, d))
 
 
-def find_keys(mjm, prefix: str) -> list[int]:
-  """Ids of the keyframes of a `mujoco.MjModel` whose name starts with
-  prefix (mirrors `mujoco_warp_tpu/io.py:1466`)."""
-  return [k for k in range(mjm.nkey)
-          if mjm.key(k).name and mjm.key(k).name.startswith(prefix)]
+def find_keys(m: Model, prefix: str) -> list[int]:
+  """Ids of the keyframes whose name (`m.key_names`, which a saved `.npz`
+  keeps) starts with prefix (mirrors `mujoco_warp_tpu/io.py:1466`)."""
+  return [k for k, name in enumerate(m.key_names)
+          if name and name.startswith(prefix)]
 
 
-def make_trajectory(mjm, keys: list[int]) -> np.ndarray:
+def make_trajectory(m: Model, keys: list[int]) -> np.ndarray:
   """The keyframes' ctrl rows stacked into a (len(keys), nu) replay
   trajectory (mirrors `mujoco_warp_tpu/io.py:1476`)."""
-  return np.stack([mjm.key_ctrl[k] for k in keys])
+  return m.key_ctrl[list(keys)].cpu().numpy()
 
 
 def data_from_numpy(m: Model, fields: dict, nconmax: int | None = None

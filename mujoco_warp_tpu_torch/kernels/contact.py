@@ -70,6 +70,27 @@ ROW_PER_CONTACT = frozenset({(GeomType.PLANE, GeomType.BOX),
 # pair types of the BOXES entries (`box_`, `box_ell_`)
 BOX_PAIRS = frozenset({(GeomType.CAPSULE, GeomType.BOX),
                        (GeomType.BOX, GeomType.BOX)})
+# every pair type the kernel has a branch for
+PAIRS = frozenset({(GeomType.PLANE, GeomType.SPHERE),
+                   (GeomType.PLANE, GeomType.CAPSULE),
+                   (GeomType.PLANE, GeomType.BOX),
+                   (GeomType.SPHERE, GeomType.SPHERE),
+                   (GeomType.SPHERE, GeomType.CAPSULE),
+                   (GeomType.CAPSULE, GeomType.CAPSULE)}) | BOX_PAIRS
+
+
+def supports(m: Model, nconmax: int) -> bool:
+  """Whether the kernel takes m at nconmax: the static pair list (no
+  large-scene broadphase), every group of a pair type it has a branch
+  for and not one the JAX driver would cull
+  (`collision_driver.culls`), and nconmax <= MAXCON. Elsewhere the step
+  runs `collision_driver.collision` (or `collision_sap.collision`) and
+  `constraint.make_constraint`, as the JAX package runs XLA where its
+  contact kernel refuses (`pallas/contact_kernels.py:50-82`)."""
+  return (not m.sap_families and nconmax <= MAXCON and
+          all((t1, t2) in PAIRS and
+              not collision_driver.culls(t1, t2, len(gl))
+              for t1, t2, gl in m.collision_pairs))
 
 
 def entry(m: Model) -> str:

@@ -11,8 +11,12 @@ data) and `apptronik_apollo_flat.npz` of the suite's
 humanoid on a plane, nv 25, four IMU sensors; no mesh is read) and
 `apptronik_apollo_terrain.npz` of `scene_terrain.xml` (the same robot on
 5,272 boxes of terrain: 95,021 admissible pairs, so the Model takes the
-large-scene broadphase and holds its pair arrays). They are committed so that a machine without the `mujoco`
-bindings can load the models (`io.load_model`).
+large-scene broadphase and holds its pair arrays) and `aloha_pot.npz` of
+`benchmarks/scenes/aloha_pot/scene.xml` (two ALOHA arms over a pot on a
+table: nv 23, 190 mesh geoms whose convex hulls, full and decimated, the
+Model holds, and the keyframe names of the `lift_pot` replay). They are
+committed so that a machine without the `mujoco` bindings can load the
+models (`io.load_model`).
 Regenerate them after a change to the compiler:
 
     python -m mujoco_warp_tpu_torch.models.regenerate
@@ -43,3 +47,6 @@ APOLLO_NPZ = os.path.join(_DIR, 'apptronik_apollo_flat.npz')
 APOLLO_TERRAIN = os.path.join(_ROOT, 'benchmarks', 'scenes',
                               'apptronik_apollo', 'scene_terrain.xml')
 APOLLO_TERRAIN_NPZ = os.path.join(_DIR, 'apptronik_apollo_terrain.npz')
+ALOHA_POT = os.path.join(_ROOT, 'benchmarks', 'scenes', 'aloha_pot',
+                         'scene.xml')
+ALOHA_POT_NPZ = os.path.join(_DIR, 'aloha_pot.npz')

@@ -13,7 +13,8 @@ SOURCES = ((models.HUMANOID, models.HUMANOID_NPZ),
            (models.THREE_HUMANOIDS, models.THREE_HUMANOIDS_NPZ),
            (models.FRANKA, models.FRANKA_NPZ),
            (models.APOLLO, models.APOLLO_NPZ),
-           (models.APOLLO_TERRAIN, models.APOLLO_TERRAIN_NPZ))
+           (models.APOLLO_TERRAIN, models.APOLLO_TERRAIN_NPZ),
+           (models.ALOHA_POT, models.ALOHA_POT_NPZ))
 
 
 def main():

@@ -8,8 +8,8 @@ replay (`forward.replays`), `eager` where not.
 
 The model is an MJCF, compiled through the `mujoco` bindings, or a `.npz`
 written by `io.save_model` (the card's machine has no bindings: use the
-committed `models/*.npz` there). Keyframe names, which `--replay` needs,
-are only in an MJCF. It runs on the card unless `--device cpu`.
+committed `models/*.npz` there); both hold the keyframes and their
+names, which `--replay` reads. It runs on the card unless `--device cpu`.
 
 Usage:
   python -m mujoco_warp_tpu_torch.testspeed PATH.xml|PATH.npz
@@ -125,7 +125,7 @@ def main(argv=None):
   p.add_argument('--ctrlnoise_std', type=float, default=0.01)
   p.add_argument('--replay', default=None, metavar='PREFIX',
                  help='replay the ctrl of the keyframes whose name starts '
-                      'with PREFIX (an MJCF only)')
+                      'with PREFIX')
   p.add_argument('--function', default='step', metavar='NAME',
                  help='time one stage of the step by name instead of the '
                       'whole step; stage names as --event_trace prints '
@@ -134,16 +134,12 @@ def main(argv=None):
   args = p.parse_args(argv)
   if args.device == 'cuda' and not torch.cuda.is_available():
     raise SystemExit('no CUDA device: pass --device cpu to run on the CPU')
-  if args.replay is not None and args.model.endswith('.npz'):
-    raise SystemExit('--replay needs an MJCF: a .npz holds no keyframe '
-                     'names')
-
   if args.model.endswith('.npz'):
-    mjm, m = None, io.load_model(args.model, device=args.device)
+    m = io.load_model(args.model, device=args.device)
   else:
     import mujoco
-    mjm = mujoco.MjModel.from_xml_path(args.model)
-    m = io.put_model(mjm, device=args.device)
+    m = io.put_model(mujoco.MjModel.from_xml_path(args.model),
+                     device=args.device)
   if args.override:
     m = io.override_model(m, args.override)
   d = io.make_data(m, nconmax=args.nconmax)
@@ -158,10 +154,10 @@ def main(argv=None):
     return
 
   if args.replay is not None:
-    keys = io.find_keys(mjm, args.replay)
+    keys = io.find_keys(m, args.replay)
     if not keys:
       raise SystemExit(f'no keyframes match prefix {args.replay!r}')
-    traj = torch.as_tensor(io.make_trajectory(mjm, keys),
+    traj = torch.as_tensor(io.make_trajectory(m, keys),
                            dtype=torch.float32, device=args.device)
     batch = batch.replace(
         qpos=m.key_qpos[keys[0]].expand_as(batch.qpos).clone())

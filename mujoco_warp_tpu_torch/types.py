@@ -265,6 +265,8 @@ class Model(_Tensors):
   nexclude: int
   ntendon: int
   nkey: int
+  # each keyframe's name ('' for none), which `io.find_keys` reads
+  key_names: Tuple[str, ...]
   # structure
   body_parentid: IntTuple
   body_rootid: IntTuple
@@ -288,6 +290,8 @@ class Model(_Tensors):
   dof_hasfrictionloss: IntTuple
   geom_type: IntTuple
   geom_bodyid: IntTuple
+  # each geom's mesh id (-1 for a geom without mesh data)
+  geom_dataid: IntTuple
   geom_condim: IntTuple
   geom_priority: IntTuple
   site_bodyid: IntTuple
@@ -394,6 +398,14 @@ class Model(_Tensors):
   pair_friction: torch.Tensor
   # (ngeom, 2, 3) each geom's box in its frame (center, half sizes)
   geom_aabb: torch.Tensor
+  # (ngeom,) each geom's bounding-sphere radius about its frame's origin
+  geom_rbound: torch.Tensor
+  # (nmesh, V, 4) each mesh's convex-hull vertices in its geom frame,
+  # padded (xyz, 1 valid or 0 padding); (nmesh, <= io.HULL_SMALL, 4) the
+  # same decimated, which the culled narrowphase reads; (0, 1, 4) without
+  # meshes
+  mesh_hullvert: torch.Tensor
+  mesh_hullvert_small: torch.Tensor
   # (P, 2) int32 the admissible pairs of the large-scene broadphase by
   # family, g1 of the family's type1; (P,) int32 their <pair> ids (-1
   # for none); (0, 2) and (0,) without it

@@ -94,7 +94,8 @@ def _path_model(scene, variant):
 @pytest.mark.parametrize('scene,variant,nconmax', [
     ('humanoid', None, 24), ('humanoid', 'rk4', 24), ('humanoid', 'cg', 24),
     ('three_humanoids', None, 100), ('humanoid', 'implicitfast', 24),
-    ('franka_emika_panda', None, 1), ('apptronik_apollo_flat', None, 16)])
+    ('franka_emika_panda', None, 1), ('apptronik_apollo_flat', None, 16),
+    ('aloha_pot', None, 24)])
 def test_state_fields_are_all_a_step_reads(scene, variant, nconmax):
   """A step from d and from d with every other field poisoned give the
   same bits in every field the step writes; the fields it neither reads
@@ -186,6 +187,9 @@ PATHS = [
     # P16's list (`collision`, `make_constraint`) on the SAP grid, a
     # model past the large-scene threshold that steps at a CPU test's cost
     ('P16', 'sap_grid', None, False, True),
+    # P17: aloha_pot's list, the static driver's `collision` (the cull,
+    # MPR) in B2's place, B3e
+    ('P17', 'aloha_pot', None, False, True),
 ]
 
 
@@ -204,7 +208,8 @@ def test_replay_predicate_on_the_paths(path, scene, variant, fwd, replayed,
   else:
     m = _path_model(scene, variant)
   nconmax = {'humanoid': 24, 'franka_emika_panda': 1,
-             'apptronik_apollo_flat': 16, 'sap_grid': 8}.get(scene, 100)
+             'apptronik_apollo_flat': 16, 'sap_grid': 8,
+             'aloha_pot': 24}.get(scene, 100)
   d = mt.make_data(m, nconmax=nconmax, nworld=2)
   stages = forward.forward_stages(m, d) if fwd else \
       forward.batched_stages(m, d)
@@ -337,13 +342,16 @@ def test_reset_data_masked_matches_jax(keyed):
 
 
 def test_find_keys_and_make_trajectory_match_jax(keyed):
-  mjm = keyed[0]
+  """On the port's Model (its `key_names`, as a loaded .npz holds them)
+  against the JAX package's functions on the MJCF's MjModel."""
+  mjm, _, m = keyed
   for prefix in ('lift', 'lift_1', '', 'rest', 'none'):
-    assert io.find_keys(mjm, prefix) == jio.find_keys(mjm, prefix), prefix
-  keys = io.find_keys(mjm, 'lift')
+    assert io.find_keys(m, prefix) == jio.find_keys(mjm, prefix), prefix
+  keys = io.find_keys(m, 'lift')
   assert keys == [0, 1, 3]
-  np.testing.assert_array_equal(io.make_trajectory(mjm, keys),
-                                jio.make_trajectory(mjm, keys))
+  np.testing.assert_array_equal(
+      io.make_trajectory(m, keys),
+      jio.make_trajectory(mjm, keys).astype(np.float32))
 
 
 def test_benchmark_replay_matches_jax(keyed):
@@ -351,8 +359,8 @@ def test_benchmark_replay_matches_jax(keyed):
   4 worlds, nstep 3 (a first step, 3 warm-up steps and one timed: the
   trajectory's clamp to its last frame is reached)."""
   mjm, jm, m = keyed
-  keys = io.find_keys(mjm, 'lift')
-  traj = io.make_trajectory(mjm, keys)
+  keys = io.find_keys(m, 'lift')
+  traj = io.make_trajectory(m, keys)
   qpos = np.broadcast_to(mjm.key_qpos[keys[0]], (4, m.nq)).astype(
       np.float32)
   d = mt.data_from_numpy(m, dict(qpos=qpos), nconmax=4)

@@ -25,8 +25,16 @@ def _jax_static(jm, name):
   return getattr(jm, name)
 
 
+# the port's statics that the JAX Model has not: the keyframe names
+# (`find_keys` reads them from a loaded .npz; held against the MJCF in
+# test_aloha_model_matches_jax of test_torch_aloha.py)
+_PORT_ONLY = ('key_names',)
+
+
 def _assert_model_equal(m, jm):
   for name in types.MODEL_STATICS:
+    if name in _PORT_ONLY:
+      continue
     assert getattr(m, name) == _jax_static(jm, name), name
   for name in types.OPTION_STATICS:
     assert getattr(m.opt, name) == getattr(jm.opt, name), name
@@ -52,7 +60,8 @@ def test_model_from_numpy_takes_jax_leaves():
   leaves.update({'opt.' + k: np.asarray(getattr(jm.opt, k))
                  for k in types.OPTION_TENSORS})
   leaves['stat.meaninertia'] = np.asarray(jm.stat.meaninertia)
-  statics = {k: _jax_static(jm, k) for k in types.MODEL_STATICS}
+  statics = {k: getattr(m, k) if k in _PORT_ONLY else _jax_static(jm, k)
+             for k in types.MODEL_STATICS}
   statics['opt'] = {k: getattr(jm.opt, k) for k in types.OPTION_STATICS}
   _assert_model_equal(io.model_from_numpy(leaves, statics, device='cpu'),
                       jm)
@@ -60,7 +69,7 @@ def test_model_from_numpy_takes_jax_leaves():
 
 @pytest.mark.parametrize('scene', ['humanoid', 'three_humanoids',
                                    'franka_emika_panda',
-                                   'apptronik_apollo_flat'])
+                                   'apptronik_apollo_flat', 'aloha_pot'])
 def test_committed_npz_matches_jax(tmp_path, scene):
   """The committed .npz equals a fresh put_model of its MJCF (and so the
   JAX Model's shared leaves, camera, light and equality fields
@@ -69,7 +78,8 @@ def test_committed_npz_matches_jax(tmp_path, scene):
   npz = {'humanoid': models.HUMANOID_NPZ,
          'three_humanoids': models.THREE_HUMANOIDS_NPZ,
          'franka_emika_panda': models.FRANKA_NPZ,
-         'apptronik_apollo_flat': models.APOLLO_NPZ}[scene]
+         'apptronik_apollo_flat': models.APOLLO_NPZ,
+         'aloha_pot': models.ALOHA_POT_NPZ}[scene]
   _assert_model_equal(io.load_model(npz, device='cpu'), jm)
   path = str(tmp_path / 'm.npz')
   io.save_model(m, path)
@@ -134,10 +144,12 @@ def test_data_from_numpy_and_make_batch():
 
 
 # two free geoms of the given types (sphere and capsule sizes read the
-# first values), a pair the gate tests
-_PAIR = """<mujoco><worldbody><body><freejoint/><geom type="{}"
+# first values), a pair the gate tests; a mesh geom is a tetrahedron
+_PAIR = """<mujoco><asset><mesh name="tet" vertex="0 0 0  .1 0 0  0 .1 0
+  0 0 .1"/></asset><worldbody><body><freejoint/><geom type="{}"
   size=".1 .1 .1"/></body><body pos="0 0 1"><freejoint/><geom type="{}"
   size=".1 .1 .1"/></body></worldbody></mujoco>"""
+_MESH = 'mesh" mesh="tet'
 
 _OUTSIDE = {
     'tendon': """<mujoco><worldbody><body><joint type="slide"/>
@@ -171,7 +183,9 @@ _OUTSIDE = {
       <geom size=".1"/></body></worldbody><deformable><flex name="f"
       dim="1" body="b1 b2" vertex="0 0 0 0 0 0" element="0 1"/>
       </deformable><equality><flex flex="f"/></equality></mujoco>""",
-    'sphere_box': _PAIR.format('sphere', 'box'),
+    'capsule_mesh': _PAIR.format('capsule', _MESH),
+    'cylinder_mesh': _PAIR.format('cylinder', _MESH),
+    'ellipsoid_mesh': _PAIR.format('ellipsoid', _MESH),
     'framequat_on_a_geom': """<mujoco><worldbody><body><freejoint/>
       <geom name="g" size=".1"/></body></worldbody><sensor><framequat
       objtype="geom" objname="g"/></sensor></mujoco>""",
@@ -201,6 +215,11 @@ _INSIDE = {
                     ((3, 6, ((0, 1, -1),)),)),
     'box_box': (_PAIR.format('box', 'box'), 'collision_pairs',
                 ((6, 6, ((0, 1, -1),)),)),
+    'sphere_box': (_PAIR.format('sphere', 'box'), 'collision_pairs',
+                   ((2, 6, ((0, 1, -1),)),)),
+    'mesh_mesh': (_PAIR.format(_MESH, _MESH), 'nxn_candidates', 5),
+    'sphere_mesh': (_PAIR.format('sphere', _MESH), 'nxn_candidates', 1),
+    'box_mesh': (_PAIR.format('box', _MESH), 'nxn_candidates', 5),
     'imu_sensors': ("""<mujoco><worldbody><body><freejoint/>
       <geom size=".1"/><site name="s"/></body></worldbody><sensor>
       <framequat objtype="site" objname="s"/><gyro site="s"/>
@@ -223,5 +242,7 @@ def test_put_model_rejects_models_outside_the_gate(case):
     assert m == value
     return
   mjm = mujoco.MjModel.from_xml_string(_OUTSIDE[case])
-  with pytest.raises(NotImplementedError):
+  match = {'capsule_mesh': r'\(3, 7\)', 'cylinder_mesh': r'\(5, 7\)',
+           'ellipsoid_mesh': r'\(4, 7\)'}.get(case)
+  with pytest.raises(NotImplementedError, match=match):
     mt.put_model(mjm, device='cpu')

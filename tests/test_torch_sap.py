@@ -26,9 +26,12 @@ and the stage list around it against the JAX package, on the CPU.
   but for the pair margin and gap: C MuJoCo's sums, where the JAX
   package takes the larger (ROADMAP §C, C5).
 * The stage lists: a SAP model runs `collision` and `make_constraint`
-  in every list; the humanoid, franka and apollo_flat keep B2.
-* The gate refuses a static group past the JAX package's cull threshold
-  (2,048 primitive pairs) under the SAP threshold.
+  in every list; the humanoid, three_humanoids, franka and apollo_flat
+  keep B2 (`kernels.contact.supports`).
+* A static group past the JAX driver's cull threshold (2,048 primitive
+  pairs) under the SAP threshold, which the gate refused before the
+  static driver culled: the stage choice, the kept pairs with their ties
+  and the pool against JAX `collision`.
 """
 
 import mujoco
@@ -43,6 +46,7 @@ import mujoco_warp_tpu as mjwt
 from mujoco_warp_tpu import io as jio
 import mujoco_warp_tpu_torch as mt
 from mujoco_warp_tpu_torch import collision_sap, forward, io, models, solver
+from mujoco_warp_tpu_torch.kernels import contact as kc
 from mujoco_warp_tpu_torch.types import IntegratorType, SolverType
 
 from test_torch_apollo import CB_TOL
@@ -260,6 +264,10 @@ def test_sap_pair_params_match_jax_but_the_margin_rule():
 
 
 _PATH_MODELS = {
+    'three_humanoids': (models.THREE_HUMANOIDS_NPZ, 100, [
+        'smooth_mega[cuda]', 'camlight', 'contact_efc_mega[cuda]',
+        'transmission', 'velocity_glue', 'passive', 'fwd_actuation',
+        'fwd_acceleration', 'solve', 'euler']),
     'humanoid': (models.HUMANOID_NPZ, 24, [
         'smooth_mega[cuda]', 'contact_efc_mega[cuda]', 'act_len_vel',
         'solve_glue[cuda]']),
@@ -282,6 +290,7 @@ def test_models_below_the_threshold_keep_b2(scene):
   assert [n for n, _ in forward.batched_stages(m, d)] == names
   assert 'contact_efc_mega[cuda]' in [
       n for n, _ in forward.forward_stages(m, d)]
+  assert kc.supports(m, nconmax) and not kc.supports(m, kc.MAXCON + 1)
 
 
 @pytest.mark.parametrize('variant', ['glue', 'forward', 'rk4', 'cg',
@@ -308,36 +317,86 @@ def test_sap_model_runs_collision_and_make_constraint(variant):
   assert int(out.ncon.min()) > 0 and int(out.nefc.min()) > 0
 
 
-def _group_scene(ncapsule, nbox):
-  """ncapsule capsules on one free body over nbox boxes on the world
-  body: one capsule-box group of ncapsule * nbox pairs."""
+def _group_scene(ncapsule, nbox, box=0.01):
+  """ncapsule capsules on one free body over nbox boxes (half size box)
+  on the world body: one capsule-box group of ncapsule * nbox pairs."""
   caps = ''.join(f'<geom type="capsule" size=".01 .02" pos="{0.05 * i} 0 0"'
                  '/>' for i in range(ncapsule))
-  boxes = ''.join(f'<geom type="box" size=".01 .01 .01" pos="{0.05 * i} 1 0"'
-                  '/>' for i in range(nbox))
+  boxes = ''.join(f'<geom type="box" size="{box} {box} {box}" '
+                  f'pos="{0.05 * i} 1 0"/>' for i in range(nbox))
   return (f'<mujoco><worldbody>{boxes}<body pos="0 0 1"><freejoint/>{caps}'
           '</body></worldbody></mujoco>')
 
 
-@pytest.mark.parametrize('ncapsule,admitted', [(21, False), (16, True)])
-def test_gate_refuses_a_static_group_past_the_cull(ncapsule, admitted):
-  """21 x 100 = 2,100 capsule-box pairs under the SAP threshold is a group
-  JAX's static driver would cull: refused by name; 16 x 128 = 2,048 is
-  not past it."""
-  nbox = 100 if not admitted else 128
-  mjm = mujoco.MjModel.from_xml_string(_group_scene(ncapsule, nbox))
-  if admitted:
-    m = mt.put_model(mjm, device='cpu')
-    assert [(t1, t2, len(gl)) for t1, t2, gl in m.collision_pairs] == [
-        (3, 6, 2048)]
+@pytest.mark.parametrize('ncapsule,uncut', [(21, False), (16, True)])
+def test_gate_refuses_a_static_group_past_the_cull(ncapsule, uncut):
+  """A static group of primitive pairs past the JAX driver's cull
+  threshold (2,048) under the SAP threshold, which the gate refused
+  before the port had the cull: 21 x 100 = 2,100 capsule-box pairs (boxes
+  of half size 0.05, so that a capsule's bounding sphere meets up to 5 of
+  them) take `collision` and `make_constraint` in B2's place, and on 3
+  worlds whose capsules hang over the boxes (one shifted by half a
+  spacing, where the distances tie) the port's cull keeps the JAX
+  driver's pairs in its order (`jax.lax.top_k`: 64 at nconmax 4) and its
+  pool equals JAX `collision`'s, the dropped overlaps in ncollision; 16 x
+  128 = 2,048 is not past it and keeps B2."""
+  nbox = 128 if uncut else 100
+  mjm = mujoco.MjModel.from_xml_string(_group_scene(ncapsule, nbox, 0.05))
+  m = mt.put_model(mjm, device='cpu')
+  assert [(t1, t2, len(gl)) for t1, t2, gl in m.collision_pairs] == [
+      (3, 6, ncapsule * nbox)]
+  d = mt.make_data(m, nconmax=4, nworld=3)
+  names = [n for n, _ in forward.batched_stages(m, d)][:3]
+  if uncut:
+    assert names[:2] == ['smooth_mega[cuda]', 'contact_efc_mega[cuda]']
     return
-  with pytest.raises(NotImplementedError, match='cull of a group of 2100'):
-    mt.put_model(mjm, device='cpu')
+  assert names == ['smooth_mega[cuda]', 'collision', 'make_constraint']
+  q = np.tile(mjm.qpos0, (3, 1)).astype(np.float32)
+  q[:, 1] = 1.0                                   # over the boxes
+  q[:, 2] = [0.05, 0.05, 0.055]
+  q[1, 0] = 0.025                                 # between two boxes: ties
+  jm = mjwt.make_data(mjwt.put_model(mjm), nconmax=4)
+  jmodel = mjwt.put_model(mjm)
+  from mujoco_warp_tpu import collision_driver as jcd
+  from mujoco_warp_tpu import smooth as jsmooth
+  new = jax.tree.map(np.asarray, jax.jit(jax.vmap(
+      lambda qq: jcd.collision(jmodel, jsmooth.kinematics(
+          jmodel, jm.replace(qpos=qq)))))(jnp.asarray(q)))
+  gx, gm = torch.tensor(new.geom_xpos), torch.tensor(new.geom_xmat)
+  from mujoco_warp_tpu_torch import collision_driver
+  grp = collision_driver._group_tables(m)[0]
+  assert grp['cull'] and collision_driver.cull_slots(4, 2100) == 64
+  sel, valid, nover = collision_driver.cull(
+      m, gx, grp, collision_driver.candidate_params(m)['margin'], 64)
+  g1, g2 = grp['g1'].numpy(), grp['g2'].numpy()
+  dvec = new.geom_xpos[:, g1] - new.geom_xpos[:, g2]
+  d2 = jnp.sum(dvec * dvec, -1)
+  rsum = jnp.asarray(mjm.geom_rbound[g1] + mjm.geom_rbound[g2], jnp.float32)
+  overlap = d2 <= rsum * rsum
+  jsel = np.asarray(jax.lax.top_k(jnp.where(overlap, -d2, -jnp.inf), 64)[1])
+  np.testing.assert_array_equal(sel.numpy(), jsel)
+  np.testing.assert_array_equal(nover.numpy(), np.asarray(overlap).sum(1))
+  assert (nover > 64).all()
+  picked = np.take_along_axis(np.asarray(d2), jsel, 1)
+  assert (picked[1, 1:] == picked[1, :-1]).sum() > 10            # ties
+  con = collision_driver.collision(m, gx, gm, 4)
+  _assert_cull_pool(m, con, new)
+
+
+def _assert_cull_pool(m, out, new):
+  for k in ('ncon', 'ncollision'):
+    np.testing.assert_array_equal(out[k].numpy(), getattr(new, k), k)
+  np.testing.assert_array_equal(out['geom'].numpy(), new.contact.geom)
+  assert (out['ncollision'] > out['ncon'] + 64).all()
+  for k in ('dist', 'pos', 'frame', 'friction', 'solref', 'solimp'):
+    tol = CB_TOL if k in ('pos', 'frame') else TOL
+    assert_close(out[k].numpy(), getattr(new.contact, k), k, tol)
 
 
 def test_sap_gate_refuses_unported_families_and_planes():
-  """A SAP family without a port collider (cylinder-box, as kitchen's)
-  and plane pairs under the large-scene broadphase are refused."""
+  """A SAP family without a port collider (cylinder-box, as kitchen's),
+  plane pairs and MPR pairs (sphere-mesh) under the large-scene
+  broadphase are refused."""
   cyl = _group_scene(1, 5).replace('type="capsule" size=".01 .02"',
                                    'type="cylinder" size=".01 .02"')
   with pytest.raises(NotImplementedError, match=r'\(5, 6\)'):
@@ -346,3 +405,10 @@ def test_sap_gate_refuses_unported_families_and_planes():
       '<worldbody>', '<worldbody><geom type="plane" size="1 1 1"/>')
   with pytest.raises(NotImplementedError, match='plane pairs'):
     build_sap(plane, threshold=1)
+  mesh = _group_scene(1, 5).replace(
+      '<mujoco>', '<mujoco><asset><mesh name="tet" vertex="0 0 0  .01 0 0  '
+      '0 .01 0  0 0 .01"/></asset>').replace(
+          'type="capsule" size=".01 .02"', 'type="mesh" mesh="tet"').replace(
+              'type="box" size="0.01 0.01 0.01"', 'type="sphere" size=".01"')
+  with pytest.raises(NotImplementedError, match='MPR pairs'):
+    build_sap(mesh, threshold=1)

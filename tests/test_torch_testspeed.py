@@ -87,9 +87,23 @@ def test_unknown_function_exits_with_the_choices():
 
 
 def test_replay_on_an_npz_raises():
-  with pytest.raises(SystemExit, match='--replay needs an MJCF'):
+  """A .npz holds its keyframe names: a prefix that none of them has
+  is refused by name."""
+  with pytest.raises(SystemExit, match="no keyframes match prefix 'walk'"):
     testspeed.main([models.THREE_HUMANOIDS_NPZ, '--nworld', '2',
                     '--replay', 'walk', '--device', 'cpu'])
+
+
+def test_lift_pot_replay_on_the_npz(capsys):
+  """The suite's aloha_pot row replays the ctrl of its 8 lift_pot
+  keyframes from the committed .npz (the card's machine has no MJCF
+  compiler), here at 2 worlds on the CPU."""
+  testspeed.main([models.ALOHA_POT_NPZ, '--nworld', '2', '--nstep', '2',
+                  '--nconmax', '24', '--replay', 'lift_pot', '--output',
+                  'json', '--device', 'cpu'])
+  out = _json(capsys)
+  assert out['converged_worlds'] == 2 and out['dispatch'] == 'eager'
+  assert out['nefc_mean'] >= 7      # the 2 equality and 5 friction rows
 
 
 def _bench_keys() -> list:

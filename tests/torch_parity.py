@@ -81,7 +81,8 @@ KEYED = """
 # scenes read from their files (they include other files)
 FILES = {'three_humanoids': models.THREE_HUMANOIDS,
          'franka_emika_panda': models.FRANKA,
-         'apptronik_apollo_flat': models.APOLLO}
+         'apptronik_apollo_flat': models.APOLLO,
+         'aloha_pot': models.ALOHA_POT}
 ALL_SCENES = sorted(SCENES) + sorted(FILES)
 
 
