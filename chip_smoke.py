@@ -218,6 +218,24 @@ Phases:
       peak memory, ncon and ncollision per world, a replayed profile
       (busy share, launches a step), the time of each stage; time B1 and
       B3e on aloha_pot, with their bounds.
+  (v) aloha_sdf (the suite's config.txt:15 row, SDF_NWORLD worlds,
+      nconmax SDF_NCONMAX): the model's groups, voxel grids, candidate
+      slots, efc layout and glue mode; the rich state (keyframe
+      gripper_gripper_pot, noise on the arms, SDF_PREP steps): ncon and
+      ncollision per world, contacts by pair type and condim, the
+      condim-4 contacts whose torsional J row is nonzero (it fails
+      without SDF-SDF or box-SDF contacts or such a row); B1 against its
+      plain version and B3e (mode 1) against the float64 plain solve
+      there (`_hold_b3e_aloha` at SDF_OBJ_FACTOR); the SDF narrowphase in
+      float32 against float64 on SDF_HOLD_WORLDS worlds
+      (`_hold_sdf_narrowphase`); from counts at 0, P18 (the suite's
+      aloha_sdf step from keyframe 0, the harness's protocol, replayed):
+      B1 and B3e once a step on the card over SDF_COUNT steps and no B2,
+      then timed, printed as `step_aloha_sdf` with one eager step's peak
+      memory; one step against the all-plain step; SDF_REPLAY replayed
+      steps against eager ones bit for bit; the card's time of each
+      stage and group; time B1 and B3e on aloha_sdf (the rich state's
+      inputs), with their bounds; and the phase's wall time.
 One JSON line lists every kernel's record; a replayed path's launches
 are those the card ran, by kernel name.
 
@@ -228,8 +246,10 @@ exits non-zero without it. Nothing here imports JAX or the JAX package.
 import collections
 import contextlib
 import json
+import math
 import subprocess
 import sys
+import time
 
 NWORLD = 8192
 NCONMAX = 24
@@ -415,6 +435,25 @@ PROFILE_TRIES = 3
 # window of 6 steps 6 and 6 in 3 of 3 (the same run).
 PROFILE_LEAD = 256
 PROFILE_LEAD_CYCLES = 20000
+# It loses records at the end of a window as well: in every replayed
+# window that fell short on the H100 the kernel missing was the last
+# step's B3 or B3e, never a B1 (P16's windows of 10 steps, 6,727
+# kernels a step, short by up to 412 kernels, once short in all of
+# PROFILE_TRIES; P17's of 2 steps, 20,707 a step, short by 8). So each
+# profile also waits for an idle card after fn and ends with
+# PROFILE_TRAIL kernels of its own, which it leaves out; the retries
+# print how many of its own kernels it recorded. The profiler records
+# the card's activity alone: a window's host-side events add nothing to
+# the counts and take time to read.
+PROFILE_TRAIL = 2048
+PROFILE_OWN = dict(recorded=0, launched=0)
+# torch.profiler's `events()` builds a Python object for each record and
+# its place in a tree, ~40x slower than the profiler's raw records give
+# the same names and times (`compare_trees.device_records`), and P18
+# profiles 141,037 kernels a step. So the first profile of a run reads
+# its device records both ways and the run keeps the raw ones where the
+# two agree in every name and in the summed time (`_device_records`).
+RAW_RECORDS = dict(ok=None)
 # glue mode 2 (implicitfast, phase c): the servo variant's velocity
 # coefficients (SERVO_KV / gear0^2 and SERVO_GV / gear0^2, so that each
 # dof's actuator term h gear0^2 (kv + gv ctrl) is of the order of the
@@ -549,6 +588,62 @@ ALOHA_NSTEP = 24
 ALOHA_PROFILE = 2
 ALOHA_REPLAY_NSTEP = 10
 ALOHA_TESTSPEED_NSTEP = 4
+# aloha_sdf (phase v): the suite's row (benchmarks/scenes/config.txt:15),
+# SDF_NWORLD worlds at nconmax SDF_NCONMAX; the same arms with SDF
+# fingers over an SDF cow on a free joint. P18 starts from keyframe 0 as
+# the suite does (benchmarks/suite.py:82-83); the rich state is keyframe
+# gripper_gripper_pot (the fingers on the cow) with QPOS_NOISE on the
+# arms, stepped SDF_PREP steps. Every SDF descent runs its 11 passes, as
+# in the JAX package, so a step takes seconds (PERF.md): P18 is counted
+# over SDF_COUNT steps, timed over SDF_NSTEP (a first step, SDF_NSTEP
+# warm-up and one timed), its replay held against eager steps over
+# SDF_REPLAY steps and profiled over SDF_PROFILE, testspeed's over
+# SDF_TESTSPEED_NSTEP (a first, 1 warm-up, 1 timed). The SDF
+# narrowphase is held in float32 against float64 on SDF_HOLD_WORLDS
+# worlds of the rich state (`_hold_sdf_narrowphase`): a descent whose
+# step-size choices agree in both (`collide`'s trace) gives dist, pos and
+# frame within SDF_TOL of scale, but where the float64 descent itself
+# moves by at least 1 / SDF_ULP_FACTOR of its error when the float32 geom
+# frames move by a few ulps (the descent amplifies rounding: its steps
+# and its normal follow the voxel grids' trilinear gradients, which turn
+# with the point); those and the descents whose choices part may number
+# SDF_PART_SHARE of those whose boxes meet. On the rich state (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md) the parted and over-SDF_TOL descents
+# are 0.14%, 0.14% and 0.71% of the box-, mesh- and SDF-SDF descents, so
+# SDF_PART_SHARE is 1.5 x 0.71%. No one change excused every one of them
+# (1, 4 and 8 ulps up and down left 29, 7 and 5 of SDF-SDF's 147; four
+# random 4-ulp draws left 2 of box-SDF's 3), so the witness takes the
+# largest move over them all, drawn in that order from SDF_WITNESS_SEED.
+# B3e is held against the float64 solve as on aloha_pot (`_hold_b3e_aloha`) at
+# SDF_OBJ_FACTOR: on the rich state, seeds 0-1 (`utils/rich_spread.py
+# aloha_sdf`, NVIDIA H100 80GB HBM3, 700 W; PERF.md), the worlds more
+# than TOL_OBJ units above the float64 objective: B3e 7 and 16, the
+# float32 plain solve and its two perturbations at most 14 and 20; over
+# the tolerances against the float64 solve: B3e 9 and 7, the plain trio
+# at most 11 and 6; the largest excess, 1 world of 6 (16.7%), gives 1 +
+# 1.5 x 0.167 = 1.25. P18's step is held against the all-plain step
+# after qpos + SDF_QPOS_ULPS ulps (`_compare_step_exact`): there B1 lies
+# a median 0.48 and at most 1.9 ulps at scale from its plain version in
+# geom_xpos, 4.0 and 9.0 in geom_xmat, and the plain version after 1 ulp
+# 0.62/1.9 and 4.0/9.0 (the same run): 1 is the smallest of 1, 2, 4, 8
+# at both.
+SDF_NWORLD = 8192
+SDF_NCONMAX = 32
+SDF_PREP = 2
+SDF_COUNT = 2
+SDF_NSTEP = 1
+SDF_REPLAY = 1
+SDF_PROFILE = 1
+SDF_TESTSPEED_NSTEP = 1
+SDF_HOLD_WORLDS = 256
+SDF_TOL = 1e-4
+SDF_WITNESS_ULPS = (1, 4, 8)
+SDF_WITNESS_DRAWS = 4
+SDF_WITNESS_SEED = 7
+SDF_ULP_FACTOR = 4.0
+SDF_PART_SHARE = 0.011
+SDF_OBJ_FACTOR = 1.25
+SDF_QPOS_ULPS = 1
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -800,27 +895,56 @@ def _cuda_ms(fn, reps: int) -> float:
 def _profile(fn, nstep: int, lead: int = PROFILE_LEAD
              ) -> list[tuple[str, float, float]]:
   """(kernel name, launches per step, device ms per step) over fn(), which
-  runs nstep steps, most device time first, after `lead` kernels of the
-  profile's own (see PROFILE_LEAD); empty if the profiler saw no device
-  events."""
+  runs nstep steps, most device time first, between `lead` kernels of the
+  profile's own and PROFILE_TRAIL more (see PROFILE_LEAD and
+  PROFILE_TRAIL), which it leaves out and counts in PROFILE_OWN; empty if
+  the profiler saw no device events. The profiler records the card's
+  activity alone."""
   import torch
-  acts = [torch.profiler.ProfilerActivity.CPU,
-          torch.profiler.ProfilerActivity.CUDA]
   torch.cuda.synchronize()
-  with torch.profiler.profile(activities=acts) as prof:
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
     for _ in range(lead):
       torch.cuda._sleep(PROFILE_LEAD_CYCLES)
     torch.cuda.synchronize()
     fn()
     torch.cuda.synchronize()
+    for _ in range(PROFILE_TRAIL):
+      torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+    torch.cuda.synchronize()
   per_name = collections.defaultdict(lambda: [0, 0.0])
-  for e in prof.events():
-    if e.device_type == torch.autograd.DeviceType.CUDA and \
-        'spin_kernel' not in e.name:
-      per_name[e.name][0] += 1
-      per_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+  own = 0
+  for name, ms in _device_records(prof):
+    if 'spin_kernel' in name:
+      own += 1
+      continue
+    per_name[name][0] += 1
+    per_name[name][1] += ms
+  PROFILE_OWN.update(recorded=own, launched=lead + PROFILE_TRAIL)
   return sorted(((n, c / nstep, ms / nstep) for n, (c, ms)
                  in per_name.items()), key=lambda r: -r[2])
+
+
+def _device_records(prof) -> list[tuple[str, float]]:
+  """(name, device ms) of each of a finished profile's device records
+  (`compare_trees.device_records`). The first profile of a run reads them
+  both ways (see RAW_RECORDS) and keeps the raw records for the run only
+  where the two ways agree."""
+  from mujoco_warp_tpu_torch.utils.compare_trees import device_records
+  if RAW_RECORDS['ok'] is None:
+    slow, fast = device_records(prof, raw=False), device_records(prof)
+    if not slow:
+      return slow
+    same = sorted(n for n, _ in fast) == sorted(n for n, _ in slow) and \
+        math.isclose(sum(t for _, t in fast), sum(t for _, t in slow),
+                     rel_tol=1e-9, abs_tol=1e-9)
+    RAW_RECORDS['ok'] = same
+    print(f'  profiler: the raw records {"agree" if same else "disagree"} '
+          f'with events() on the first profile ({len(slow)} device '
+          f'records); {"raw records" if same else "events()"} for the rest '
+          f'of the run')
+    return slow
+  return device_records(prof, raw=RAW_RECORDS['ok'])
 
 
 def _nbytes(*groups) -> int:
@@ -904,9 +1028,9 @@ def _flops_b2(m, W, c_out, nconmax) -> float:
 
 
 def _print_profile(label, fn, nstep, step_ms, card, nworld=NWORLD):
-  """Profile fn (nstep steps of nworld worlds): device time per kernel
-  name and the busy share against the host-clock step_ms; returns the
-  profile's rows."""
+  """Profile fn (nstep steps of nworld worlds): device
+  time per kernel name and the busy share against the host-clock step_ms;
+  returns the profile's rows."""
   rows = _profile(fn, nstep)
   device_ms = sum(r[2] for r in rows)
   for name, calls, ms in rows[:8]:
@@ -1268,7 +1392,8 @@ def _card_counts(rows, nstep) -> dict:
 
 
 def _count_on_card(fn):
-  """fn() under torch.profiler: (its result, `_card_counts` of the run)."""
+  """fn() under torch.profiler (`_profile`): (its result, `_card_counts`
+  of the run)."""
   out = []
   rows = _profile(lambda: out.append(fn()), 1)
   return out[0], _card_counts(rows, 1)
@@ -1284,6 +1409,12 @@ def _check_wrapper_calls(label, on_card, steps):
   if any(calls[k] * steps != 2 * on_card[k] for k in calls):
     raise RuntimeError(f'{label}: wrapper calls {calls} against launches '
                        f'on the card {on_card} in {steps} steps')
+
+
+def _own_recorded() -> str:
+  """The last profile's own kernels (lead and trail) that it recorded."""
+  return (f'{PROFILE_OWN["recorded"]} of its own {PROFILE_OWN["launched"]} '
+          f'kernels recorded')
 
 
 def _short(counts, expect) -> bool:
@@ -1304,7 +1435,8 @@ def _replayed_counts(label, fn, steps):
     if not _short(on_card, {k: v * steps // 2 for k, v in calls.items()}):
       break
     print(f'  {label}: the profile counted {on_card}, short of half the '
-          f'wrapper calls {calls} a step: profiled again')
+          f'wrapper calls {calls} a step ({_own_recorded()}): profiled '
+          f'again')
   _check_wrapper_calls(label, on_card, steps)
   return result, on_card
 
@@ -1377,22 +1509,23 @@ def _differing(a, b) -> list:
   return [k for k, x, y in pairs if not torch.equal(_bits(x), _bits(y))]
 
 
-def _replay_against_eager(label, m, d, per_step, nstep, card):
-  """On a path the harness replays: REPLAY_STEPS steps by graph replay
+def _replay_against_eager(label, m, d, per_step, nstep, card,
+                          n=REPLAY_STEPS, eager_timing=True):
+  """On a path the harness replays: n (REPLAY_STEPS) steps by graph replay
   against as many eager steps (`rollout`) from the state d, with the same
   step indices, every Data tensor bit for bit; two eager runs first, and
   where those differ the replay is held by phase (g)'s step tolerance
   instead. Then the same nstep steps timed and profiled each way
-  (steps/s, device ms a step, busy share, launches a step); the replayed
-  profile must show each kernel of `per_step` (counts of _read_counts)
-  that many times a step on the card."""
-  import time
+  (steps/s, device ms a step, busy share, launches a step; without
+  `eager_timing` the replayed way only, timed and profiled on one graph);
+  the replayed profile must show each kernel of `per_step` (counts of
+  _read_counts) that many times a step on the card."""
   import torch
   from mujoco_warp_tpu_torch import forward
   from mujoco_warp_tpu_torch.utils import benchmark as bench
   if not forward.replays(m, d):
     raise RuntimeError(f'{label}: the harness does not replay this path')
-  n, start = REPLAY_STEPS, REPLAY_START
+  start = REPLAY_START
   eager = bench.rollout(m, d, n, start=start)
   again = _differing(eager, bench.rollout(m, d, n, start=start))
   replayed = bench.replayed(m, d, n, start=start)
@@ -1429,15 +1562,19 @@ def _replay_against_eager(label, m, d, per_step, nstep, card):
       for _ in range(nstep):
         graph.replay()
     return run
-  timed, profiled = (replay(bench.GraphStep(one_step, d, step))
-                     for _ in range(2))
-  eager_ms, replay_ms = clock(eager), clock(timed)
+  timed = replay(bench.GraphStep(one_step, d, step))
+  profiled = replay(bench.GraphStep(one_step, d, step)) if eager_timing \
+      else timed
+  replay_ms = clock(timed)
   W = d.nworld
-  print(f'  {label}: eager {eager_ms:.4f} ms a step '
-        f'({W / eager_ms * 1e3:.1f} steps/s), replayed '
-        f'{replay_ms:.4f} ms ({W / replay_ms * 1e3:.1f} steps/s) at '
-        f'{W} worlds, host clock over {nstep} steps ({card})')
-  _print_profile(f'{label} eager', eager, nstep, eager_ms, card, W)
+  print(f'  {label}: replayed {replay_ms:.4f} ms a step '
+        f'({W / replay_ms * 1e3:.1f} steps/s) at {W} worlds, host clock '
+        f'over {nstep} steps ({card})')
+  if eager_timing:
+    eager_ms = clock(eager)
+    print(f'  {label}: eager {eager_ms:.4f} ms a step '
+          f'({W / eager_ms * 1e3:.1f} steps/s)')
+    _print_profile(f'{label} eager', eager, nstep, eager_ms, card, W)
   expect = dict(_zero_counts(), **{k: v * nstep
                                    for k, v in per_step.items()})
   for _ in range(PROFILE_TRIES):
@@ -1447,7 +1584,7 @@ def _replay_against_eager(label, m, d, per_step, nstep, card):
     if not _short(counts, expect):
       break
     print(f'  {label} replayed: the profile counted {counts}, short of '
-          f'{expect}: profiled again')
+          f'{expect} ({_own_recorded()}): profiled again')
   _expect_counts(f'{label} replayed, on the card', expect, counts)
 
 
@@ -3101,10 +3238,12 @@ def _cone(m, con, efc):
       efc_address=efc['efc_address']))
 
 
-def _aloha_state(m, d0, nworld, gen):
+def _aloha_state(m, d0, nworld, gen, nstep=ALOHA_PREP):
   """P17's state: d0 (keyframe lift_pot0) at nworld worlds with
   QPOS_NOISE drawn from gen on the arms (the pot where the keyframe puts
-  it, on the table), stepped ALOHA_PREP steps."""
+  it, on the table), stepped nstep (ALOHA_PREP) steps; on aloha_sdf, the
+  rich state of phase (v) from keyframe gripper_gripper_pot (the cow
+  between the fingers) and SDF_PREP steps."""
   import mujoco_warp_tpu_torch as mt
   from mujoco_warp_tpu_torch.types import JointType
   from mujoco_warp_tpu_torch.utils import benchmark as bench
@@ -3113,7 +3252,7 @@ def _aloha_state(m, d0, nworld, gen):
     if m.jnt_type[j] == JointType.FREE:
       a = m.jnt_qposadr[j]
       d.qpos[:, a:a + 7] = d0.qpos[:, a:a + 7]
-  return bench.rollout(m, d, ALOHA_PREP)
+  return bench.rollout(m, d, nstep)
 
 
 def _family_overlaps(m, geom_xpos, geom_xmat, nconmax) -> list:
@@ -3155,15 +3294,18 @@ def _family_overlaps(m, geom_xpos, geom_xmat, nconmax) -> list:
   return out
 
 
-def _stage_times(label, m, d, card) -> dict:
+def _stage_times(label, m, d, card, reps: int = 3,
+                 profile: bool = True) -> dict:
   """The card's busy time of each stage of m's step from d (eager, each
-  stage on its own inputs, torch.profiler over 3 calls; CUDA events
-  where the profile shows no device work): {stage: ms}."""
+  stage on its own inputs, torch.profiler over `reps` calls; CUDA events
+  where the profile shows no device work, or without `profile`, a stage
+  of ~10^5 launches whose profile takes a minute to read): {stage: ms}."""
   from mujoco_warp_tpu_torch import forward
   from mujoco_warp_tpu_torch.utils.compare_trees import device_ms
   times, dd = {}, d
   for name, fn in forward.batched_stages(m, d):
-    times[name] = device_ms(lambda: fn(dd), 3) or _cuda_ms(lambda: fn(dd), 3)
+    times[name] = ((profile and device_ms(lambda: fn(dd), reps)) or
+                   _cuda_ms(lambda: fn(dd), reps))
     dd = fn(dd)
   total = sum(times.values())
   for name, ms in times.items():
@@ -3351,31 +3493,35 @@ def _group_overlaps(m, geom_xpos, nconmax) -> list:
   return out
 
 
-def _hold_b3e_aloha(label, m, g_in, cone, out=None) -> float:
+def _hold_b3e_aloha(label, m, g_in, cone, out=None,
+                    factor=ALOHA_OBJ_FACTOR) -> float:
   """B3e (mode 1) on aloha_pot's inputs g_in (`out`, its outputs,
   launched here when None) by `_check_ell_solve` against the plain solve
   run in float64 on the same inputs (see ALOHA_OBJ_FACTOR): the worlds
   over the tolerances and the worlds more than TOL_OBJ units above the
-  float64 objective each at most max(8, nworld / 1000) plus
-  ALOHA_OBJ_FACTOR times the largest such count of the float32 plain
-  solve and its two 1-ulp perturbations of qfx; solver_niter by the
-  `exact` rule. Returns the largest error of the other worlds."""
+  float64 objective each at most max(8, nworld / 1000) plus `factor`
+  (ALOHA_OBJ_FACTOR; SDF_OBJ_FACTOR on aloha_sdf) times the largest such
+  count of the float32 plain solve and its two 1-ulp perturbations of
+  qfx; solver_niter by the `exact` rule. Returns the largest error of the
+  other worlds."""
   from mujoco_warp_tpu_torch.kernels import glue as kg
   out = kg.glue(m, *g_in, cone=cone) if out is None else out
   ref, up, down, exact = _ell_refs(m, g_in, cone)
   return _check_ell_solve(label, m, out, ref, up, g_in[:5], cone,
                           out['qfrc_smooth'], resolve=True, exact=exact,
-                          exact_noise=[down], factor=ALOHA_OBJ_FACTOR,
+                          exact_noise=[down], factor=factor,
                           over_exact=True)
 
 
-def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel')):
+def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel'),
+                        ulps=ALOHA_QPOS_ULPS, factor=ALOHA_OBJ_FACTOR):
   """One P17 step of the kernels against the all-plain step on the same
   state (see the note on B3e before ALOHA_NWORLD): the contact and row
   sets as _compare_step holds them, with the all-plain step's spread
-  after a change of qpos by ALOHA_QPOS_ULPS ulps (B1's own distance from
-  its plain version on P17's state, see there); the kernel step's solve
-  by `_hold_b3e_aloha` on its own inputs; and keys at tol of scale over
+  after a change of qpos by `ulps` ulps (ALOHA_QPOS_ULPS, B1's own
+  distance from its plain version on P17's state, see there; SDF_QPOS_ULPS
+  on P18's); the kernel step's solve by `_hold_b3e_aloha` (at `factor`)
+  on its own inputs; and keys at tol of scale over
   the worlds whose sets agree and whose kernel and plain solves both end
   within TOL_OBJ units of the float64 solve on their own inputs. A world
   over tol is excused where each step's key lies within tol / 10 of the
@@ -3393,7 +3539,7 @@ def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel')):
            smooth.smooth(m, d.qpos, d.qvel), TOL_B1, smooth.OUTPUTS)
   d_k, sets_k, solves_k = _step_recording(m, d)
   q = d.qpos
-  for _ in range(ALOHA_QPOS_ULPS):
+  for _ in range(ulps):
     q = _next_ulp(q)
   with _plain_kernels():
     d_p, sets_p, solves_p = _step_recording(m, d)
@@ -3410,11 +3556,11 @@ def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel')):
   nbad, extra = W - int(same.sum()), 2 * (W - int(same_u.sum()))
   print(f'  {label}: {nbad} of {W} worlds with a different contact/row set '
         f'(allowed {allowed + extra}; the spread after qpos + '
-        f'{ALOHA_QPOS_ULPS} ulps {extra // 2})')
+        f'{ulps} ulps {extra // 2})')
   if nbad > allowed + extra:
     raise RuntimeError(f'{label}: {nbad} worlds differ in their row sets')
   (_, args, kw, out), = solves_k
-  _hold_b3e_aloha(f'{label} solve', m, args[1:], kw['cone'], out)
+  _hold_b3e_aloha(f'{label} solve', m, args[1:], kw['cone'], out, factor)
   unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * max(1, m.nv)
 
   def solved(solves):
@@ -3448,17 +3594,17 @@ def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel')):
           f'there against the float64 solve on its own inputs: kernel '
           f'{fmt(off(a, x_k))}, plain {fmt(off(b, x_p))}; not excused '
           f'(within {tol / 10:g} of it) {n} (allowed {allowed + 2 * n_u}; '
-          f'the spread after qpos + {ALOHA_QPOS_ULPS} ulps '
+          f'the spread after qpos + {ulps} ulps '
           f'{int(bad_u.sum())}, not excused {n_u})')
     if n > allowed + 2 * n_u:
       raise RuntimeError(f'{label}: {k} differs from the all-plain step '
                          f'in {n} worlds')
 
 
-def _group_times(label, m, d, nconmax, card) -> dict:
-  """The card's time (CUDA events, eager, 2 calls each) of each static
-  group's cull and narrowphase in m's `collision` stage on the state d:
-  {(type1, type2): (cull ms, narrowphase ms)}."""
+def _group_times(label, m, d, nconmax, card, reps: int = 2) -> dict:
+  """The card's time (CUDA events, eager, `reps` calls each) of each
+  static group's cull and narrowphase in m's `collision` stage on the
+  state d: {(type1, type2): (cull ms, narrowphase ms)}."""
   from mujoco_warp_tpu_torch import collision_driver
   from mujoco_warp_tpu_torch.types import GeomType
   params = collision_driver.candidate_params(m)
@@ -3472,11 +3618,11 @@ def _group_times(label, m, d, nconmax, card) -> dict:
     if grp['cull']:
       kk = collision_driver.cull_slots(nconmax, n)
       cull_ms = _cuda_ms(lambda: collision_driver.cull(m, gx, grp, margin,
-                                                       kk), 2)
+                                                       kk), reps)
       sel = collision_driver.cull(m, gx, grp, margin, kk)[0]
     mg = margin if sel is None else margin[sel]
     ms = _cuda_ms(lambda: collision_driver.narrowphase(m, grp, gx, gm, mg,
-                                                       sel), 2)
+                                                       sel), reps)
     names = (GeomType(t1).name.lower(), GeomType(t2).name.lower())
     out[f'{names[0]}-{names[1]}'] = (cull_ms, ms)
     print(f'  {label} group {names}: {n} pairs, cull {cull_ms:.3f} ms, '
@@ -3704,6 +3850,274 @@ def _aloha(card) -> list:
   return records
 
 
+def _hold_sdf_narrowphase(label, m, geom_xpos, geom_xmat) -> float:
+  """Each SDF group's narrowphase (`collision_sdf.collide`) on the card
+  in float32 against float64, on SDF_HOLD_WORLDS worlds spread over the
+  batch, with a witness of each descent's own conditioning: the float64
+  collider again after the float32 geom frames move by n ulps, n in
+  SDF_WITNESS_ULPS, up and down, and by 1 and 4 ulps each element up or
+  down at random (SDF_WITNESS_DRAWS seeded draws each). Of the descents
+  whose boxes meet, those whose step-size choices agree in every pass
+  give dist, pos and frame within SDF_TOL of scale (max(1, max |pos|)),
+  but where the witness shows the descent amplifies rounding: each value
+  over SDF_TOL lies within SDF_ULP_FACTOR times the float64 descent's
+  largest move under those changes (a move without bound where a change
+  alters its step choices). Those excused, with the descents whose
+  choices part, may number SDF_PART_SHARE of the descents whose boxes
+  meet; any other value over SDF_TOL fails. Returns the largest error of
+  the descents held."""
+  import torch
+  from mujoco_warp_tpu_torch import collision_driver, collision_sdf
+  from mujoco_warp_tpu_torch.types import GeomType
+  W = geom_xpos.shape[0]
+  ws = torch.arange(0, W, max(1, W // SDF_HOLD_WORLDS),
+                    device=geom_xpos.device)[:SDF_HOLD_WORLDS]
+  gx, gm = geom_xpos[ws], geom_xmat[ws]
+  gen = torch.Generator(device=gx.device).manual_seed(SDF_WITNESS_SEED)
+
+  def nudged(x, n, up):
+    """x moved n ulps: up, down, or (up None) each element at random."""
+    if up is None:
+      pick = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+      return torch.where(pick, nudged(x, n, True), nudged(x, n, False))
+    for _ in range(n):
+      x = torch.nextafter(x, torch.full_like(x, float('inf' if up else
+                                                       '-inf')))
+    return x
+  changes = ([(n, up) for n in SDF_WITNESS_ULPS for up in (True, False)] +
+             [(n, None) for n in (1, 4) for _ in range(SDF_WITNESS_DRAWS)])
+  worst = 0.0
+  for (t1, t2, _), grp in zip(m.collision_pairs,
+                              collision_driver._group_tables(m)):
+    if grp['extra'] != 'sdf':
+      continue
+    g1, g2 = grp['g1'], grp['g2']
+    args = (gx[:, g1], gm[:, g1], gx[:, g2], gm[:, g2])
+    run = lambda sides, xs: collision_sdf.collide(
+        *sides, grp['slots'], m.opt.sdf_iterations, *xs, trace=True)
+    sides64 = (grp['side1'].to(torch.float64),
+               grp['side2'].to(torch.float64))
+    a = run((grp['side1'], grp['side2']), args)
+    b = run(sides64, [x.double() for x in args])
+    meet = b[0] < 1e9
+    if not bool(((a[0] < 1e9) == meet).all()):
+      raise RuntimeError(f'{label}: the boxes meet in one precision only')
+    agree = (a[3] == b[3]).all(-1) & meet
+    scale = max(1.0, float(b[1].abs().max()))
+
+    def off(x, where):
+      """(3, W, P, N): dist, pos and frame of x from b's, of scale."""
+      return torch.stack([torch.where(where, (u.double() - v).abs().reshape(
+          b[0].shape + (-1,)).amax(-1) / scale, 0.0)
+                          for u, v in zip(x[:3], b[:3])])
+    err = off(a, agree)
+    moved = torch.zeros_like(err)
+    for n, up in changes:
+      c = run(sides64, [nudged(x, n, up).double() for x in args])
+      moved = torch.maximum(moved, torch.where(
+          (c[3] == b[3]).all(-1), off(c, agree), float('inf')))
+    over = err > SDF_TOL
+    excused = over.any(0) & (~over | (err <= SDF_ULP_FACTOR * moved)).all(0)
+    bad = over.any(0) & ~excused
+    held = agree & ~over.any(0)
+    e = [float(torch.where(held, x, 0.0).max()) for x in err]
+    worst = max(worst, *e)
+    ratio = torch.where(over & excused, err / moved, 0.0)
+    nmeet = int(meet.sum())
+    parted = nmeet - int(agree.sum())
+    names = (GeomType(t1).name.lower(), GeomType(t2).name.lower())
+    share = (parted + int(excused.sum())) / max(1, nmeet)
+    print(f'  {label} {names}: {grp["n"]} pairs x {grp["slots"]} descents '
+          f'at {len(ws)} worlds, {nmeet} whose boxes meet; float32 against '
+          f'float64: {parted} with another step-size choice in some pass; '
+          f'of the others {int(over.any(0).sum())} over {SDF_TOL:g} (dist '
+          f'{int(over[0].sum())}, pos {int(over[1].sum())}, frame '
+          f'{int(over[2].sum())}, largest {float(err.max()):.3e}), '
+          f'{int(excused.sum())} excused by the witness (largest error over '
+          f'its move {float(ratio.max()):.3f}, allowed {SDF_ULP_FACTOR}), '
+          f'{int(bad.sum())} not; parted and excused {share:.5f} of them '
+          f'(allowed {SDF_PART_SHARE}); the {int(held.sum())} held: '
+          f'largest error of scale {scale:.2f} dist {e[0]:.3e}, pos '
+          f'{e[1]:.3e}, frame {e[2]:.3e}')
+    if bool(bad.any()):
+      raise RuntimeError(f'{label} {names}: {int(bad.sum())} float32 '
+                         f'descents part from float64 past their witness')
+    if share > SDF_PART_SHARE:
+      raise RuntimeError(f'{label} {names}: the float32 narrowphase parts '
+                         f'from float64 in {share:.5f} of the descents')
+  return worst
+
+
+def _aloha_sdf(card) -> list:
+  """Phase (v) on aloha_sdf: the model; the rich state (keyframe
+  gripper_gripper_pot with noise, settled) with its contacts by pair
+  type and condim and the condim-4 contacts whose torsional J row is
+  nonzero; B1 against its plain version and B3e (mode 1) against the
+  float64 plain solve there; the SDF narrowphase in float32 against
+  float64; P18 (the glue step with the static driver's `collision`, SDF
+  groups included, and `make_constraint` in B2's place, from keyframe 0
+  as the suite starts it) counted (B1 and B3e once a step, no B2),
+  timed, its peak memory, one step against the all-plain step, replayed
+  steps against eager ones, the card's time of each stage and group;
+  returns the records of B1 and B3e on aloha_sdf."""
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import forward, io, models, smooth
+  from mujoco_warp_tpu_torch.kernels import _build
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  from mujoco_warp_tpu_torch.types import GeomType
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  t0 = time.perf_counter()
+  m = mt.load_model(models.ALOHA_SDF_NPZ, device='cuda')
+  W, C = SDF_NWORLD, SDF_NCONMAX
+  d0 = io.reset_data(m, mt.make_data(m, nconmax=C), keyframe=0)
+  names = [n for n, _ in forward.batched_stages(m, d0)]
+  groups = [(GeomType(a).name.lower(), GeomType(b).name.lower(), len(gl))
+            for a, b, gl in m.collision_pairs]
+  print(f'model: aloha_sdf nv={m.nv} nbody={m.nbody} ngeom={m.ngeom}; '
+        f'groups {groups}; voxel grids {tuple(m.sdf_grids.shape)}; '
+        f'{m.nxn_candidates} candidate slots; sdf_iterations '
+        f'{m.opt.sdf_iterations}, sdf_initpoints {m.opt.sdf_initpoints}; '
+        f'efc layout (ne, nf, nl, stride, njmax) {mt.efc_layout(m, C)} at '
+        f'nconmax {C}; glue mode {forward.glue_mode(m)}; keyframes '
+        f'{m.key_names}; stages: {" -> ".join(names)}')
+  if names != ['smooth_mega[cuda]', 'camlight', 'collision',
+               'make_constraint', 'act_len_vel', 'solve_glue[cuda]'] or \
+      not forward.replays(m, d0) or forward.glue_mode(m) != 1:
+    raise RuntimeError('aloha_sdf does not take the glue list (mode 1) '
+                       'with the static collision stage, or is not '
+                       'replayed')
+  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  rich0 = io.reset_data(m, mt.make_data(m, nconmax=C),
+                        keyframe=io.find_keys(m, 'gripper_gripper_pot')[0])
+  rich = _aloha_state(m, rich0, W, gen, SDF_PREP)
+
+  def contacts(label, dd):
+    live = dd.contact.dist < 1e9
+    print(f'  {label}: ncon per world mean {float(dd.ncon.float().mean()):.3f}'
+          f' max {int(dd.ncon.max())}, histogram {dd.ncon.bincount().tolist()}'
+          f'; ncollision per world mean '
+          f'{float(dd.ncollision.float().mean()):.2f} max '
+          f'{int(dd.ncollision.max())}; contacts by condim '
+          f'{dd.contact.dim[live].bincount(minlength=5).tolist()}')
+  contacts(f'aloha_sdf rich state after {SDF_PREP} steps', rich)
+
+  # ---- the rich state: contacts, torsional rows, B1 and B3e ----
+  errs = {}
+  sm_in = (rich.qpos, rich.qvel)
+  errs['smooth'] = _compare('B1 aloha_sdf', ks.smooth(m, *sm_in),
+                            smooth.smooth(m, *sm_in), TOL_B1, smooth.OUTPUTS)
+  _check_repeat('B1 aloha_sdf', lambda: ks.smooth(m, *sm_in))
+  label = 'B3e aloha_sdf'
+  _, con, efc, g_in = _collision_glue_inputs(m, rich, C)
+  pairs = _pair_counts(m, con)
+  cone = _cone(m, con, efc)
+  act = efc['active']
+  ne, nf, nl, S, _ = mt.efc_layout(m, C)
+  live = con['dist'] < 1e9
+  four = live & (con['dim'] == 4)
+  tors = efc['J'][:, ne + nf + nl:].reshape(W, C, S, m.nv)[..., 3, :]
+  tors = tors.abs().amax(-1)[four]
+  ntors = int((tors > 0).sum())
+  print(f'  {label}: contacts by pair type {pairs}; active rows a world: '
+        f'equality {float(act[:, :ne].sum(1).float().mean()):.2f}, friction '
+        f'loss {float(act[:, ne:ne + nf].sum(1).float().mean()):.2f}, limits '
+        f'{float(act[:, ne + nf:ne + nf + nl].sum(1).float().mean()):.2f}, '
+        f'contacts by condim {con["dim"][live].bincount(minlength=5).tolist()}'
+        f'; condim-4 contacts with a nonzero torsional J row {ntors} of '
+        f'{tors.numel()} (fingers on the cow, a free body), in '
+        f'{int((four.sum(1) > 0).sum())} worlds')
+  print(json.dumps({'aloha_sdf rich state': dict(
+      pairs=pairs, torsional_rows_nonzero=ntors, condim4=tors.numel(),
+      ncon_mean=float(rich.ncon.float().mean()),
+      ncollision_mean=float(rich.ncollision.float().mean()), card=card)}))
+  if not pairs.get('sdf-sdf') or not pairs.get('box-sdf') or not ntors:
+    raise RuntimeError(f'{label}: the rich state lacks SDF-SDF or box-SDF '
+                       f'contacts or a nonzero torsional row')
+  g_out = kg.glue(m, *g_in, cone=cone)
+  errs['glue_ell'] = _hold_b3e_aloha(label, m, g_in, cone, g_out,
+                                     SDF_OBJ_FACTOR)
+  h = float(m.opt.timestep)
+  qvel = g_in[6] + h * g_out['qacc_euler']
+  _compare(f'{label} advance', g_out, dict(
+      qvel=qvel, qpos=forward.integrate_pos(m, g_in[5], qvel, h)),
+           dict(qvel=TOL_B3_OTHER, qpos=TOL_B3['qpos']), ['qvel', 'qpos'])
+  _check_repeat(label, lambda: kg.glue(m, *g_in, cone=cone))
+  _hold_sdf_narrowphase('SDF narrowphase', m, rich.geom_xpos, rich.geom_xmat)
+  rows = efc['nefc'].double()
+  del con, efc, act
+  print(f'  phase (v) so far {time.perf_counter() - t0:.1f} s')
+
+  # ---- P18: the suite's aloha_sdf step from keyframe 0, replayed ----
+  d = mt.make_batch(m, d0, W)
+  (_, res), on_card = _replayed_counts(
+      'P18', lambda: bench.benchmark(m, d, nstep=_bench_nstep(SDF_COUNT)),
+      SDF_COUNT)
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'P18 ran {res["dispatch"]}')
+  _expect_no_entries('P18')
+  _expect_counts('P18, on the card', dict(
+      _zero_counts(), smooth=SDF_COUNT, glue_ell=SDF_COUNT), on_card)
+  _reset_counts()
+  d18, res = bench.benchmark(m, d, nstep=SDF_NSTEP)
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'P18 ran {res["dispatch"]}')
+  for k in ('qpos', 'qvel', 'qacc', 'efc_force'):
+    if not bool(torch.isfinite(getattr(d18, k)).all()):
+      raise RuntimeError(f'P18: non-finite {k}')
+  peak, before = _peak_step(m, d18)
+  print(f'P18: {res["steps_per_sec"]:.1f} steps/s, '
+        f'{res["step_time_us"]:.1f} us/step over {res["nstep"]} timed of '
+        f'{bench.total_steps(SDF_NSTEP)} steps at {W} worlds, nconmax '
+        f'{C}; final ncon mean {res["ncon_mean"]:.3f}, nefc mean '
+        f'{res["nefc_mean"]:.2f}, solver_niter mean '
+        f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}; '
+        f'{res["converged_worlds"]} worlds without NaN; one eager step\'s '
+        f'peak memory {peak / 2**30:.2f} GiB ({(peak - before) / 2**30:.2f} '
+        f'GiB over the {before / 2**30:.2f} GiB held before it); dispatch '
+        f'{res["dispatch"]} ({card})')
+  print(json.dumps({'step_aloha_sdf': dict(
+      res, peak_memory_gib=peak / 2**30,
+      step_memory_gib=(peak - before) / 2**30, card=card)}))
+  contacts('P18 final state', d18)
+  print(f'  phase (v) so far {time.perf_counter() - t0:.1f} s')
+  _compare_step_exact('P18 step', m, d18, TOL_STEP_QACC,
+                      ulps=SDF_QPOS_ULPS, factor=SDF_OBJ_FACTOR)
+  _replay_against_eager('P18', m, d18, dict(smooth=1, glue_ell=1),
+                        SDF_PROFILE, card, n=SDF_REPLAY, eager_timing=False)
+  _stage_times('P18', m, d18, card, reps=1, profile=False)
+  print(json.dumps({'P18 groups ms (cull, narrowphase)': _group_times(
+      'P18', m, d18, C, card, reps=1), 'card': card}))
+  print(f'  phase (v) so far {time.perf_counter() - t0:.1f} s')
+
+  # ---- times, plain times, bounds: the rich state, where the fingers
+  # hold the cow (P18's own state has no contact after a few steps) ----
+  records = []
+  sm_in = (rich.qpos, rich.qvel)
+  sm_out = ks.smooth(m, *sm_in)
+  _record(records, 'smooth[aloha_sdf]', on_card['smooth'], errs['smooth'],
+          'mujoco_warp_tpu_torch/csrc/smooth.cu',
+          'mujoco_warp_tpu/pallas/smooth_kernels.py:557',
+          lambda: ks.smooth(m, *sm_in), lambda: smooth.smooth(m, *sm_in),
+          _nbytes(sm_in, sm_out, _build.model_tables(m, 'smooth',
+                                                     ks._tables)),
+          _flops_b1(m, W))
+  acting = int(((g_in[2] != 0) | (g_in[4] != 0)).sum())
+  row_bytes = acting * (m.nv + 1) * 4 - _nbytes(g_in[1:2], g_in[3:4])
+  _record(records, 'glue_ell[aloha_sdf]', on_card['glue_ell'],
+          errs['glue_ell'], 'mujoco_warp_tpu_torch/csrc/glue.cu',
+          'mujoco_warp_tpu/pallas/solver_kernels.py:954',
+          lambda: kg.glue(m, *g_in, cone=cone),
+          lambda: forward.glue(m, *g_in, cone=cone),
+          _nbytes(g_in, g_out, _build.model_tables(m, 'glue', kg._tables),
+                  cone[:2]) + row_bytes,
+          _flops_newton(m.nv, rows, g_out['solver_niter'].double(), m.nu) +
+          _flops_cone(m, cone, g_in[2], g_out['solver_niter']))
+  print(f'phase (v): {time.perf_counter() - t0:.1f} s of wall time ({card})')
+  return records
+
+
 def _flops_entry(m, W, stages) -> float:
   """B9-B12's operations, estimated from the model's sizes per stage:
   'kin' (FK), 'com' (body frames, subtree com, cinert, cdof), 'crb'
@@ -3804,9 +4218,10 @@ def _entry_points(card) -> None:
   franka_emika_panda.npz at the suite's FRANKA_NWORLD worlds and nconmax
   FRANKA_NCONMAX, on apptronik_apollo_flat.npz at APOLLO_NWORLD and
   APOLLO_NCONMAX, on apptronik_apollo_terrain.npz at TERRAIN_NWORLD and
-  TERRAIN_NCONMAX and on aloha_pot.npz with --replay lift_pot at
-  ALOHA_NWORLD and ALOHA_NCONMAX (the last four replayed), each in a
-  process of its own; their JSON lines are printed."""
+  TERRAIN_NCONMAX, on aloha_pot.npz with --replay lift_pot at
+  ALOHA_NWORLD and ALOHA_NCONMAX and on aloha_sdf.npz from keyframe 0 at
+  SDF_NWORLD and SDF_NCONMAX (the last five replayed), each in a process
+  of its own; their JSON lines are printed."""
   import os
   root = os.path.dirname(os.path.abspath(__file__))
 
@@ -3860,6 +4275,13 @@ def _entry_points(card) -> None:
        'json'], dict(os.environ), 'graph',
       ('steps_per_sec', 'jit_time', 'ncon_p95', 'solver_niter_p95',
        'model_memory_mb', 'data_memory_mb'), ALOHA_NWORLD)
+  run('testspeed aloha_sdf',
+      ['mujoco_warp_tpu_torch.testspeed', models.ALOHA_SDF_NPZ,
+       '--nworld', str(SDF_NWORLD), '--nconmax', str(SDF_NCONMAX),
+       '--nstep', str(SDF_TESTSPEED_NSTEP), '--keyframe', '0', '--output',
+       'json'], dict(os.environ), 'graph',
+      ('steps_per_sec', 'jit_time', 'ncon_p95', 'solver_niter_p95',
+       'model_memory_mb', 'data_memory_mb'), SDF_NWORLD)
 
 
 def main() -> int:
@@ -3881,6 +4303,7 @@ def main() -> int:
   from mujoco_warp_tpu_torch.utils import benchmark as bench
 
   # ---- (a) card and build ----
+  start = time.perf_counter()
   card = bench_card()
   print(f'card: {card}')
   print(f'torch {torch.__version__} cuda {torch.version.cuda} '
@@ -4058,18 +4481,26 @@ def main() -> int:
   _replay_against_eager('humanoid', m, d, dict(smooth=1, contact=1,
                                                glue=1), PROFILE_STEPS, card)
 
-  records += _humanoid_paths(card, m, d, errs)
-  records += _three_humanoids(card)
-  records += _elliptic_humanoid(card, m, d)
-  records += _elliptic_three(card)
-  records += _franka(card)
-  records += _apollo(card)
-  records += _terrain(card)
-  torch.cuda.empty_cache()
-  records += _aloha(card)
-  torch.cuda.empty_cache()
-  records += _smooth_entries('', m, d_c)
-  _entry_points(card)
+  # the later phases, each with the script's time when it ends
+  def phase(name, fn):
+    out = fn()
+    torch.cuda.empty_cache()
+    print(f'{name}: done at {time.perf_counter() - start:.1f} s of the '
+          f'script')
+    return out or []
+  records += phase('humanoid paths', lambda: _humanoid_paths(card, m, d,
+                                                             errs))
+  records += phase('three_humanoids', lambda: _three_humanoids(card))
+  records += phase('elliptic humanoid', lambda: _elliptic_humanoid(card, m,
+                                                                   d))
+  records += phase('elliptic three_humanoids', lambda: _elliptic_three(card))
+  records += phase('franka (r)', lambda: _franka(card))
+  records += phase('apollo (s)', lambda: _apollo(card))
+  records += phase('terrain (t)', lambda: _terrain(card))
+  records += phase('aloha_pot (u)', lambda: _aloha(card))
+  records += phase('aloha_sdf (v)', lambda: _aloha_sdf(card))
+  records += phase('B9-B12 (p)', lambda: _smooth_entries('', m, d_c))
+  phase('entry points (q)', lambda: _entry_points(card))
   print(json.dumps({'kernels': records}))
   print(f'card: {card}')
   print(json.dumps({'ok': True, 'device': {

@@ -16,7 +16,11 @@ overlap, the `cull_slots` of them with the nearest centers (ties to the
 lower pair, as `jax.lax.top_k`), go through the narrowphase, mesh hulls
 decimated (`mesh_hullvert_small`); the overlaps dropped count in
 ncollision. Mesh groups run the narrowphase in chunks of worlds, so that
-no tensor of a whole batch's hull vertices is built.
+no tensor of a whole batch's hull vertices is built. A group with an SDF
+side runs the SDF narrowphase (`collision_sdf.collide`, its
+sdf_initpoints candidates a pair, each side's voxel grid or primitive
+distance) and is never culled, as the JAX driver sends it there before
+its cull (:240-289).
 
 One deliberate difference, C MuJoCo's rule (mujoco 3.10): a geom pair's
 margin and gap are the sums of the two geoms' (explicit <pair>s keep
@@ -35,7 +39,8 @@ import torch
 
 from . import collision_convex
 from . import collision_primitive
-from .io import MPR_PAIRS, pair_slots
+from . import collision_sdf
+from .io import MPR_PAIRS, is_sdf_pair, pair_slots
 from .kernels import _build
 from .types import GeomType, Model
 
@@ -139,7 +144,10 @@ def candidate_params(m: Model) -> dict:
 
 def culls(t1: int, t2: int, n: int) -> bool:
   """Whether the JAX driver culls a static group of n (t1, t2) pairs
-  (`collision_driver.py:300-304`)."""
+  (`collision_driver.py:300-304`): never an SDF group, which it sends to
+  the SDF narrowphase before the cull (:240-289)."""
+  if GeomType.SDF in (t1, t2):
+    return False
   costly = (t1, t2) in MPR_PAIRS or GeomType.MESH in (t1, t2)
   return (n > (CULL_THRESHOLD if costly else CULL_THRESHOLD_CHEAP) and
           t1 != GeomType.PLANE)
@@ -151,16 +159,34 @@ def cull_slots(nconmax: int, n: int) -> int:
 
 
 def group_collider(m: Model, t1: int, t2: int):
-  """(collide, slots, extra) of a pair type: the analytic collider or
-  MPR (`collision_convex.collider`), and what it takes after the six
-  geometry arguments: 'margin', 'hulls' or 'hulls+margin'."""
+  """(collide, slots, extra) of a pair type: the analytic collider, MPR
+  (`collision_convex.collider`) or the SDF narrowphase
+  (`collision_sdf.collide`), and what it takes after the six geometry
+  arguments: 'margin', 'hulls' or 'hulls+margin'; 'sdf' for the SDF
+  narrowphase, which takes each side's `collision_sdf.Side`."""
   if (t1, t2) in MPR_PAIRS:
     fn, k = collision_convex.collider(t1, t2, m.opt.disableflags)
     return fn, k, 'hulls+margin'
+  if is_sdf_pair(t1, t2):
+    return collision_sdf.collide, pair_slots(t1, t2, m.opt), 'sdf'
   extra = ('margin' if (t1, t2) in collision_primitive.NEEDS_MARGIN else
            'hulls' if (t1, t2) in collision_primitive.NEEDS_HULLS else '')
   return (collision_primitive.COLLIDERS[(t1, t2)],
-          pair_slots(t1, t2, m.opt.disableflags), extra)
+          pair_slots(t1, t2, m.opt), extra)
+
+
+def sdf_side(m: Model, t: int, g, did) -> collision_sdf.Side:
+  """The `collision_sdf.Side` of geoms g (P,) of type t with mesh ids did
+  (P,): a mesh or SDF geom reads its mesh's voxel grid."""
+  grid = None
+  if t in (GeomType.MESH, GeomType.SDF):
+    gom = torch.as_tensor(m.sdf_grid_of_mesh, device=m.device)
+    gi = gom[did]
+    if bool((gi < 0).any()):
+      raise NotImplementedError(f'no SDF grid for meshes {did[gi < 0]}')
+    aabb = m.sdf_grid_aabb[gi]
+    grid = collision_sdf.Grid(m.sdf_grids, gi, aabb[:, 0], aabb[:, 1])
+  return collision_sdf.Side(t, m.geom_size[g], m.geom_aabb[g], grid)
 
 
 def _group_tables(m: Model) -> list:
@@ -177,10 +203,12 @@ def _group_tables(m: Model) -> list:
       grp = dict(g1=idx(g1), g2=idx(g2), start=start, n=len(glist), fn=fn,
                  slots=k, extra=extra, cull=culls(t1, t2, len(glist)),
                  mesh=(t1 == GeomType.MESH, t2 == GeomType.MESH))
-      for side, gs in (('1', g1), ('2', g2)):
+      for side, gs, t in (('1', g1, t1), ('2', g2, t2)):
         did = idx([m.geom_dataid[g] for g in gs])
         grp['d' + side] = did
-        if grp['mesh'][int(side) - 1] and not grp['cull']:
+        if extra == 'sdf':
+          grp['side' + side] = sdf_side(m, t, grp['g' + side], did)
+        elif grp['mesh'][int(side) - 1] and not grp['cull']:
           grp['hull' + side] = m.mesh_hullvert[did]
       out.append(grp)
       start += len(glist)
@@ -242,8 +270,14 @@ def narrowphase(m: Model, grp: dict, geom_xpos, geom_xmat, margin,
   group's pairs: all of them in every world, or where sel (W, P) picks
   them per world, those, with decimated hulls. A group with hulls runs
   in chunks of worlds of at most NARROW_ELEMENTS (world, pair, vertex,
-  tilt) entries; margin (P,) or (W, P)."""
+  tilt) entries, an SDF group in `collision_sdf.collide`'s chunks;
+  margin (P,) or (W, P)."""
   W = geom_xpos.shape[0]
+  if grp['extra'] == 'sdf':
+    ga, gb = grp['g1'], grp['g2']
+    return grp['fn'](grp['side1'], grp['side2'], grp['slots'],
+                     m.opt.sdf_iterations, geom_xpos[:, ga], geom_xmat[:, ga],
+                     geom_xpos[:, gb], geom_xmat[:, gb])
   hulls = grp['extra'].startswith('hulls')
   if sel is None:
     ga, gb, npair = grp['g1'], grp['g2'], grp['n']

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
@@ -42,6 +43,16 @@ MAX_CONTACTS = {
 MPR_PAIRS = frozenset({(GeomType.SPHERE, GeomType.MESH),
                        (GeomType.BOX, GeomType.MESH),
                        (GeomType.MESH, GeomType.MESH)})
+# the types an SDF geom pairs with (`mujoco_warp_tpu/io.py:395-399`); such
+# a pair runs the SDF narrowphase (`collision_sdf.py`) with
+# Option.sdf_initpoints candidate contacts
+SDF_PARTNERS = frozenset({GeomType.PLANE, GeomType.SPHERE, GeomType.CAPSULE,
+                          GeomType.ELLIPSOID, GeomType.CYLINDER,
+                          GeomType.BOX, GeomType.MESH, GeomType.SDF})
+# the voxel grids' resolution when MJWT_SDF_RES is unset (the JAX
+# package's default, `mujoco_warp_tpu/io.py:716`)
+SDF_RES = 48
+
 # vertices of a decimated hull (`mesh_hullvert_small`), which the culled
 # narrowphase gathers per world (the JAX package's `MJWT_HULL_MAX`
 # default, `mujoco_warp_tpu/io.py:196`)
@@ -100,6 +111,10 @@ def _validate(mjm):
   need(mjm.nflex == 0, 'flex')
   need(mjm.nmocap == 0, 'mocap bodies')
   need(mjm.ngravcomp == 0, 'gravity compensation')
+  for g in range(mjm.ngeom):
+    if mjm.geom_type[g] == GeomType.SDF:
+      need(mjm.geom_plugin[g] < 0, f'SDF geom plugins (geom {g})')
+      need(mjm.geom_dataid[g] >= 0, f'SDF geoms without a mesh (geom {g})')
   need(mjm.nplugin == 0, 'plugins')
   need(mjm.opt.density == 0 and mjm.opt.viscosity == 0 and
        not np.any(mjm.opt.wind != 0), 'fluid forces')
@@ -216,18 +231,33 @@ def _pair_filter_matrices(mjm):
   return ok, pairid
 
 
-def pair_slots(t1: int, t2: int, disableflags: int) -> int:
-  """Candidate contacts of one pair of types (t1, t2): MAX_CONTACTS for
-  an analytic collider, `collision_convex.manifold_ncon` for MPR."""
+def is_sdf_pair(t1: int, t2: int) -> bool:
+  """Whether a (t1, t2) pair, t1 <= t2, runs the SDF narrowphase."""
+  return t2 == GeomType.SDF and t1 in SDF_PARTNERS
+
+
+def pair_slots(t1: int, t2: int, opt) -> int:
+  """Candidate contacts of one pair of types (t1, t2) under the options
+  opt (a compiled model's or a Model's): MAX_CONTACTS for an analytic
+  collider, `collision_convex.manifold_ncon` for MPR, sdf_initpoints for
+  an SDF pair (JAX `_k`, `mujoco_warp_tpu/io.py:423-432`)."""
   if (t1, t2) in MAX_CONTACTS:
     return MAX_CONTACTS[(t1, t2)]
-  return collision_convex.manifold_ncon(t1, t2, disableflags)
+  if is_sdf_pair(t1, t2):
+    return int(opt.sdf_initpoints)
+  return collision_convex.manifold_ncon(t1, t2, int(opt.disableflags))
 
 
-def _refuse_unported(keys):
-  """Raise for the first (type1, type2) of keys without a collider."""
+def _refuse_unported(keys, explicit=False):
+  """Raise for the first (type1, type2) of keys without a collider; an
+  SDF pair only as an explicit <pair>, which the JAX package refuses
+  (`mujoco_warp_tpu/io.py:409-418`)."""
   for key in keys:
-    if key not in MAX_CONTACTS and key not in MPR_PAIRS:
+    if explicit and GeomType.SDF in key:
+      raise NotImplementedError(
+          f'explicit <pair> with an SDF geom {key} is not ported')
+    if (key not in MAX_CONTACTS and key not in MPR_PAIRS and
+        not is_sdf_pair(*key)):
       raise NotImplementedError(f'collision pair type {key} is not ported')
 
 
@@ -282,6 +312,193 @@ def _decimate_hulls(hulls: np.ndarray, vmax: int = HULL_SMALL
   return out
 
 
+def _sample_octree_grid(mjm, meshid: int, res: int):
+  """(grid (res, res, res) float32, aabb (2, 3) float32 center and half
+  sizes): the compiled model's octree SDF of mesh meshid (`oct_*`)
+  sampled at the res^3 points of its root box, each point clamped just
+  inside the box and interpolated in its leaf (a copy of
+  `mujoco_warp_tpu/io.py:478`, numpy)."""
+  root = int(mjm.mesh_octadr[meshid])
+  aabb = np.asarray(mjm.oct_aabb).reshape(-1, 2, 3)
+  child = np.asarray(mjm.oct_child).reshape(-1, 8)
+  coeff = np.asarray(mjm.oct_coeff).reshape(-1, 8)
+  center, half = aabb[root, 0], aabb[root, 1]
+  lo, hi = center - half, center + half
+  axes = [np.linspace(lo[k], hi[k], res) for k in range(3)]
+  gx, gy, gz = np.meshgrid(*axes, indexing='ij')
+  pts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+  eps = 1e-6
+  pts = np.clip(pts, lo + eps * (hi - lo), hi - eps * (hi - lo))
+
+  node = np.full(len(pts), root, dtype=np.int64)
+  for _ in range(24):  # the octree's depth bound
+    vmin = aabb[node, 0] - aabb[node, 1]
+    vmax = aabb[node, 0] + aabb[node, 1]
+    coord = (pts - vmin) / np.maximum(vmax - vmin, 1e-12)
+    is_leaf = (child[node] == -1).all(axis=1)
+    oct_idx = ((coord[:, 0] >= 0.5).astype(np.int64) +
+               2 * (coord[:, 1] >= 0.5).astype(np.int64) +
+               4 * (coord[:, 2] >= 0.5).astype(np.int64))
+    nxt = child[node, oct_idx]
+    step = ~is_leaf & (nxt != -1)
+    node = np.where(step, nxt + root, node)
+    if not step.any():
+      break
+  vmin = aabb[node, 0] - aabb[node, 1]
+  vmax = aabb[node, 0] + aabb[node, 1]
+  t = (pts - vmin) / np.maximum(vmax - vmin, 1e-12)
+  w = np.ones((len(pts), 8))
+  for j in range(8):
+    w[:, j] = ((t[:, 0] if j & 1 else 1 - t[:, 0]) *
+               (t[:, 1] if j & 2 else 1 - t[:, 1]) *
+               (t[:, 2] if j & 4 else 1 - t[:, 2]))
+  vals = np.sum(w * coeff[node], axis=1)
+  grid = vals.reshape(res, res, res).astype(np.float32)
+  return grid, np.stack([center, half]).astype(np.float32)
+
+
+def _voxel_chunk_dist(p: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+  """Signed distance of points p (P, 3) to the closed triangle mesh tri
+  (F, 3, 3), float32: the distance to the nearest triangle (the closest
+  point by the barycentric region tests), negative where a ray from the
+  point along +x crosses the mesh an odd number of times (Moller-Trumbore).
+  The operations of `mujoco_warp_tpu/io.py:524` in their order, each dot
+  product of 3-vectors summed left to right. The distance is taken in
+  float64 and rounded: on a sliver face the region tests' products
+  cancel, and on aloha_sdf's extrusion a float32 distance lies up to
+  5e-5 off the float64 one (the JAX package's too). The ray's parity is
+  taken in float32, as JAX takes it."""
+  dot = lambda x, y: (x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1]) + \
+      x[..., 2] * y[..., 2]
+  p32, tri32 = p, tri
+  p, tri = p.double(), tri.double()
+  a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+  ab, ac = b - a, c - a
+  ap = p[:, None, :] - a[None]                                 # (P, F, 3)
+  bp = p[:, None, :] - b[None]
+  cp = p[:, None, :] - c[None]
+  d1, d2 = dot(ab, ap), dot(ac, ap)
+  d3, d4 = dot(ab, bp), dot(ac, bp)
+  d5, d6 = dot(ab, cp), dot(ac, cp)
+  va = d3 * d6 - d5 * d4
+  vb = d5 * d2 - d1 * d6
+  vc = d1 * d4 - d3 * d2
+  denom = torch.clamp(va + vb + vc, min=1e-20)
+  v = torch.clamp(vb / denom, 0.0, 1.0)
+  w = torch.clamp(vc / denom, 0.0, 1.0)
+  zero, one = torch.zeros((), dtype=p.dtype), torch.ones((), dtype=p.dtype)
+  at_a = (d1 <= 0) & (d2 <= 0)
+  v, w = torch.where(at_a, zero, v), torch.where(at_a, zero, w)
+  at_b = (d3 >= 0) & (d4 <= d3)
+  v, w = torch.where(at_b, one, v), torch.where(at_b, zero, w)
+  at_c = (d6 >= 0) & (d5 <= d6)
+  v, w = torch.where(at_c, zero, v), torch.where(at_c, one, w)
+  e_ab = torch.clamp(torch.where((d1 - d3).abs() > 1e-20,
+                                 d1 / torch.clamp(d1 - d3, min=1e-20), zero),
+                     0.0, 1.0)
+  on_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0)
+  v, w = torch.where(on_ab, e_ab, v), torch.where(on_ab, zero, w)
+  e_ac = torch.clamp(torch.where((d2 - d6).abs() > 1e-20,
+                                 d2 / torch.clamp(d2 - d6, min=1e-20), zero),
+                     0.0, 1.0)
+  on_ac = (vb <= 0) & (d2 >= 0) & (d6 <= 0)
+  v, w = torch.where(on_ac, zero, v), torch.where(on_ac, e_ac, w)
+  e_bc = torch.clamp((d4 - d3) / torch.clamp((d4 - d3) + (d5 - d6),
+                                             min=1e-20), 0.0, 1.0)
+  on_bc = (va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0)
+  v, w = torch.where(on_bc, 1.0 - e_bc, v), torch.where(on_bc, e_bc, w)
+  closest = a[None] + v[..., None] * ab[None] + w[..., None] * ac[None]
+  off = p[:, None, :] - closest
+  dist = torch.sqrt(dot(off, off)).amin(1).float()
+  # the sign: the +x ray's crossings; its direction's cross product with
+  # ac is (0, -ac_z, ac_y), and the ray's component of q is q_x
+  p, a, b, c = p32, tri32[:, 0], tri32[:, 1], tri32[:, 2]
+  ab, ac = b - a, c - a
+  ap = p[:, None, :] - a[None]
+  one = torch.ones((), dtype=p.dtype)
+  eps = 1e-12
+  pvec = torch.stack([torch.zeros_like(ac[:, 0]), -ac[:, 2], ac[:, 1]], -1)
+  det = dot(ab, pvec)
+  inv = 1.0 / torch.where(det.abs() < eps, one, det)
+  u = dot(ap, pvec) * inv
+  qvec = torch.linalg.cross(ap, ab[None].expand_as(ap))
+  vv = qvec[..., 0] * inv
+  tt = dot(qvec, ac) * inv
+  hit = ((det.abs() >= eps) & (u >= 0) & (vv >= 0) & (u + vv <= 1) &
+         (tt > 0))
+  inside = hit.sum(1) % 2 == 1
+  return torch.where(inside, -dist, dist)
+
+
+# (point, face) pairs of one chunk of the voxelization
+VOXEL_CHUNK = 1 << 18
+
+
+def _voxelize_mesh_grid(mjm, meshid: int, res: int):
+  """(grid (res, res, res) float32, aabb (2, 3) float32): the signed
+  distance (`_voxel_chunk_dist`) of a plain mesh at the res^3 points of
+  its vertices' box padded by 0.15 of its longest side (a copy of
+  `mujoco_warp_tpu/io.py:600`, in torch on the CPU, without its disk
+  cache and without its padding faces, which change no value)."""
+  vadr, vnum = int(mjm.mesh_vertadr[meshid]), int(mjm.mesh_vertnum[meshid])
+  fadr, fnum = int(mjm.mesh_faceadr[meshid]), int(mjm.mesh_facenum[meshid])
+  verts = np.asarray(mjm.mesh_vert[vadr:vadr + vnum], np.float32)
+  faces = np.asarray(mjm.mesh_face[fadr:fadr + fnum], np.int64)
+  lo = verts.min(0)
+  hi = verts.max(0)
+  pad = 0.15 * (hi - lo).max() + 1e-4
+  lo, hi = lo - pad, hi + pad
+  center = 0.5 * (lo + hi)
+  half = 0.5 * (hi - lo)
+  axes = [np.linspace(lo[k], hi[k], res, dtype=np.float32)
+          for k in range(3)]
+  gx, gy, gz = np.meshgrid(*axes, indexing='ij')
+  pts = torch.as_tensor(np.stack([gx, gy, gz], axis=-1).reshape(-1, 3))
+  tri = torch.as_tensor(verts[faces])                       # (F, 3, 3)
+  step = max(1, VOXEL_CHUNK // len(tri))
+  out = torch.cat([_voxel_chunk_dist(pts[i:i + step], tri)
+                   for i in range(0, len(pts), step)])
+  grid = out.numpy().reshape(res, res, res)
+  return grid, np.stack([center, half]).astype(np.float32)
+
+
+def _build_sdf_grids(mjm):
+  """(grids (G, R, R, R), aabbs (G, 2, 3), grid_of_mesh (max(nmesh, 1),)
+  with -1 for none) of the meshes an SDF pair reads: each SDF geom's
+  mesh (sampled from its octree where the compiler built one) and each
+  plain mesh whose geom's contype/conaffinity admits an SDF geom
+  (voxelized), in mesh order (a copy of `mujoco_warp_tpu/io.py:713`;
+  the gate admits no plugin)."""
+  # MJWT_SDF_RES, read as the JAX package reads it: one setting moves both
+  res = int(os.environ.get('MJWT_SDF_RES', SDF_RES))
+  gtype = np.asarray(mjm.geom_type)
+  dataid = np.asarray(mjm.geom_dataid)
+  sdf_geoms = np.nonzero(gtype == GeomType.SDF)[0]
+  grid_of_mesh = [-1] * max(mjm.nmesh, 1)
+  empty = (np.zeros((1, 1, 1, 1), np.float32),
+           np.zeros((1, 2, 3), np.float32), grid_of_mesh)
+  if not len(sdf_geoms):
+    return empty
+  need = {int(dataid[g]) for g in sdf_geoms if dataid[g] >= 0}
+  ct = np.asarray(mjm.geom_contype)
+  ca = np.asarray(mjm.geom_conaffinity)
+  for g in np.nonzero((gtype == GeomType.MESH) & (dataid >= 0))[0]:
+    if ((ct[g] & ca[sdf_geoms]) | (ct[sdf_geoms] & ca[g])).any():
+      need.add(int(dataid[g]))
+  if not need:
+    return empty
+  grids, aabbs = [], []
+  for meshid in sorted(need):
+    if mjm.mesh_octadr[meshid] >= 0:
+      grid, aabb = _sample_octree_grid(mjm, meshid, res)
+    else:
+      grid, aabb = _voxelize_mesh_grid(mjm, meshid, res)
+    grid_of_mesh[meshid] = len(grids)
+    grids.append(grid)
+    aabbs.append(aabb)
+  return np.stack(grids), np.stack(aabbs), grid_of_mesh
+
+
 def _collision_pairs(mjm):
   """Filtered geom pairs grouped by (type1, type2): contype/conaffinity,
   same-weld, parent-child and <exclude> filters, then explicit <pair>s
@@ -310,11 +527,10 @@ def _collision_pairs(mjm):
     groups[key] = [(int(a), int(b), -1) for a, b in zip(g1[on], g2[on])]
   for (a, b), p in sorted(explicit.items()):
     key = (int(mjm.geom_type[a]), int(mjm.geom_type[b]))
-    _refuse_unported([key])
+    _refuse_unported([key], explicit=True)
     groups.setdefault(key, []).append((a, b, p))
   pairs = tuple((k[0], k[1], tuple(v)) for k, v in sorted(groups.items()))
-  ncand = sum(pair_slots(t1, t2, mjm.opt.disableflags) * len(v)
-              for t1, t2, v in pairs)
+  ncand = sum(pair_slots(t1, t2, mjm.opt) * len(v) for t1, t2, v in pairs)
   return pairs, ncand
 
 
@@ -452,6 +668,8 @@ def put_model(mjm, device='cuda') -> Model:
   else:
     collision_pairs, nxn_candidates = _collision_pairs(mjm)
   hulls = _mesh_hulls(mjm)
+  sdf_grids, sdf_grid_aabb, sdf_grid_of_mesh = _build_sdf_grids(mjm)
+  leaves.update(sdf_grids=sdf_grids, sdf_grid_aabb=sdf_grid_aabb)
   leaves.update(sap_pairs=sap_pairs, sap_pairid=sap_pairid,
                 geom_aabb=f32(mjm.geom_aabb).reshape(mjm.ngeom, 2, 3),
                 geom_rbound=f32(mjm.geom_rbound), mesh_hullvert=hulls,
@@ -508,6 +726,7 @@ def put_model(mjm, device='cuda') -> Model:
       collision_pairs=collision_pairs,
       nxn_candidates=nxn_candidates,
       sap_families=sap_families,
+      sdf_grid_of_mesh=tuple(sdf_grid_of_mesh),
       condim_max=_condim_max(mjm),
       pair_dim=_tup(mjm.pair_dim),
       has_damping=bool(np.any(mjm.dof_damping > 0)),
@@ -527,7 +746,9 @@ def put_model(mjm, device='cuda') -> Model:
                ls_iterations=int(mjm.opt.ls_iterations),
                ls_parallel=int(mjm.opt.cone != ConeType.ELLIPTIC),
                disableflags=int(mjm.opt.disableflags),
-               enableflags=int(mjm.opt.enableflags)))
+               enableflags=int(mjm.opt.enableflags),
+               sdf_iterations=int(mjm.opt.sdf_iterations),
+               sdf_initpoints=int(mjm.opt.sdf_initpoints)))
   return model_from_numpy(leaves, statics, device=device)
 
 

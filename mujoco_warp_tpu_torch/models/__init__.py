@@ -14,7 +14,12 @@ humanoid on a plane, nv 25, four IMU sensors; no mesh is read) and
 large-scene broadphase and holds its pair arrays) and `aloha_pot.npz` of
 `benchmarks/scenes/aloha_pot/scene.xml` (two ALOHA arms over a pot on a
 table: nv 23, 190 mesh geoms whose convex hulls, full and decimated, the
-Model holds, and the keyframe names of the `lift_pot` replay). They are
+Model holds, and the keyframe names of the `lift_pot` replay) and
+`aloha_sdf.npz` of `benchmarks/scenes/aloha_sdf/scene.xml` (the same arms
+with SDF fingers over a cow, an SDF geom: nv 22; the Model holds the
+hulls and the 23 voxel grids at resolution 48 of the meshes an SDF pair
+reads, 3 sampled from the compiler's octrees and 20 voxelized, which takes
+most of the regeneration's time). They are
 committed so that a machine without the `mujoco` bindings can load the
 models (`io.load_model`).
 Regenerate them after a change to the compiler:
@@ -50,3 +55,6 @@ APOLLO_TERRAIN_NPZ = os.path.join(_DIR, 'apptronik_apollo_terrain.npz')
 ALOHA_POT = os.path.join(_ROOT, 'benchmarks', 'scenes', 'aloha_pot',
                          'scene.xml')
 ALOHA_POT_NPZ = os.path.join(_DIR, 'aloha_pot.npz')
+ALOHA_SDF = os.path.join(_ROOT, 'benchmarks', 'scenes', 'aloha_sdf',
+                         'scene.xml')
+ALOHA_SDF_NPZ = os.path.join(_DIR, 'aloha_sdf.npz')

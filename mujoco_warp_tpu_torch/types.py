@@ -236,6 +236,10 @@ class Option(_Tensors):
   ls_parallel: int
   disableflags: int
   enableflags: int
+  # the SDF narrowphase's descents: passes on the clearance sum, and
+  # starting points a pair (`collision_sdf.py`)
+  sdf_iterations: int
+  sdf_initpoints: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,6 +324,8 @@ class Model(_Tensors):
   # start, count), ...) over the rows of sap_pairs; () where the static
   # pair list serves (then collision_pairs is the list, else ())
   sap_families: Tuple[Any, ...]
+  # each mesh's row of sdf_grids (-1 for none; (-1,) without meshes)
+  sdf_grid_of_mesh: IntTuple
   condim_max: int
   pair_dim: IntTuple
   has_damping: bool
@@ -411,6 +417,11 @@ class Model(_Tensors):
   # for none); (0, 2) and (0,) without it
   sap_pairs: torch.Tensor
   sap_pairid: torch.Tensor
+  # (G, R, R, R) the signed-distance voxel grids of the meshes that an
+  # SDF pair reads, and (G, 2, 3) each grid's box in its mesh's frame
+  # (center, half sizes); (1, 1, 1, 1) and (1, 2, 3) zeros without
+  sdf_grids: torch.Tensor
+  sdf_grid_aabb: torch.Tensor
   # (neq, 11) data (a JOINT equality's polycoef in 0:5), (neq, 2),
   # (neq, 5), (neq,) bool
   eq_data: torch.Tensor

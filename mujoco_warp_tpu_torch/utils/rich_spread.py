@@ -10,7 +10,10 @@ SCENE (apollo by default) is one of
           generator, as phase (s) draws them), kernel B3 in mode 0;
   aloha   P17's state (chip_smoke.py phase (u): aloha_pot at 8192
           worlds, nconmax 24, lift_pot0 with noise on the arms), kernel
-          B3e in mode 1.
+          B3e in mode 1;
+  aloha_sdf  phase (v)'s rich state (aloha_sdf at 8192 worlds, nconmax
+          32, gripper_gripper_pot with noise on the arms), kernel B3e in
+          mode 1.
 For each seed (0 to SEEDS - 1, 4 by default; seed 0 is chip_smoke's
 state) runs the solve on the state's inputs six ways: the kernel of this
 checkout; the same source built with `--fmad=false` (no multiply-add
@@ -21,7 +24,7 @@ float64 solve's (their units in all, and how many of them the float32
 plain solve shares), the worlds more than TOL_OBJ above the float32
 plain solve's, the worlds over chip_smoke's elliptic tolerances
 (`_check_ell_solve`'s) against it and against the float64 solve, and
-the mean solver_niter. On aloha it also prints, once, how far kernel
+the mean solver_niter. On aloha and aloha_sdf it also prints, once, how far kernel
 B1's outputs lie from its plain version's in float32 ulps at their scale
 (max(1, max |plain|), as chip_smoke compares them), beside the plain
 version's own after qpos moves by 1, 2, 4 and 8 ulps. Needs a card.
@@ -35,7 +38,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 TOL_OBJ = 1.0
-SCENES = ('apollo', 'aloha')
+SCENES = ('apollo', 'aloha', 'aloha_sdf')
 
 
 @contextlib.contextmanager
@@ -72,11 +75,18 @@ def _states(scene, seeds):
   if scene == 'apollo':
     m = mt.load_model(models.APOLLO_NPZ, device='cuda')
     W, C = cs.APOLLO_NWORLD, cs.APOLLO_NCONMAX
-  else:
+  elif scene == 'aloha':
     m = mt.load_model(models.ALOHA_POT_NPZ, device='cuda')
     W, C = cs.ALOHA_NWORLD, cs.ALOHA_NCONMAX
     d0 = io.reset_data(m, mt.make_data(m, nconmax=C),
                        keyframe=io.find_keys(m, 'lift_pot')[0])
+    state = cs._aloha_state
+  else:
+    m = mt.load_model(models.ALOHA_SDF_NPZ, device='cuda')
+    W, C = cs.SDF_NWORLD, cs.SDF_NCONMAX
+    d0 = io.reset_data(m, mt.make_data(m, nconmax=C),
+                       keyframe=io.find_keys(m, 'gripper_gripper_pot')[0])
+    state = lambda *a: cs._aloha_state(*a, cs.SDF_PREP)
   out = []
   for seed in range(seeds):
     gen = torch.Generator(device='cuda').manual_seed(seed)
@@ -86,7 +96,7 @@ def _states(scene, seeds):
       _, _, _, g_in = cs._glue_inputs(m, cs._apollo_rich(m, W, gen), C)
       out.append((seed, g_in, None, None))
     else:
-      d = cs._aloha_state(m, d0, W, gen)
+      d = state(m, d0, W, gen)
       _, con, efc, g_in = cs._collision_glue_inputs(m, d, C)
       out.append((seed, g_in, cs._cone(m, con, efc), d))
   return m, W, out

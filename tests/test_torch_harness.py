@@ -76,6 +76,9 @@ def _poison(d):
 
 
 def _path_model(scene, variant):
+  if scene == 'aloha_sdf':
+    # the voxel grids from the .npz: voxelizing them takes minutes
+    return io.load_model(models.ALOHA_SDF_NPZ, device='cpu')
   _, _, m = build_sap() if scene == 'sap_grid' else build(scene)
   if variant == 'rk4':
     m = m.replace(opt=m.opt.replace(integrator=int(IntegratorType.RK4)))
@@ -190,6 +193,8 @@ PATHS = [
     # P17: aloha_pot's list, the static driver's `collision` (the cull,
     # MPR) in B2's place, B3e
     ('P17', 'aloha_pot', None, False, True),
+    # P18: aloha_sdf's list, the SDF groups' descents in `collision`
+    ('P18', 'aloha_sdf', None, False, True),
 ]
 
 
@@ -209,7 +214,7 @@ def test_replay_predicate_on_the_paths(path, scene, variant, fwd, replayed,
     m = _path_model(scene, variant)
   nconmax = {'humanoid': 24, 'franka_emika_panda': 1,
              'apptronik_apollo_flat': 16, 'sap_grid': 8,
-             'aloha_pot': 24}.get(scene, 100)
+             'aloha_pot': 24, 'aloha_sdf': 32}.get(scene, 100)
   d = mt.make_data(m, nconmax=nconmax, nworld=2)
   stages = forward.forward_stages(m, d) if fwd else \
       forward.batched_stages(m, d)

@@ -84,5 +84,6 @@ def test_the_scan_sees_the_package():
                'mujoco_warp_tpu_torch/bench.py',
                'mujoco_warp_tpu_torch/utils/benchmark.py',
                'mujoco_warp_tpu_torch/forward.py',
-               'mujoco_warp_tpu_torch/derivative.py'):
+               'mujoco_warp_tpu_torch/derivative.py',
+               'mujoco_warp_tpu_torch/collision_sdf.py'):
     assert must in names

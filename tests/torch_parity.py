@@ -175,6 +175,16 @@ def assert_close(a, b, name: str, tol: float):
   np.testing.assert_allclose(a, b, rtol=0, atol=tol * scale, err_msg=name)
 
 
+def compile_fresh(path: str) -> mujoco.MjModel:
+  """The MJCF at path compiled as a new process compiles it: MuJoCo's
+  asset cache is cleared first. The cache hands a mesh compiled for one
+  model to the next model that reads its file: aloha_sdf reads
+  aloha_pot's meshes (its meshdir) and compiles the fingers' octrees
+  from them, which come out otherwise after aloha_pot in one process."""
+  mujoco.mj_clearCache(mujoco.mj_getCache())
+  return mujoco.MjModel.from_xml_path(path)
+
+
 def shared(name: str, make):
   """make()'s value, computed once a test run: under pytest-xdist the
   first worker to ask computes it under a lock and writes it to the
