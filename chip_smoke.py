@@ -207,8 +207,9 @@ Phases:
       memory; one step against the all-plain step
       (`_compare_step_exact`: its solve against the float64 solve, the
       other worlds at the step tolerance, by count against the all-plain
-      step's spread after a change of qpos by ALOHA_QPOS_ULPS ulps); 20
-      replayed steps against 20 eager ones bit for bit; the card's time
+      step's spread after a change of qpos by ALOHA_QPOS_ULPS ulps);
+      ALOHA_REPLAY replayed steps against as many eager ones bit for
+      bit; the card's time
       of each stage and of each group's cull and narrowphase; the
       lift_pot replay (`benchmark_replay` over the 8 lift_pot keyframes'
       ctrl from lift_pot0, as testspeed --replay runs it): from counts
@@ -236,6 +237,23 @@ Phases:
       steps against eager ones bit for bit; the card's time of each
       stage and group; time B1 and B3e on aloha_sdf (the rich state's
       inputs), with their bounds; and the phase's wall time.
+  (w) apptronik_apollo_hfield (the suite's config.txt:17 row,
+      HFIELD_NWORLD worlds, nconmax HFIELD_NCONMAX; run after (t)): the
+      model's groups, height field, candidate slots, efc layout and stage
+      list (P16's, with the static driver's `collision`: B2 has no
+      height field branch); apollo's contact-rich state (`_apollo_rich`)
+      with its contacts by pair type (it fails without hfield-capsule and
+      hfield-box contacts); B1 against its plain version and B3 (mode 0)
+      by apollo's rules there (`_hold_b3_apollo`); the height-field
+      narrowphase in float32 against float64 on HFIELD_HOLD_WORLDS worlds
+      (`_hold_hfield_narrowphase`); from counts at 0, P19 (the suite's
+      step from keyframe 0, the harness's protocol, replayed): B1 and B3
+      once a step on the card over HFIELD_COUNT steps and no B2, then
+      timed, printed as `step_apollo_hfield` with one eager step's peak
+      memory; one step against the all-plain step as P16's;
+      HFIELD_REPLAY replayed steps against eager ones bit for bit; the
+      card's time of each stage and group; time B1 and B3 on
+      apollo_hfield (the rich state's inputs), with their bounds.
 One JSON line lists every kernel's record; a replayed path's launches
 are those the card ran, by kernel name.
 
@@ -531,9 +549,9 @@ ULP_WITNESS = 4
 TERRAIN_NWORLD = 8192
 TERRAIN_NCONMAX = 48
 # P16's timed run and testspeed's on terrain take TERRAIN_NSTEP steps in
-# all (a first, 20 warm-up and 21 timed): a step takes ~0.23 s at 8192
-# worlds
-TERRAIN_NSTEP = 42
+# all (a first, 20 warm-up and 11 timed; 21 timed before phase (w) came):
+# a step takes ~0.23 s at 8192 worlds
+TERRAIN_NSTEP = 32
 TERRAIN_PREP = 10
 TERRAIN_PREP_MAX = 60
 TERRAIN_TOUCH = 0.9
@@ -547,9 +565,11 @@ CULL_HOLD_WORLDS = 256
 # worlds (NVIDIA H100 80GB HBM3, 700 W: the collision stage's MPR), so the
 # depth is cut: P17 counted over ALOHA_COUNT steps, timed over ALOHA_NSTEP
 # (a first, 20 warm-up and 3 timed), its replay profiled over
-# ALOHA_PROFILE; the lift_pot replay takes ALOHA_REPLAY_NSTEP steps (a
-# first, 10 warm-up, 1 timed), testspeed's ALOHA_TESTSPEED_NSTEP (a
-# first, 4 warm-up, 1 timed)
+# ALOHA_PROFILE, held against eager steps over ALOHA_REPLAY (20 before
+# phase (w) came: two eager runs and the replay took ~65 s of the
+# script); the lift_pot replay takes ALOHA_REPLAY_NSTEP steps (a first,
+# 10 warm-up, 1 timed), testspeed's ALOHA_TESTSPEED_NSTEP (a first, 4
+# warm-up, 1 timed)
 # B3e on aloha_pot: the cone's solve at impratio 10 on the grippers'
 # contacts is ill-conditioned in float32, and where a float32 solve stops
 # turns on the rounding of its sums. On P17's state, seeds 0-3
@@ -586,6 +606,7 @@ ALOHA_PREP = 4
 ALOHA_COUNT = 6
 ALOHA_NSTEP = 24
 ALOHA_PROFILE = 2
+ALOHA_REPLAY = 10
 ALOHA_REPLAY_NSTEP = 10
 ALOHA_TESTSPEED_NSTEP = 4
 # aloha_sdf (phase v): the suite's row (benchmarks/scenes/config.txt:15),
@@ -644,6 +665,53 @@ SDF_ULP_FACTOR = 4.0
 SDF_PART_SHARE = 0.011
 SDF_OBJ_FACTOR = 1.25
 SDF_QPOS_ULPS = 1
+# apptronik_apollo_hfield (phase w): the suite's row (benchmarks/scenes/
+# config.txt:17), HFIELD_NWORLD worlds at nconmax HFIELD_NCONMAX; the
+# robot of (s) and (t) on a 588 x 1,121 height field. P19 starts from
+# keyframe 0 as the suite does (benchmarks/suite.py:82-83); it is counted
+# over HFIELD_COUNT steps, timed over HFIELD_NSTEP (a first, 20 warm-up
+# and 1 timed), its replay held against eager steps over HFIELD_REPLAY
+# steps and profiled over HFIELD_PROFILE. B1, B3 and the height-field
+# narrowphase are held on apollo's contact-rich state (`_apollo_rich`:
+# the soles, shins and knees in the terrain). The narrowphase runs on the
+# card in float32 against the same torch code in float64 on
+# HFIELD_HOLD_WORLDS worlds (`_hold_hfield_narrowphase`): each float32
+# candidate of a pair lies within HFIELD_TOL of scale of one of the
+# pair's float64 candidates (dist, normal, and pos; for the prisms' MPR
+# the position along the normal only, as its witness moves along a face
+# with rounding), and both keep as many, in all but the larger of
+# HFIELD_SHARE of the pairs and HFIELD_FACTOR times the pairs the float64
+# collider itself parts in after a one-ulp move of the frames. On the
+# rich state (NVIDIA H100 80GB HBM3, 700 W; PERF.md) the box prisms part
+# in 32 of 507 pairs with a candidate, the float64 collider after one
+# ulp up and down in 29 and 42: the deepest of 250 candidates and MPR's
+# witness on a flat face turn on rounding; HFIELD_FACTOR is 1.5 as
+# SDF_PART_SHARE's. The capsules part in 10 of 3,584 (0.28%) while one ulp
+# moves none: the four candidates nearest the surface are chosen by
+# |dist| + 1e-7 x index, a tie term at float32's resolution of dist, so
+# near ties fall by the arithmetic's rounding; HFIELD_SHARE is about 3.5
+# x that share. P19's step is held against the all-plain step by
+# `_compare_step_exact` (its solve by apollo's rules, `_hold_b3_apollo`)
+# after qpos moves by HFIELD_QPOS_ULPS: on P19's state B1 lies a median
+# 0.39 and at most 1.9 ulps at scale from its plain version in
+# geom_xpos, 1.75 and 4.0 in geom_xmat, the plain version after 1 ulp
+# 0.88/2.2 and 2.52/5.5 (`utils/rich_spread.py apollo_hfield`, NVIDIA
+# H100 80GB HBM3, 700 W): 1 is the smallest of 1, 2, 4, 8 at both. There
+# a sole's contact moves along its flat face with B1's rounding (MPR's
+# witness), and the rows and the solve follow it: 520 worlds part from
+# the all-plain step by more than TOL_STEP_QACC in qacc, 541 after the
+# plain version's own 1-ulp move.
+HFIELD_NWORLD = 8192
+HFIELD_NCONMAX = 32
+HFIELD_COUNT = 4
+HFIELD_NSTEP = 22
+HFIELD_REPLAY = 10
+HFIELD_PROFILE = 2
+HFIELD_HOLD_WORLDS = 256
+HFIELD_TOL = 1e-4
+HFIELD_SHARE = 0.01
+HFIELD_FACTOR = 1.5
+HFIELD_QPOS_ULPS = 1
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -3009,7 +3077,7 @@ def _franka(card) -> list:
   return records
 
 
-def _apollo_rich(m, nworld, gen):
+def _apollo_rich(m, nworld, gen, nconmax=APOLLO_NCONMAX):
   """apollo's contact-rich state (see RICH_DROP) at nworld worlds, seeded
   by gen, ctrl holding qpos0's pose."""
   import torch
@@ -3028,7 +3096,7 @@ def _apollo_rich(m, nworld, gen):
     adr = m.jnt_qposadr[j]
     q[:, adr] = torch.where(legs, lo + (hi - lo) * rand(nworld), q[:, adr])
   qvel = RICH_QVEL * torch.randn((nworld, m.nv), generator=gen, device=dev)
-  d = mt.make_data(m, nconmax=APOLLO_NCONMAX, nworld=nworld)
+  d = mt.make_data(m, nconmax=nconmax, nworld=nworld)
   return d.replace(qpos=q, qvel=qvel,
                    ctrl=m.qpos0[7:].repeat(nworld, 1).contiguous())
 
@@ -3514,7 +3582,8 @@ def _hold_b3e_aloha(label, m, g_in, cone, out=None,
 
 
 def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel'),
-                        ulps=ALOHA_QPOS_ULPS, factor=ALOHA_OBJ_FACTOR):
+                        ulps=ALOHA_QPOS_ULPS, factor=ALOHA_OBJ_FACTOR,
+                        hold=None):
   """One P17 step of the kernels against the all-plain step on the same
   state (see the note on B3e before ALOHA_NWORLD): the contact and row
   sets as _compare_step holds them, with the all-plain step's spread
@@ -3528,9 +3597,12 @@ def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel'),
   float64 solve on that step's own inputs: there at least four fifths of
   the two steps' difference lies in their inputs, which part only by
   B1's rounding (held here per world at TOL_B1 on the same state), as
-  the stiff rows amplify it. The other worlds over tol may number at most
+  the stiff rows amplify it (or, on P19, as MPR's witness on a sole's
+  flat face moves with it). The other worlds over tol may number at most
   max(8, nworld / 1000) plus twice the all-plain step's own over the same
-  rule after that change of qpos."""
+  rule after that change of qpos. With `hold` (P19's B3, a pyramidal
+  solve), hold(label, the solve's inputs, the kernel step's Data) holds
+  the kernel step's solve in `_hold_b3e_aloha`'s place."""
   import torch
   from mujoco_warp_tpu_torch import forward, smooth
   from mujoco_warp_tpu_torch.kernels import smooth as ks
@@ -3560,7 +3632,10 @@ def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel'),
   if nbad > allowed + extra:
     raise RuntimeError(f'{label}: {nbad} worlds differ in their row sets')
   (_, args, kw, out), = solves_k
-  _hold_b3e_aloha(f'{label} solve', m, args[1:], kw['cone'], out, factor)
+  if hold is None:
+    _hold_b3e_aloha(f'{label} solve', m, args[1:], kw['cone'], out, factor)
+  else:
+    hold(f'{label} solve', args[1:], d_k)
   unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * max(1, m.nv)
 
   def solved(solves):
@@ -3569,9 +3644,10 @@ def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel'),
     (_, a, k, o), = solves
     f64 = lambda x: (x.double() if torch.is_tensor(x) and
                      x.is_floating_point() else x)
-    ex = forward.glue(*[f64(x) for x in a], cone=tuple(f64(c)
-                                                        for c in k['cone']))
-    obj = lambda q: _objective(m, *a[1:6], o['qfrc_smooth'], q, k['cone'])
+    cone = k.get('cone')
+    ex = forward.glue(*[f64(x) for x in a], **(
+        {} if cone is None else dict(cone=tuple(f64(c) for c in cone))))
+    obj = lambda q: _objective(m, *a[1:6], o['qfrc_smooth'], q, cone)
     return (obj(o['qacc']) - obj(ex['qacc'])) / unit <= TOL_OBJ, ex
   (good_k, x_k), (good_p, x_p), (good_u, x_u) = (
       solved(s) for s in (solves_k, solves_p, solves_u))
@@ -3662,6 +3738,9 @@ def _aloha(card) -> list:
   from mujoco_warp_tpu_torch.kernels import smooth as ks
   from mujoco_warp_tpu_torch.types import GeomType
   from mujoco_warp_tpu_torch.utils import benchmark as bench
+  t0 = time.perf_counter()
+  so_far = lambda part: print(f'  phase (u) {part} done at '
+                              f'{time.perf_counter() - t0:.1f} s')
   m = mt.load_model(models.ALOHA_POT_NPZ, device='cuda')
   W, C = ALOHA_NWORLD, ALOHA_NCONMAX
   keys = io.find_keys(m, 'lift_pot')
@@ -3736,6 +3815,7 @@ def _aloha(card) -> list:
       qvel=qvel, qpos=forward.integrate_pos(m, g_in[5], qvel, h)),
            dict(qvel=TOL_B3_OTHER, qpos=TOL_B3['qpos']), ['qvel', 'qpos'])
   _check_repeat(label, lambda: kg.glue(m, *g_in, cone=cone))
+  so_far('state, culls, B1 and B3e')
 
   # ---- P17: the suite's aloha_pot step, replayed ----
   (_, res), on_card = _replayed_counts(
@@ -3768,12 +3848,16 @@ def _aloha(card) -> list:
       res, peak_memory_gib=peak / 2**30,
       step_memory_gib=(peak - before) / 2**30, card=card)}))
   contacts('P17 final state', d17)
+  so_far('P17 counted and timed')
   _compare_step_exact('P17 step', m, d17, TOL_STEP_QACC)
+  so_far('P17 against the all-plain step')
   _replay_against_eager('P17', m, d17, dict(smooth=1, glue_ell=1),
-                        ALOHA_PROFILE, card)
+                        ALOHA_PROFILE, card, n=ALOHA_REPLAY)
+  so_far('P17 replayed against eager steps')
   _stage_times('P17', m, d17, card)
   print(json.dumps({'P17 groups ms (cull, narrowphase)': _group_times(
       'P17', m, d17, C, card), 'card': card}))
+  so_far('P17 stage and group times')
 
   # ---- the lift_pot replay, as testspeed --replay lift_pot runs it ----
   # counted on the card as P17 is, then timed
@@ -3820,6 +3904,7 @@ def _aloha(card) -> list:
       ncollision_mean=float(dr.ncollision.float().mean()),
       ncollision_max=int(dr.ncollision.max()), stages_ms=stages,
       card=card)}))
+  so_far('the lift_pot replay')
 
   # ---- times, plain times, bounds (P17's final state) ----
   records = []
@@ -3847,6 +3932,7 @@ def _aloha(card) -> list:
           _flops_newton(m.nv, efc['nefc'].double(),
                         g_out['solver_niter'].double(), m.nu) +
           _flops_cone(m, cone, g_in[2], g_out['solver_niter']))
+  so_far('the records')
   return records
 
 
@@ -4115,6 +4201,229 @@ def _aloha_sdf(card) -> list:
           _flops_newton(m.nv, rows, g_out['solver_niter'].double(), m.nu) +
           _flops_cone(m, cone, g_in[2], g_out['solver_niter']))
   print(f'phase (v): {time.perf_counter() - t0:.1f} s of wall time ({card})')
+  return records
+
+def _hold_hfield_narrowphase(label, m, geom_xpos, geom_xmat) -> float:
+  """Each height field group's narrowphase on the card in float32 against
+  the same code in float64, on HFIELD_HOLD_WORLDS worlds spread over the
+  batch: per pair, each float32 candidate (dist < 1e9) against the
+  pair's float64 candidate nearest to it, its error the largest of
+  |dist|, the normal's and the position's (for the prisms' MPR, the
+  position along the normal: the witness moves along a face with
+  rounding) over scale (max(1, max |pos|)); a pair is off where a
+  candidate's error is over HFIELD_TOL or the two precisions keep
+  different numbers of candidates. The witness: the float64 collider
+  again on the float32 frames moved by one ulp up and down, off against
+  the float64 collider by the same rule. Off pairs may number the larger
+  of HFIELD_SHARE of the pairs with a candidate and HFIELD_FACTOR times
+  the witness's largest count (see HFIELD_NWORLD). Returns the largest
+  error of the pairs held."""
+  import torch
+  from mujoco_warp_tpu_torch import collision_driver
+  from mujoco_warp_tpu_torch.types import GeomType
+  W = geom_xpos.shape[0]
+  ws = torch.arange(0, W, max(1, W // HFIELD_HOLD_WORLDS),
+                    device=geom_xpos.device)[:HFIELD_HOLD_WORLDS]
+  gx, gm = geom_xpos[ws], geom_xmat[ws]
+  m64 = m.replace(hfield_data=m.hfield_data.double(),
+                  hfield_size=m.hfield_size.double(),
+                  geom_size=m.geom_size.double())
+  nudged = lambda x, to: torch.nextafter(x, torch.full_like(x, to))
+  worst = 0.0
+  for (t1, t2, _), grp in zip(m.collision_pairs,
+                              collision_driver._group_tables(m)):
+    if grp['extra'] != 'hfield':
+      continue
+    mpr = t2 not in (GeomType.SPHERE, GeomType.CAPSULE)
+    b = collision_driver._hfield_narrowphase(m64, grp, gx.double(),
+                                             gm.double())
+    scale = max(1.0, float(b[1].abs().max()))
+
+    def off(a):
+      """(W, P) pairs off, (W, P) errors, (W, P) pairs with a candidate
+      and (W, P) pairs with another number of candidates, of a's
+      candidates against b's."""
+      live_a, live_b = a[0] < 1e9, b[0] < 1e9
+      # (..., ka, kb) errors of every candidate of a against every one
+      # of b
+      dd = (a[0].double()[..., :, None] - b[0][..., None, :]).abs()
+      dn = (a[2][..., 0, :].double()[..., :, None, :] -
+            b[2][..., 0, :][..., None, :, :]).abs().amax(-1)
+      dp = a[1].double()[..., :, None, :] - b[1][..., None, :, :]
+      if mpr:
+        dp = (dp * b[2][..., 0, :][..., None, :, :]).sum(-1).abs()
+      else:
+        dp = dp.abs().amax(-1)
+      err = torch.maximum(torch.maximum(dd, dn), dp / scale)
+      err = torch.where(live_b[..., None, :], err, float('inf')).amin(-1)
+      err = torch.where(live_a, err, 0.0).amax(-1)
+      cand = live_a.any(-1) | live_b.any(-1)
+      count = cand & (live_a.sum(-1) != live_b.sum(-1))
+      return cand & ((err > HFIELD_TOL) | count), err, cand, count
+    o, err, cand, count = off(collision_driver._hfield_narrowphase(
+        m, grp, gx, gm))
+    witness = [int(off(collision_driver._hfield_narrowphase(
+        m64, grp, nudged(gx, to).double(), nudged(gm, to).double()))[0].sum())
+               for to in (float('inf'), float('-inf'))]
+    held = cand & ~o
+    e = float(torch.where(held, err, 0.0).max())
+    worst = max(worst, e)
+    n, ncand = int(o.sum()), int(cand.sum())
+    allowed = max(HFIELD_SHARE * ncand, HFIELD_FACTOR * max(witness))
+    names = (GeomType(t1).name.lower(), GeomType(t2).name.lower())
+    print(f'  {label} {names}: {grp["n"]} pairs at {len(ws)} worlds, '
+          f'{ncand} with a candidate ({int((b[0] < 1e9).sum())} float64 '
+          f'candidates, {int((b[0] < 0).sum())} of them at dist < 0); '
+          f'float32 against float64: {n} pairs off ({n / max(1, ncand):.5f}; '
+          f'another number of candidates in {int(count.sum())}, largest '
+          f'error {float(err.max()):.3e}); the float64 collider '
+          f'after one ulp up and down: {witness} off (allowed {allowed:.1f}); '
+          f'the {int(held.sum())} held: largest error of scale {scale:.2f} '
+          f'{e:.3e}')
+    if n > allowed:
+      raise RuntimeError(f'{label} {names}: the float32 narrowphase parts '
+                         f'from float64 in {n} pairs (allowed {allowed:.1f})')
+  return worst
+
+
+def _hfield(card) -> list:
+  """Phase (w) on apptronik_apollo_hfield: the model; the contact-rich
+  state (`_apollo_rich`) with its contacts by pair type; B1 against its
+  plain version and B3 (mode 0) by apollo's rules there
+  (`_hold_b3_apollo`); the height-field narrowphase in float32 against
+  float64 (`_hold_hfield_narrowphase`); P19 (the glue step with the static
+  driver's `collision`, height field groups included, and
+  `make_constraint` in B2's place, from keyframe 0 as the suite starts
+  it) counted (B1 and B3 once a step, no B2), timed, its peak memory,
+  one step against the all-plain step, replayed steps against eager ones
+  (sensordata too), the card's time of each stage and group; returns the
+  records of B1 and B3 on apollo_hfield (the rich state's inputs)."""
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import forward, io, models, smooth
+  from mujoco_warp_tpu_torch.kernels import _build
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import glue as kg
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  from mujoco_warp_tpu_torch.types import GeomType
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  t0 = time.perf_counter()
+  m = mt.load_model(models.APOLLO_HFIELD_NPZ, device='cuda')
+  W, C = HFIELD_NWORLD, HFIELD_NCONMAX
+  d0 = io.reset_data(m, mt.make_data(m, nconmax=C), keyframe=0)
+  names = [n for n, _ in forward.batched_stages(m, d0)]
+  groups = [(GeomType(a).name.lower(), GeomType(b).name.lower(), len(gl))
+            for a, b, gl in m.collision_pairs]
+  print(f'model: apptronik_apollo_hfield nv={m.nv} nbody={m.nbody} '
+        f'ngeom={m.ngeom} nsensor={m.nsensor}; height field '
+        f'{m.hfield_nrow[0]} x {m.hfield_ncol[0]}, size '
+        f'{m.hfield_size[0].tolist()}; groups {groups}; {m.nxn_candidates} '
+        f'candidate slots; efc layout (ne, nf, nl, stride, njmax) '
+        f'{mt.efc_layout(m, C)} at nconmax {C}; glue mode '
+        f'{forward.glue_mode(m)}; stages: {" -> ".join(names)}')
+  if names != ['smooth_mega[cuda]', 'camlight', 'collision',
+               'make_constraint', 'act_len_vel', 'sensor_pos', 'sensor_vel',
+               'solve_glue[cuda]', 'sensor_acc', 'advance'] or \
+      m.sap_families or kc.supports(m, C) or forward.glue_mode(m) != 0 or \
+      not forward.replays(m, d0):
+    raise RuntimeError('apollo_hfield does not take the glue list (mode 0) '
+                       'with the static collision stage, or is not '
+                       'replayed')
+  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  rich = _apollo_rich(m, W, gen, C)
+
+  # ---- the rich state: contacts, B1, B3 and the narrowphase ----
+  errs = {}
+  sm_in = (rich.qpos, rich.qvel)
+  errs['smooth'] = _compare('B1 apollo_hfield', ks.smooth(m, *sm_in),
+                            smooth.smooth(m, *sm_in), TOL_B1, smooth.OUTPUTS)
+  _check_repeat('B1 apollo_hfield', lambda: ks.smooth(m, *sm_in))
+  _, con, efc, g_in = _collision_glue_inputs(m, rich, C)
+  pairs = _pair_counts(m, con)
+  print(f'  apollo_hfield rich state: contacts by pair type {pairs}; ncon '
+        f'per world mean {float(con["ncon"].float().mean()):.3f} max '
+        f'{int(con["ncon"].max())}; ncollision max '
+        f'{int(con["ncollision"].max())}')
+  print(json.dumps({'apollo_hfield rich state': dict(
+      pairs=pairs, ncon_mean=float(con['ncon'].float().mean()),
+      card=card)}))
+  if not pairs.get('hfield-capsule') or not pairs.get('hfield-box'):
+    raise RuntimeError('apollo_hfield: the rich state lacks hfield-capsule '
+                       'or hfield-box contacts')
+  errs['glue'] = _hold_b3_apollo('B3 apollo_hfield', m, g_in, dict(
+      nf=efc['nf'], nl=efc['nl'], ncon=con['ncon']))
+  sm = ks.smooth(m, *sm_in)
+  _hold_hfield_narrowphase('height field narrowphase', m, sm['geom_xpos'],
+                           sm['geom_xmat'])
+  del sm
+  del con, efc
+  print(f'  phase (w) so far {time.perf_counter() - t0:.1f} s')
+
+  # ---- P19: the suite's apollo_hfield step from keyframe 0, replayed ----
+  d = mt.make_batch(m, d0, W)
+  (_, res), on_card = _replayed_counts(
+      'P19', lambda: bench.benchmark(m, d, nstep=_bench_nstep(HFIELD_COUNT)),
+      HFIELD_COUNT)
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'P19 ran {res["dispatch"]}')
+  _expect_no_entries('P19')
+  _expect_counts('P19, on the card', dict(
+      _zero_counts(), smooth=HFIELD_COUNT, glue=HFIELD_COUNT), on_card)
+  _reset_counts()
+  d19, res = bench.benchmark(m, d, nstep=HFIELD_NSTEP)
+  if res['dispatch'] != 'graph':
+    raise RuntimeError(f'P19 ran {res["dispatch"]}')
+  for k in ('qpos', 'qvel', 'qacc', 'efc_force', 'sensordata'):
+    if not bool(torch.isfinite(getattr(d19, k)).all()):
+      raise RuntimeError(f'P19: non-finite {k}')
+  peak, before = _peak_step(m, d19)
+  print(f'P19: {res["steps_per_sec"]:.1f} steps/s, '
+        f'{res["step_time_us"]:.1f} us/step over {res["nstep"]} timed of '
+        f'{bench.total_steps(HFIELD_NSTEP)} steps at {W} worlds, nconmax '
+        f'{C}; final ncon mean {res["ncon_mean"]:.3f}, nefc mean '
+        f'{res["nefc_mean"]:.2f}, solver_niter mean '
+        f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}; '
+        f'{res["converged_worlds"]} worlds without NaN; one eager step\'s '
+        f'peak memory {peak / 2**30:.2f} GiB ({(peak - before) / 2**30:.2f} '
+        f'GiB over the {before / 2**30:.2f} GiB held before it); dispatch '
+        f'{res["dispatch"]} ({card})')
+  print(json.dumps({'step_apollo_hfield': dict(
+      res, peak_memory_gib=peak / 2**30,
+      step_memory_gib=(peak - before) / 2**30, card=card)}))
+  final = {k: getattr(d19.contact, k) for k in ('geom', 'dist',
+                                                'includemargin')}
+  print(f'  P19 final state: contacts by pair type '
+        f'{_pair_counts(m, final)}')
+  print(f'  phase (w) so far {time.perf_counter() - t0:.1f} s')
+  _compare_step_exact('P19 step', m, d19, TOL_STEP_QACC,
+                      ulps=HFIELD_QPOS_ULPS, hold=lambda label, g_in, dk:
+                      _hold_b3_apollo(label, m, g_in, dict(
+                          nf=dk.nf, nl=dk.nl, ncon=dk.ncon)))
+  _replay_against_eager('P19', m, d19, dict(smooth=1, glue=1),
+                        HFIELD_PROFILE, card, n=HFIELD_REPLAY)
+  _stage_times('P19', m, d19, card)
+  print(json.dumps({'P19 groups ms (cull, narrowphase)': _group_times(
+      'P19', m, d19, C, card), 'card': card}))
+  print(f'  phase (w) so far {time.perf_counter() - t0:.1f} s')
+
+  # ---- times, plain times, bounds: the rich state ----
+  records = []
+  sm_out = ks.smooth(m, *sm_in)
+  _record(records, 'smooth[apollo_hfield]', on_card['smooth'],
+          errs['smooth'], 'mujoco_warp_tpu_torch/csrc/smooth.cu',
+          'mujoco_warp_tpu/pallas/smooth_kernels.py:557',
+          lambda: ks.smooth(m, *sm_in), lambda: smooth.smooth(m, *sm_in),
+          _nbytes(sm_in, sm_out, _build.model_tables(m, 'smooth',
+                                                     ks._tables)),
+          _flops_b1(m, W))
+  _, con, efc, g_in = _collision_glue_inputs(m, rich, C)
+  g_out = kg.glue(m, *g_in)
+  _record(records, 'glue[apollo_hfield]', on_card['glue'], errs['glue'],
+          'mujoco_warp_tpu_torch/csrc/glue.cu',
+          'mujoco_warp_tpu/pallas/solver_kernels.py:1207',
+          lambda: kg.glue(m, *g_in), lambda: forward.glue(m, *g_in),
+          *_glue_cost(m, g_in, g_out, efc['nefc'], 'glue[apollo_hfield]'))
+  print(f'phase (w): {time.perf_counter() - t0:.1f} s of wall time ({card})')
   return records
 
 
@@ -4497,6 +4806,7 @@ def main() -> int:
   records += phase('franka (r)', lambda: _franka(card))
   records += phase('apollo (s)', lambda: _apollo(card))
   records += phase('terrain (t)', lambda: _terrain(card))
+  records += phase('apollo_hfield (w)', lambda: _hfield(card))
   records += phase('aloha_pot (u)', lambda: _aloha(card))
   records += phase('aloha_sdf (v)', lambda: _aloha_sdf(card))
   records += phase('B9-B12 (p)', lambda: _smooth_entries('', m, d_c))

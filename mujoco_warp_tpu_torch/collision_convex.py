@@ -3,16 +3,16 @@ support functions and MPR (Minkowski portal refinement), with a
 multi-contact variant (four tilted re-portals).
 
 Mirrors `mujoco_warp_tpu/collision_convex.py` (the support functions of
-the sphere, box and mesh :46-97, `_CENTER` :101, `manifold_ncon` :117,
-`collider` :133, `mpr` :139, `mpr_multi` :331) on batched tensors: each
-function takes (..., 3) positions, (..., 3, 3) frames, (..., 3) sizes
-and (..., V, 4) padded hull vertices (xyz, valid) of mesh geoms (None
-for the others), and the leading axes are the batch (worlds, pairs,
-tilts). The JAX loops are `lax.while_loop`s that stop when every lane is
-done; a done lane's state does not change, so here they run their fixed
-counts (12 discovery, 24 refinement iterations) with masked updates,
-which keeps the stage free of host syncs. The four tilts of `mpr_multi`
-are a leading axis of 4.
+the sphere, ellipsoid, cylinder, box and mesh :46-97, `_CENTER` :101,
+`manifold_ncon` :117, `collider` :133, `mpr` :139, `mpr_multi` :331) on
+batched tensors: each function takes (..., 3) positions, (..., 3, 3)
+frames, (..., 3) sizes and (..., V, 4) padded hull vertices (xyz, valid)
+of mesh geoms (None for the others), and the leading axes are the batch
+(worlds, pairs, tilts). The JAX loops are `lax.while_loop`s that stop
+when every lane is done; a done lane's state does not change, so here
+they run their fixed counts (12 discovery, 24 refinement iterations)
+with masked updates, which keeps the stage free of host syncs. The four
+tilts of `mpr_multi` are a leading axis of 4.
 
 Contacts follow the analytic colliders: dist (..., K), pos (..., K, 3),
 frame (..., K, 3, 3), frame[..., 0, :] the normal from geom 1 into geom
@@ -78,6 +78,25 @@ def _supp_sphere(p, R, s, vert, d):
   return p + s[..., :1] * _normalize(d)
 
 
+def _supp_ellipsoid(p, R, s, vert, d):
+  sd = s[..., :3] * _mtv(R, d)
+  denom = math.norm(sd)[..., None]
+  return p + _mv(R, s[..., :3] * sd / torch.where(denom < 1e-12, 1.0, denom))
+
+
+def _supp_cylinder(p, R, s, vert, d):
+  """The rim point farthest along d; on the axis (d along it) the cap's
+  center."""
+  dl = _mtv(R, d)
+  rho = torch.sqrt(dl[..., 0] * dl[..., 0] + dl[..., 1] * dl[..., 1])
+  on_axis = rho < 1e-12
+  rsafe = torch.where(on_axis, 1.0, rho)
+  rim = lambda x: torch.where(on_axis, 0.0 * x, s[..., 0] * x / rsafe)
+  x = torch.stack([rim(dl[..., 0]), rim(dl[..., 1]),
+                   s[..., 1] * torch.sign(dl[..., 2])], -1)
+  return p + _mv(R, x)
+
+
 def _supp_box(p, R, s, vert, d):
   return p + _mv(R, s[..., :3] * torch.sign(_mtv(R, d)))
 
@@ -113,6 +132,8 @@ def _supp_mesh(p, R, s, planes, d):
 
 SUPPORT = {
     GeomType.SPHERE: _supp_sphere,
+    GeomType.ELLIPSOID: _supp_ellipsoid,
+    GeomType.CYLINDER: _supp_cylinder,
     GeomType.BOX: _supp_box,
     GeomType.MESH: _supp_mesh,
 }

@@ -20,7 +20,11 @@ no tensor of a whole batch's hull vertices is built. A group with an SDF
 side runs the SDF narrowphase (`collision_sdf.collide`, its
 sdf_initpoints candidates a pair, each side's voxel grid or primitive
 distance) and is never culled, as the JAX driver sends it there before
-its cull (:240-289).
+its cull (:240-289). So is a group with a height field: it runs one
+subgroup a height field geom (`collision_hfield.collide` on that field's
+grid, in chunks of worlds of HFIELD_ELEMENTS), the subgroups by geom id,
+each in list order, which orders the group's rows of the pool, as the
+JAX driver's hfield branch does (:218-238).
 
 One deliberate difference, C MuJoCo's rule (mujoco 3.10): a geom pair's
 margin and gap are the sums of the two geoms' (explicit <pair>s keep
@@ -38,9 +42,10 @@ import numpy as np
 import torch
 
 from . import collision_convex
+from . import collision_hfield
 from . import collision_primitive
 from . import collision_sdf
-from .io import MPR_PAIRS, is_sdf_pair, pair_slots
+from .io import MPR_PAIRS, is_hfield_pair, is_sdf_pair, pair_slots
 from .kernels import _build
 from .types import GeomType, Model
 
@@ -57,6 +62,10 @@ CULL_THRESHOLD_CHEAP = 2048
 # narrowphase (each such float32 temporary at most 1 GB)
 CHUNK_ELEMENTS = 1 << 25
 NARROW_ELEMENTS = 1 << 28
+# (world, pair, `collision_hfield.candidates`) entries of one chunk of
+# worlds of a height field group's narrowphase (each (..., 3) float32
+# temporary at most 100 MB)
+HFIELD_ELEMENTS = 1 << 23
 
 _LOW = 1 << 32          # a composite key's pair-index part
 _INDEX_TOP = (1 << 31) - 1
@@ -144,9 +153,9 @@ def candidate_params(m: Model) -> dict:
 
 def culls(t1: int, t2: int, n: int) -> bool:
   """Whether the JAX driver culls a static group of n (t1, t2) pairs
-  (`collision_driver.py:300-304`): never an SDF group, which it sends to
-  the SDF narrowphase before the cull (:240-289)."""
-  if GeomType.SDF in (t1, t2):
+  (`collision_driver.py:300-304`): never an SDF or a height field group,
+  which it sends to their narrowphase before the cull (:218-289)."""
+  if GeomType.SDF in (t1, t2) or GeomType.HFIELD in (t1, t2):
     return False
   costly = (t1, t2) in MPR_PAIRS or GeomType.MESH in (t1, t2)
   return (n > (CULL_THRESHOLD if costly else CULL_THRESHOLD_CHEAP) and
@@ -163,7 +172,10 @@ def group_collider(m: Model, t1: int, t2: int):
   (`collision_convex.collider`) or the SDF narrowphase
   (`collision_sdf.collide`), and what it takes after the six geometry
   arguments: 'margin', 'hulls' or 'hulls+margin'; 'sdf' for the SDF
-  narrowphase, which takes each side's `collision_sdf.Side`."""
+  narrowphase, which takes each side's `collision_sdf.Side`; 'hfield'
+  for the height-field narrowphase, which takes the field's grid."""
+  if is_hfield_pair(t1, t2):
+    return collision_hfield.collide, pair_slots(t1, t2, m.opt), 'hfield'
   if (t1, t2) in MPR_PAIRS:
     fn, k = collision_convex.collider(t1, t2, m.opt.disableflags)
     return fn, k, 'hulls+margin'
@@ -193,15 +205,18 @@ def _group_tables(m: Model) -> list:
   """Per group of the static list: its geom ids g1, g2 and mesh ids d1,
   d2 (-1 for none) as index tensors, its first row of
   `candidate_params`, its collider, slots and cull, and the full hulls
-  of an uncut mesh group's pairs, built once per model."""
+  of an uncut mesh group's pairs; of a height field group, its pairs in
+  the narrowphase's order ('order', by the field's geom id, stable) and
+  its subgroups ('fields': the geom, its field id and its pairs), built
+  once per model."""
   def make(m):
     out, start = [], 0
     idx = lambda x: torch.as_tensor(x, dtype=torch.long, device=m.device)
     for t1, t2, glist in m.collision_pairs:
       g1, g2 = [g for g, _, _ in glist], [g for _, g, _ in glist]
       fn, k, extra = group_collider(m, t1, t2)
-      grp = dict(g1=idx(g1), g2=idx(g2), start=start, n=len(glist), fn=fn,
-                 slots=k, extra=extra, cull=culls(t1, t2, len(glist)),
+      grp = dict(g1=idx(g1), g2=idx(g2), t2=t2, start=start, n=len(glist),
+                 fn=fn, slots=k, extra=extra, cull=culls(t1, t2, len(glist)),
                  mesh=(t1 == GeomType.MESH, t2 == GeomType.MESH))
       for side, gs, t in (('1', g1, t1), ('2', g2, t2)):
         did = idx([m.geom_dataid[g] for g in gs])
@@ -210,6 +225,11 @@ def _group_tables(m: Model) -> list:
           grp['side' + side] = sdf_side(m, t, grp['g' + side], did)
         elif grp['mesh'][int(side) - 1] and not grp['cull']:
           grp['hull' + side] = m.mesh_hullvert[did]
+      if extra == 'hfield':
+        order = sorted(range(len(glist)), key=lambda i: g1[i])
+        grp['order'] = idx(order)
+        grp['fields'] = [(h, m.geom_dataid[h], idx(
+            [i for i in order if g1[i] == h])) for h in sorted(set(g1))]
       out.append(grp)
       start += len(glist)
     return out
@@ -273,6 +293,8 @@ def narrowphase(m: Model, grp: dict, geom_xpos, geom_xmat, margin,
   tilt) entries, an SDF group in `collision_sdf.collide`'s chunks;
   margin (P,) or (W, P)."""
   W = geom_xpos.shape[0]
+  if grp['extra'] == 'hfield':
+    return _hfield_narrowphase(m, grp, geom_xpos, geom_xmat)
   if grp['extra'] == 'sdf':
     ga, gb = grp['g1'], grp['g2']
     return grp['fn'](grp['side1'], grp['side2'], grp['slots'],
@@ -311,6 +333,30 @@ def narrowphase(m: Model, grp: dict, geom_xpos, geom_xmat, margin,
     if grp['extra'].endswith('margin'):
       extra += (margin if margin.dim() == 1 else margin[ws],)
     outs.append(grp['fn'](*geo, *extra))
+  return tuple(torch.cat(x, 0) for x in zip(*outs))
+
+
+def _hfield_narrowphase(m: Model, grp: dict, geom_xpos, geom_xmat):
+  """A height field group's (dist, pos, frame), (W, P, NCONH, ...), its
+  pairs in grp['order'], in chunks of worlds of at most HFIELD_ELEMENTS
+  (world, pair, candidate) entries."""
+  W = geom_xpos.shape[0]
+  t2 = grp['t2']
+  per_world = grp['n'] * collision_hfield.candidates(t2)
+  wc = max(1, HFIELD_ELEMENTS // per_world)
+  outs = []
+  for w in range(0, W, wc):
+    gx, gm = geom_xpos[w:w + wc], geom_xmat[w:w + wc]
+    parts = []
+    for h, hid, pairs in grp['fields']:
+      g2 = grp['g2'][pairs]
+      shape = (gx.shape[0], len(pairs))
+      parts.append(grp['fn'](
+          t2, m.hfield_data[hid], m.hfield_nrow[hid], m.hfield_ncol[hid],
+          m.hfield_size[hid], gx[:, h, None].expand(shape + (3,)),
+          gm[:, h, None].expand(shape + (3, 3)), gx[:, g2], gm[:, g2],
+          m.geom_size[g2].expand(shape + (3,))))
+    outs.append(tuple(torch.cat(x, 1) for x in zip(*parts)))
   return tuple(torch.cat(x, 0) for x in zip(*outs))
 
 
@@ -398,7 +444,8 @@ def collision(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
       row = (start + sel).repeat_interleave(k, dim=1)
     else:
       dist, pos, frame = narrowphase(m, grp, geom_xpos, geom_xmat, margin)
-      row = torch.arange(start, start + n, device=dev).repeat_interleave(k)
+      row = (start + grp['order'] if 'order' in grp else
+             torch.arange(start, start + n, device=dev)).repeat_interleave(k)
     npair = dist.shape[1]
     dists.append(dist.reshape(W, npair * k))
     poss.append(pos.reshape(W, npair * k, 3))

@@ -101,10 +101,10 @@ def plane_box(p1, m1, s1, p2, m2, s2):
 def plane_mesh(p1, m1, s1, p2, m2, s2, v1, v2):
   """The 4 hull vertices of the mesh deepest below the plane, deepest
   first, ties to the lower vertex (the order of `jax.lax.top_k`), padding
-  at 1e10: four rounds of argmin (the first of equal ones), each taking
-  its vertex out. A vertex's depth is the mesh origin's plus the vertex
-  along the normal in the mesh frame (the JAX package moves every vertex
-  into the world first: the same value to rounding); the hull v2 (...,
+  at 1e10 (`math.top_k` of the negated depths). A vertex's depth is the
+  mesh origin's plus the vertex along the normal in the mesh frame (the
+  JAX package moves every vertex into the world first: the same value to
+  rounding); the hull v2 (...,
   V, 4) may be shared by leading axes of the poses (the worlds), whose
   depths then come from one batched product."""
   n = m1[..., :, 2]
@@ -118,13 +118,7 @@ def plane_mesh(p1, m1, s1, p2, m2, s2, v1, v2):
   dots = (v2[..., :3] @ xt).movedim(-1, 0).reshape(lead + batch + (nv,))
   dists = math.dot3(p2 - p1, n)[..., None] + dots
   dists = torch.where(v2[..., 3] > 0, dists, 1e10)
-  left = dists.clone()
-  picks = []
-  for _ in range(4):
-    i = torch.argmin(left, -1, keepdim=True)
-    picks.append(i)
-    left.scatter_(-1, i, float('inf'))
-  idx = torch.cat(picks, -1)
+  idx = math.top_k(-dists, 4)
   dist = torch.gather(dists, -1, idx)
   verts = torch.gather(v2[..., :3].expand(idx.shape[:-1] + (nv, 3)), -2,
                        idx[..., None].expand(idx.shape + (3,)))

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import collision_convex
+from . import collision_hfield
 from . import types
 from .types import (BiasType, ConeType, Contact, Data, DisableBit, DynType,
                     EnableBit, EqType, GainType, GeomType, IntegratorType,
@@ -49,6 +50,12 @@ MPR_PAIRS = frozenset({(GeomType.SPHERE, GeomType.MESH),
 SDF_PARTNERS = frozenset({GeomType.PLANE, GeomType.SPHERE, GeomType.CAPSULE,
                           GeomType.ELLIPSOID, GeomType.CYLINDER,
                           GeomType.BOX, GeomType.MESH, GeomType.SDF})
+# the types a height field pairs with (`mujoco_warp_tpu/io.py:391-394`,
+# :412 for a <pair>); such a pair runs the height-field narrowphase
+# (`collision_hfield.py`) with collision_hfield.NCONH candidate contacts
+HFIELD_PARTNERS = frozenset({GeomType.SPHERE, GeomType.CAPSULE,
+                             GeomType.ELLIPSOID, GeomType.CYLINDER,
+                             GeomType.BOX})
 # the voxel grids' resolution when MJWT_SDF_RES is unset (the JAX
 # package's default, `mujoco_warp_tpu/io.py:716`)
 SDF_RES = 48
@@ -236,11 +243,20 @@ def is_sdf_pair(t1: int, t2: int) -> bool:
   return t2 == GeomType.SDF and t1 in SDF_PARTNERS
 
 
+def is_hfield_pair(t1: int, t2: int) -> bool:
+  """Whether a (t1, t2) pair, t1 <= t2, runs the height-field
+  narrowphase."""
+  return t1 == GeomType.HFIELD and t2 in HFIELD_PARTNERS
+
+
 def pair_slots(t1: int, t2: int, opt) -> int:
   """Candidate contacts of one pair of types (t1, t2) under the options
   opt (a compiled model's or a Model's): MAX_CONTACTS for an analytic
   collider, `collision_convex.manifold_ncon` for MPR, sdf_initpoints for
-  an SDF pair (JAX `_k`, `mujoco_warp_tpu/io.py:423-432`)."""
+  an SDF pair, NCONH for a height-field pair (JAX `_k`,
+  `mujoco_warp_tpu/io.py:423-432`)."""
+  if is_hfield_pair(t1, t2):
+    return collision_hfield.NCONH
   if (t1, t2) in MAX_CONTACTS:
     return MAX_CONTACTS[(t1, t2)]
   if is_sdf_pair(t1, t2):
@@ -257,7 +273,7 @@ def _refuse_unported(keys, explicit=False):
       raise NotImplementedError(
           f'explicit <pair> with an SDF geom {key} is not ported')
     if (key not in MAX_CONTACTS and key not in MPR_PAIRS and
-        not is_sdf_pair(*key)):
+        not is_sdf_pair(*key) and not is_hfield_pair(*key)):
       raise NotImplementedError(f'collision pair type {key} is not ported')
 
 
@@ -499,6 +515,21 @@ def _build_sdf_grids(mjm):
   return np.stack(grids), np.stack(aabbs), grid_of_mesh
 
 
+def _hfield_data(mjm) -> np.ndarray:
+  """(nhfield, max nrow, max ncol) float32 each height field's
+  normalized heights, zero-padded; (0, 1, 1) without (mirrors
+  `mujoco_warp_tpu/io.py:780`)."""
+  if mjm.nhfield == 0:
+    return np.zeros((0, 1, 1), np.float32)
+  out = np.zeros((mjm.nhfield, int(mjm.hfield_nrow.max()),
+                  int(mjm.hfield_ncol.max())), np.float32)
+  for i in range(mjm.nhfield):
+    nr, nc = int(mjm.hfield_nrow[i]), int(mjm.hfield_ncol[i])
+    adr = int(mjm.hfield_adr[i])
+    out[i, :nr, :nc] = mjm.hfield_data[adr:adr + nr * nc].reshape(nr, nc)
+  return out
+
+
 def _collision_pairs(mjm):
   """Filtered geom pairs grouped by (type1, type2): contype/conaffinity,
   same-weld, parent-child and <exclude> filters, then explicit <pair>s
@@ -669,7 +700,9 @@ def put_model(mjm, device='cuda') -> Model:
     collision_pairs, nxn_candidates = _collision_pairs(mjm)
   hulls = _mesh_hulls(mjm)
   sdf_grids, sdf_grid_aabb, sdf_grid_of_mesh = _build_sdf_grids(mjm)
-  leaves.update(sdf_grids=sdf_grids, sdf_grid_aabb=sdf_grid_aabb)
+  leaves.update(sdf_grids=sdf_grids, sdf_grid_aabb=sdf_grid_aabb,
+                hfield_size=f32(mjm.hfield_size).reshape(mjm.nhfield, 4),
+                hfield_data=_hfield_data(mjm))
   leaves.update(sap_pairs=sap_pairs, sap_pairid=sap_pairid,
                 geom_aabb=f32(mjm.geom_aabb).reshape(mjm.ngeom, 2, 3),
                 geom_rbound=f32(mjm.geom_rbound), mesh_hullvert=hulls,
@@ -727,6 +760,9 @@ def put_model(mjm, device='cuda') -> Model:
       nxn_candidates=nxn_candidates,
       sap_families=sap_families,
       sdf_grid_of_mesh=tuple(sdf_grid_of_mesh),
+      nhfield=mjm.nhfield,
+      hfield_nrow=_tup(mjm.hfield_nrow),
+      hfield_ncol=_tup(mjm.hfield_ncol),
       condim_max=_condim_max(mjm),
       pair_dim=_tup(mjm.pair_dim),
       has_damping=bool(np.any(mjm.dof_damping > 0)),

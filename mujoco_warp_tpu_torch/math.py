@@ -171,3 +171,16 @@ def closest_segment_segment(a0, a1, b0, b1):
   s = torch.where(t != t_clamped,
                   torch.clamp((b * t_clamped - c) / a_safe, 0.0, 1.0), s)
   return a0 + d1 * s[..., None], b0 + d2 * t_clamped[..., None]
+
+
+def top_k(key: torch.Tensor, k: int) -> torch.Tensor:
+  """(..., k) indices of the k greatest of key (..., N), greatest first,
+  ties to the lower index (`jax.lax.top_k`'s rule): k rounds of
+  `torch.argmax`, which takes the first of equal values, each taking
+  its pick out."""
+  out = []
+  for _ in range(k):
+    i = torch.argmax(key, -1, keepdim=True)
+    out.append(i)
+    key = key.scatter(-1, i, float('-inf'))
+  return torch.cat(out, -1)

@@ -11,7 +11,10 @@ data) and `apptronik_apollo_flat.npz` of the suite's
 humanoid on a plane, nv 25, four IMU sensors; no mesh is read) and
 `apptronik_apollo_terrain.npz` of `scene_terrain.xml` (the same robot on
 5,272 boxes of terrain: 95,021 admissible pairs, so the Model takes the
-large-scene broadphase and holds its pair arrays) and `aloha_pot.npz` of
+large-scene broadphase and holds its pair arrays) and
+`apptronik_apollo_hfield.npz` of `scene_hfield.xml` (the same robot on a
+588 x 1,121 height field, whose normalized heights the Model holds) and
+`aloha_pot.npz` of
 `benchmarks/scenes/aloha_pot/scene.xml` (two ALOHA arms over a pot on a
 table: nv 23, 190 mesh geoms whose convex hulls, full and decimated, the
 Model holds, and the keyframe names of the `lift_pot` replay) and
@@ -52,6 +55,9 @@ APOLLO_NPZ = os.path.join(_DIR, 'apptronik_apollo_flat.npz')
 APOLLO_TERRAIN = os.path.join(_ROOT, 'benchmarks', 'scenes',
                               'apptronik_apollo', 'scene_terrain.xml')
 APOLLO_TERRAIN_NPZ = os.path.join(_DIR, 'apptronik_apollo_terrain.npz')
+APOLLO_HFIELD = os.path.join(_ROOT, 'benchmarks', 'scenes',
+                             'apptronik_apollo', 'scene_hfield.xml')
+APOLLO_HFIELD_NPZ = os.path.join(_DIR, 'apptronik_apollo_hfield.npz')
 ALOHA_POT = os.path.join(_ROOT, 'benchmarks', 'scenes', 'aloha_pot',
                          'scene.xml')
 ALOHA_POT_NPZ = os.path.join(_DIR, 'aloha_pot.npz')

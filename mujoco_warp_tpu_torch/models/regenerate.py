@@ -17,6 +17,7 @@ SOURCES = ((models.HUMANOID, models.HUMANOID_NPZ),
            (models.FRANKA, models.FRANKA_NPZ),
            (models.APOLLO, models.APOLLO_NPZ),
            (models.APOLLO_TERRAIN, models.APOLLO_TERRAIN_NPZ),
+           (models.APOLLO_HFIELD, models.APOLLO_HFIELD_NPZ),
            (models.ALOHA_POT, models.ALOHA_POT_NPZ),
            (models.ALOHA_SDF, models.ALOHA_SDF_NPZ))
 

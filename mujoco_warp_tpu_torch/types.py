@@ -326,6 +326,10 @@ class Model(_Tensors):
   sap_families: Tuple[Any, ...]
   # each mesh's row of sdf_grids (-1 for none; (-1,) without meshes)
   sdf_grid_of_mesh: IntTuple
+  # height fields: their number and each one's grid rows and columns
+  nhfield: int
+  hfield_nrow: IntTuple
+  hfield_ncol: IntTuple
   condim_max: int
   pair_dim: IntTuple
   has_damping: bool
@@ -422,6 +426,11 @@ class Model(_Tensors):
   # (center, half sizes); (1, 1, 1, 1) and (1, 2, 3) zeros without
   sdf_grids: torch.Tensor
   sdf_grid_aabb: torch.Tensor
+  # (nhfield, 4) each height field's size (x, y half extents, top height,
+  # base depth) and (nhfield, max nrow, max ncol) its heights normalized
+  # to [0, 1], zero-padded; (0, 4) and (0, 1, 1) without
+  hfield_size: torch.Tensor
+  hfield_data: torch.Tensor
   # (neq, 11) data (a JOINT equality's polycoef in 0:5), (neq, 2),
   # (neq, 5), (neq,) bool
   eq_data: torch.Tensor

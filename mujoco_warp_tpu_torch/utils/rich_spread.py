@@ -13,7 +13,11 @@ SCENE (apollo by default) is one of
           B3e in mode 1;
   aloha_sdf  phase (v)'s rich state (aloha_sdf at 8192 worlds, nconmax
           32, gripper_gripper_pot with noise on the arms), kernel B3e in
-          mode 1.
+          mode 1;
+  apollo_hfield  P19's state (phase (w): apptronik_apollo_hfield at 8192
+          worlds, nconmax 32, keyframe 0 stepped as many steps as P19's
+          timed run takes; seeds past 0 add QPOS_NOISE first), kernel B3
+          in mode 0.
 For each seed (0 to SEEDS - 1, 4 by default; seed 0 is chip_smoke's
 state) runs the solve on the state's inputs six ways: the kernel of this
 checkout; the same source built with `--fmad=false` (no multiply-add
@@ -24,7 +28,8 @@ float64 solve's (their units in all, and how many of them the float32
 plain solve shares), the worlds more than TOL_OBJ above the float32
 plain solve's, the worlds over chip_smoke's elliptic tolerances
 (`_check_ell_solve`'s) against it and against the float64 solve, and
-the mean solver_niter. On aloha and aloha_sdf it also prints, once, how far kernel
+the mean solver_niter. On aloha, aloha_sdf and apollo_hfield it also
+prints, once, how far kernel
 B1's outputs lie from its plain version's in float32 ulps at their scale
 (max(1, max |plain|), as chip_smoke compares them), beside the plain
 version's own after qpos moves by 1, 2, 4 and 8 ulps. Needs a card.
@@ -38,7 +43,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 TOL_OBJ = 1.0
-SCENES = ('apollo', 'aloha', 'aloha_sdf')
+SCENES = ('apollo', 'aloha', 'aloha_sdf', 'apollo_hfield')
 
 
 @contextlib.contextmanager
@@ -75,6 +80,15 @@ def _states(scene, seeds):
   if scene == 'apollo':
     m = mt.load_model(models.APOLLO_NPZ, device='cuda')
     W, C = cs.APOLLO_NWORLD, cs.APOLLO_NCONMAX
+  elif scene == 'apollo_hfield':
+    from mujoco_warp_tpu_torch.utils import benchmark as bench
+    m = mt.load_model(models.APOLLO_HFIELD_NPZ, device='cuda')
+    W, C = cs.HFIELD_NWORLD, cs.HFIELD_NCONMAX
+    d0 = io.reset_data(m, mt.make_data(m, nconmax=C), keyframe=0)
+
+    def state(m, d0, W, gen, noise):
+      d = mt.make_batch(m, d0, W, qpos_noise=noise, generator=gen)
+      return bench.rollout(m, d, bench.total_steps(cs.HFIELD_NSTEP))
   elif scene == 'aloha':
     m = mt.load_model(models.ALOHA_POT_NPZ, device='cuda')
     W, C = cs.ALOHA_NWORLD, cs.ALOHA_NCONMAX
@@ -95,6 +109,10 @@ def _states(scene, seeds):
                     qpos_noise=cs.QPOS_NOISE, generator=gen)
       _, _, _, g_in = cs._glue_inputs(m, cs._apollo_rich(m, W, gen), C)
       out.append((seed, g_in, None, None))
+    elif scene == 'apollo_hfield':
+      d = state(m, d0, W, gen, cs.QPOS_NOISE if seed else 0.0)
+      _, _, _, g_in = cs._collision_glue_inputs(m, d, C)
+      out.append((seed, g_in, None, d))
     else:
       d = state(m, d0, W, gen)
       _, con, efc, g_in = cs._collision_glue_inputs(m, d, C)
@@ -146,7 +164,7 @@ def main(argv) -> int:
   _build.build_all()
   m, W, states = _states(scene, seeds)
   unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * m.nv
-  resolve = scene != 'apollo'
+  resolve = scene not in ('apollo', 'apollo_hfield')
   tol = dict(qacc=cs.TOL_B3_OTHER, qacc_smooth=cs.TOL_B3_OTHER,
              qLD=cs.TOL_B3_OTHER,
              qacc_euler=5e-4 if resolve else cs.TOL_B3_OTHER,
@@ -154,7 +172,7 @@ def main(argv) -> int:
   f64 = lambda xs: [x.double() if torch.is_tensor(x) and
                     x.is_floating_point() else x for x in xs]
   print(f'{scene} at {W} worlds: unit {unit:.4g} ({card()})')
-  if resolve:
+  if states[0][3] is not None:
     for name, row in _b1_ulps(m, states[0][3]).items():
       print(f'  seed 0 {name:20s} ulps at scale (median, max over the '
             f'worlds): ' + ', '.join(f'{k} {a:.2f}/{b:.1f}'
