@@ -254,6 +254,25 @@ Phases:
       HFIELD_REPLAY replayed steps against eager ones bit for bit; the
       card's time of each stage and group; time B1 and B3 on
       apollo_hfield (the rich state's inputs), with their bounds.
+  (x) kitchen (the suite's benchmarks/suite.py:42-48 row, KITCHEN_NWORLD
+      worlds, nconmax KITCHEN_NCONMAX; run after (w)): the model's SAP
+      families (cylinder-cylinder and cylinder-box through MPR, box-box),
+      candidate slots, efc layout and stage list (the unfused list with
+      the SAP `collision` and `make_constraint`: B1, B7, B5, B7 euler; no
+      B2, B3 or B4), B1's worlds a block and bytes a world; the rich
+      state (`_kitchen_rich`) with its contacts by pair type (it fails
+      without cylinder-cylinder and cylinder-box contacts); B1 against its
+      plain version, B7 (with the factor and as the Euler re-solve) and B5
+      (the Hessian of the first Newton direction) by residual and forward
+      error, the MPR families' narrowphase in float32 against float64
+      (`_hold_sap_narrowphase`); from counts at 0, P20 (the suite's step
+      from qpos0, KITCHEN_NSTEP steps, eager): B1 once a step, B7 twice
+      (once without the factor), B5 once a Newton direction, no B2, B3 or
+      B4, printed as `step_kitchen` with one eager step's peak memory and
+      the mean ncon, ncollision and solver_niter; one step against the
+      all-plain step; the card's time of each stage and family; time B1,
+      B7, B7 euler and B5 on kitchen (the rich state's inputs), with
+      their bounds.
 One JSON line lists every kernel's record; a replayed path's launches
 are those the card ran, by kernel name.
 
@@ -712,6 +731,45 @@ HFIELD_TOL = 1e-4
 HFIELD_SHARE = 0.01
 HFIELD_FACTOR = 1.5
 HFIELD_QPOS_ULPS = 1
+# Phase (x), kitchen (benchmarks/scenes/kitchen/kitchen.xml, the suite's
+# row, benchmarks/suite.py:42-48): 256 worlds, nconmax 64, from qpos0
+# (the model has no keyframe), eager (the unfused solve syncs the host
+# each pass). P20 runs KITCHEN_NSTEP steps in all (the harness's first,
+# 20 warm-up and the rest timed): the suite's 100. B1, B5, B7 and B7
+# euler are held on the rich state (`_kitchen_rich`: the joints drawn
+# across their ranges, doors through doors, cylinders on boxes and on
+# cylinders); the MPR families' narrowphase in float32 against float64
+# by P19's witness rule (`_hold_sap_narrowphase`): a pair is off over
+# KITCHEN_TOL (P19's HFIELD_TOL) or with another number of contacts,
+# and the off pairs may number the larger of the family's KITCHEN_SHARE
+# of the pairs with a candidate and KITCHEN_FACTOR times the witness's
+# (the float64 collider after one ulp of the frames). Float32 MPR
+# between cylinders parts from float64 by more than the other
+# narrowphases (flat caps and sides), and more often than its witness:
+# each share is set between float32's and a control's (the float32
+# collider on frames rounded to float16), which the hold must fail
+# (mujoco_warp_tpu_torch/utils/mpr_spread.py on the rich state at 256
+# worlds, NVIDIA H100 80GB HBM3 at 700 W: off 0.430 of the
+# cylinder-cylinder pairs with a candidate and 0.129 of the
+# cylinder-box ones in float32, 0.903 and 0.789 in the control, the
+# witness 31 of 402 and 443 of 4,565; the CPU at 64 worlds: 0.415 and
+# 0.130, 0.919 and 0.774).
+# P20's step against the all-plain step (`_compare_step_exact`): the
+# pool is full (64 of several hundred contacts, many resting face on
+# face at ties in dist), so a change of B1's outputs by an ulp changes
+# which contacts fill it, and with them efc_J and qacc, in most worlds
+# whose row sets still agree (mujoco_warp_tpu_torch/utils/pool_spread.py
+# measures it). The all-plain step's own spread is taken after B1's
+# outputs move by one ulp (`_smooth_moved`), not after qpos moves: the
+# noise clips joints to their ranges, and an ulp past a bound flips a
+# limit row in every world.
+KITCHEN_NWORLD = 256
+KITCHEN_NCONMAX = 64
+KITCHEN_NSTEP = 100
+KITCHEN_TOL = 1e-4
+KITCHEN_SHARE = {'cylinder-cylinder': 0.55, 'cylinder-box': 0.3}
+KITCHEN_FACTOR = 2.0
+KITCHEN_QVEL = 0.1
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -1823,6 +1881,20 @@ def _check_excused(label, m, solves, worlds, tol_obj, per_world=True,
         f'{" and the float64 solve" if exact else ""}')
 
 
+def _agree(sets, sets_p):
+  """The worlds (bool (W,)) whose contact and row sets, as
+  `_step_recording` returns them, equal sets_p's in every evaluation of
+  the dynamics."""
+  import torch
+  if not sets or len(sets) != len(sets_p):
+    raise RuntimeError(f'{len(sets)} and {len(sets_p)} evaluations')
+  same = torch.ones_like(sets_p[0][0], dtype=torch.bool)
+  for (ncon, typ, act), (ncon_p, type_p, act_p) in zip(sets, sets_p):
+    same &= ((ncon == ncon_p) & (typ == type_p).all(1) &
+             (act == act_p).all(1))
+  return same
+
+
 def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ,
                   spread=False, exact=False):
   """One step of the kernel path against the all-plain step on the same
@@ -1846,14 +1918,7 @@ def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ,
   if len(sets_k) != len(sets_p) or len(solves) != len(sets_k) or not sets_k:
     raise RuntimeError(f'{label}: {len(sets_k)} and {len(sets_p)} '
                        f'evaluations, {len(solves)} solves')
-
-  def agree(sets):
-    """Worlds whose contact and row sets equal the all-plain step's."""
-    same = torch.ones(W, dtype=torch.bool, device=d.qpos.device)
-    for (ncon, typ, act), (ncon_p, type_p, act_p) in zip(sets, sets_p):
-      same &= ((ncon == ncon_p) & (typ == type_p).all(1) &
-               (act == act_p).all(1))
-    return same
+  agree = lambda sets: _agree(sets, sets_p)
 
   def over(dd, same, k):
     """Worlds of `same` whose k is over tol of the all-plain step's."""
@@ -1883,7 +1948,8 @@ def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ,
           f'scale {scale:.1f} (allowed {allowed + extra}{ulp(extra)}; '
           f'their max '
           f'{float(err[same].max()):.3e}); the rest within '
-          f'{float(err[held].max()):.3e}; median '
+          f'{float(err[held].max()) if bool(held.any()) else 0.0:.3e}; '
+          f'median '
           f'{float(err[same].median()):.3e}')
     if n > allowed + extra:
       raise RuntimeError(f'{label}: {k} differs from the all-plain step '
@@ -1892,6 +1958,30 @@ def _compare_step(label, m, d, tol, keys=('qacc',), tol_obj=TOL_OBJ,
                  per_world=exact or not spread, exact=exact)
   dn = (d_k.solver_niter - d_p.solver_niter).abs()
   print(f'  {label}: solver_niter |diff| histogram {dn.bincount().tolist()}')
+
+
+def _hold_unfused_solve(label, m, solves, tol):
+  """The kernel step's unfused solve (`solver.solve`, B5 a Newton
+  direction) against the plain solve on the same inputs: qacc at tol of
+  scale in all but max(8, nworld / 1000) worlds, those held by
+  `_check_excused`."""
+  import torch
+  from mujoco_warp_tpu_torch import solver
+  (_, args, kw, out), = solves
+  with _plain_kernels():
+    ref = solver.solve(*args, **kw)
+  W = out['qacc'].shape[0]
+  scale = max(1.0, float(ref['qacc'].abs().max()))
+  err = (out['qacc'] - ref['qacc']).abs().amax(1) / scale
+  over = err > tol
+  allowed = max(8, W // 1000)
+  print(f'  {label}: against the plain solve on the same inputs: '
+        f'{int(over.sum())} of {W} worlds over {tol:g} of scale {scale:.1f} '
+        f'(allowed {allowed}; largest {float(err.max()):.3e})')
+  if int(over.sum()) > allowed:
+    raise RuntimeError(f'{label}: the solve differs from the plain solve '
+                       f'in {int(over.sum())} worlds')
+  _check_excused(label, m, solves, over, TOL_OBJ)
 
 
 def _glue_inputs(m, d, nconmax=NCONMAX):
@@ -3111,7 +3201,7 @@ def _pair_counts(m, con) -> dict:
   gtype = torch.tensor(m.geom_type, device=geom.device)
   t1, t2 = gtype[geom[..., 0].clamp(min=0)], gtype[geom[..., 1].clamp(min=0)]
   out = {}
-  for a, b, _ in m.collision_pairs:
+  for a, b in [g[:2] for g in m.collision_pairs + m.sap_families]:
     name = f'{GeomType(a).name.lower()}-{GeomType(b).name.lower()}'
     out[name] = int((active & (t1 == a) & (t2 == b)).sum())
   return out
@@ -3581,31 +3671,56 @@ def _hold_b3e_aloha(label, m, g_in, cone, out=None,
                           over_exact=True)
 
 
+def _smooth_moved(gen):
+  """B1's plain version with each floating output moved by one ulp, up
+  or down at random (from gen): a change of B1's outputs of the size of
+  B1's own rounding."""
+  import torch
+  from mujoco_warp_tpu_torch import smooth
+
+  def moved(m, qpos, qvel):
+    out = smooth.smooth(m, qpos, qvel)
+    for k, v in out.items():
+      if k != 'qpos' and v.is_floating_point():
+        up = torch.rand(v.shape, generator=gen, device=v.device) < 0.5
+        out[k] = torch.nextafter(v, torch.where(up, math.inf, -math.inf)
+                                 .to(v.dtype))
+    return out
+  return moved
+
+
 def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel'),
                         ulps=ALOHA_QPOS_ULPS, factor=ALOHA_OBJ_FACTOR,
-                        hold=None):
-  """One P17 step of the kernels against the all-plain step on the same
-  state (see the note on B3e before ALOHA_NWORLD): the contact and row
-  sets as _compare_step holds them, with the all-plain step's spread
-  after a change of qpos by `ulps` ulps (ALOHA_QPOS_ULPS, B1's own
-  distance from its plain version on P17's state, see there; SDF_QPOS_ULPS
-  on P18's); the kernel step's solve by `_hold_b3e_aloha` (at `factor`)
-  on its own inputs; and keys at tol of scale over
-  the worlds whose sets agree and whose kernel and plain solves both end
-  within TOL_OBJ units of the float64 solve on their own inputs. A world
-  over tol is excused where each step's key lies within tol / 10 of the
-  float64 solve on that step's own inputs: there at least four fifths of
-  the two steps' difference lies in their inputs, which part only by
-  B1's rounding (held here per world at TOL_B1 on the same state), as
-  the stiff rows amplify it (or, on P19, as MPR's witness on a sole's
-  flat face moves with it). The other worlds over tol may number at most
-  max(8, nworld / 1000) plus twice the all-plain step's own over the same
-  rule after that change of qpos. With `hold` (P19's B3, a pyramidal
-  solve), hold(label, the solve's inputs, the kernel step's Data) holds
-  the kernel step's solve in `_hold_b3e_aloha`'s place."""
+                        hold=None, gen=None):
+  """One step of the kernels against the all-plain step on the same
+  state (P17, see the note on B3e before ALOHA_NWORLD; P18, P19, P20):
+  the contact and row sets as _compare_step holds them, with the
+  all-plain step's spread after a change of qpos by `ulps` ulps
+  (ALOHA_QPOS_ULPS, B1's own distance from its plain version on P17's
+  state, see there; SDF_QPOS_ULPS on P18's) or, given a generator
+  `gen` (P20, see KITCHEN_NWORLD), after B1's outputs move by one ulp
+  each (`_smooth_moved`); the kernel step's solve by
+  `_hold_b3e_aloha` (at `factor`) on its own inputs; and keys at tol of
+  scale over the worlds whose sets agree and whose kernel and plain
+  solves both end within TOL_OBJ units of the float64 solve on their own
+  inputs. A world over tol is excused where each step's key lies within
+  tol / 10 of the float64 solve on that step's own inputs (for qvel, the
+  float64 solve advanced in float64, with the damped re-solve where the
+  step re-solves): there at least four fifths of the two steps'
+  difference lies in their inputs, which part only by B1's rounding
+  (held here per world at TOL_B1 on the same state), as the stiff rows
+  amplify it (or, on P19, as MPR's witness on a sole's flat face moves
+  with it). The other worlds over tol may number at most max(8, nworld
+  / 1000) plus twice the all-plain step's own over the same rule after
+  that change of qpos. The solve is B3's or B3e's (the glue step) or,
+  on P20, the unfused `solver.solve`'s. With `hold`, hold(label, the
+  kernel step's recorded solves, the kernel step's Data) holds the
+  kernel step's solve in `_hold_b3e_aloha`'s place (P19's B3, a
+  pyramidal solve; P20's unfused solve)."""
   import torch
-  from mujoco_warp_tpu_torch import forward, smooth
+  from mujoco_warp_tpu_torch import forward, smooth, solver
   from mujoco_warp_tpu_torch.kernels import smooth as ks
+  from mujoco_warp_tpu_torch.types import DisableBit
   W = d.nworld
   _compare(f'{label} B1', ks.smooth(m, d.qpos, d.qvel),
            smooth.smooth(m, d.qpos, d.qvel), TOL_B1, smooth.OUTPUTS)
@@ -3613,41 +3728,64 @@ def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel'),
   q = d.qpos
   for _ in range(ulps):
     q = _next_ulp(q)
+  witness = (f'qpos + {ulps} ulps' if gen is None else
+             'B1\'s outputs moved by one ulp')
   with _plain_kernels():
     d_p, sets_p, solves_p = _step_recording(m, d)
-    d_u, sets_u, solves_u = _step_recording(m, d.replace(qpos=q))
-
-  def agree(sets):
-    same = torch.ones(W, dtype=torch.bool, device=d.qpos.device)
-    for (ncon, typ, act), (ncon_p, type_p, act_p) in zip(sets, sets_p):
-      same &= ((ncon == ncon_p) & (typ == type_p).all(1) &
-               (act == act_p).all(1))
-    return same
-  same, same_u = agree(sets_k), agree(sets_u)
+    if gen is None:
+      d_u, sets_u, solves_u = _step_recording(m, d.replace(qpos=q))
+    else:
+      plain_smooth, ks.smooth = ks.smooth, _smooth_moved(gen)
+      try:
+        d_u, sets_u, solves_u = _step_recording(m, d)
+      finally:
+        ks.smooth = plain_smooth
+  same, same_u = _agree(sets_k, sets_p), _agree(sets_u, sets_p)
   allowed = max(8, W // 1000)
   nbad, extra = W - int(same.sum()), 2 * (W - int(same_u.sum()))
   print(f'  {label}: {nbad} of {W} worlds with a different contact/row set '
-        f'(allowed {allowed + extra}; the spread after qpos + '
-        f'{ulps} ulps {extra // 2})')
+        f'(allowed {allowed + extra}; the spread after {witness} '
+        f'{extra // 2})')
   if nbad > allowed + extra:
     raise RuntimeError(f'{label}: {nbad} worlds differ in their row sets')
-  (_, args, kw, out), = solves_k
-  if hold is None:
+  (kind, args, kw, out), = solves_k
+  if hold is not None:
+    hold(f'{label} solve', solves_k, d_k)
+  elif kind == 'glue':
     _hold_b3e_aloha(f'{label} solve', m, args[1:], kw['cone'], out, factor)
   else:
-    hold(f'{label} solve', args[1:], d_k)
+    raise ValueError(f'{label}: a {kind} solve needs a hold')
   unit = float(m.opt.tolerance) * float(m.stat.meaninertia) * max(1, m.nv)
+  f64 = lambda x: (x.double() if torch.is_tensor(x) and
+                   x.is_floating_point() else
+                   tuple(f64(y) for y in x) if isinstance(x, tuple) else x)
+  h = m.opt.timestep
+  dis = m.opt.disableflags
+  damped = (m.has_damping and not dis & DisableBit.EULERDAMP and
+            not dis & DisableBit.DAMPER)
 
   def solved(solves):
     """(whether the solve ends within TOL_OBJ units of the float64 solve
-    on its inputs, the float64 solve's outputs)."""
-    (_, a, k, o), = solves
-    f64 = lambda x: (x.double() if torch.is_tensor(x) and
-                     x.is_floating_point() else x)
+    on its inputs, the float64 solve's outputs, with qvel)."""
+    (kind, a, k, o), = solves
     cone = k.get('cone')
-    ex = forward.glue(*[f64(x) for x in a], **(
-        {} if cone is None else dict(cone=tuple(f64(c) for c in cone))))
-    obj = lambda q: _objective(m, *a[1:6], o['qfrc_smooth'], q, cone)
+    if kind == 'glue':
+      ex = forward.glue(*[f64(x) for x in a], **(
+          {} if cone is None else dict(cone=f64(cone))))
+      qfs = o['qfrc_smooth']
+    else:
+      # the unfused solve, then `forward._euler`'s advance of qvel
+      with _plain_kernels():
+        ex = solver.solve(*[f64(x) for x in a],
+                          **{n: f64(v) for n, v in k.items()})
+      qM, qfs = a[1].double(), a[7]
+      qacc = ex['qacc']
+      if damped:
+        qacc = torch.linalg.solve(
+            qM + torch.diag(h * m.dof_damping.double()),
+            qfs.double() + ex['qfrc_constraint'])
+      ex = dict(ex, qvel=d.qvel.double() + h * qacc)
+    obj = lambda q: _objective(m, *a[1:6], qfs, q, cone)
     return (obj(o['qacc']) - obj(ex['qacc'])) / unit <= TOL_OBJ, ex
   (good_k, x_k), (good_p, x_p), (good_u, x_u) = (
       solved(s) for s in (solves_k, solves_p, solves_u))
@@ -3670,8 +3808,8 @@ def _compare_step_exact(label, m, d, tol, keys=('qacc', 'qvel'),
           f'there against the float64 solve on its own inputs: kernel '
           f'{fmt(off(a, x_k))}, plain {fmt(off(b, x_p))}; not excused '
           f'(within {tol / 10:g} of it) {n} (allowed {allowed + 2 * n_u}; '
-          f'the spread after qpos + {ulps} ulps '
-          f'{int(bad_u.sum())}, not excused {n_u})')
+          f'the spread after {witness} {int(bad_u.sum())} of '
+          f'{int(held_u.sum())}, not excused {n_u})')
     if n > allowed + 2 * n_u:
       raise RuntimeError(f'{label}: {k} differs from the all-plain step '
                          f'in {n} worlds')
@@ -4203,6 +4341,34 @@ def _aloha_sdf(card) -> list:
   print(f'phase (v): {time.perf_counter() - t0:.1f} s of wall time ({card})')
   return records
 
+def _float64_off(a, b, scale, mpr, tol):
+  """A narrowphase's float32 candidates a (dist, pos, frame) against its
+  float64 ones b, (W, P, k, ...): (W, P) pairs off, (W, P) errors, (W, P)
+  pairs with a candidate and (W, P) pairs with another number of
+  candidates. A candidate's error is the largest of |dist|, the
+  normal's and the position's (with `mpr`, the position along the
+  normal: MPR's witness moves along a face with rounding) over scale,
+  against b's nearest candidate; a pair is off where a candidate's error
+  is over tol or the two keep different numbers of candidates."""
+  import torch
+  live_a, live_b = a[0] < 1e9, b[0] < 1e9
+  # (..., ka, kb) errors of every candidate of a against every one of b
+  dd = (a[0].double()[..., :, None] - b[0][..., None, :]).abs()
+  dn = (a[2][..., 0, :].double()[..., :, None, :] -
+        b[2][..., 0, :][..., None, :, :]).abs().amax(-1)
+  dp = a[1].double()[..., :, None, :] - b[1][..., None, :, :]
+  if mpr:
+    dp = (dp * b[2][..., 0, :][..., None, :, :]).sum(-1).abs()
+  else:
+    dp = dp.abs().amax(-1)
+  err = torch.maximum(torch.maximum(dd, dn), dp / scale)
+  err = torch.where(live_b[..., None, :], err, float('inf')).amin(-1)
+  err = torch.where(live_a, err, 0.0).amax(-1)
+  cand = live_a.any(-1) | live_b.any(-1)
+  count = cand & (live_a.sum(-1) != live_b.sum(-1))
+  return cand & ((err > tol) | count), err, cand, count
+
+
 def _hold_hfield_narrowphase(label, m, geom_xpos, geom_xmat) -> float:
   """Each height field group's narrowphase on the card in float32 against
   the same code in float64, on HFIELD_HOLD_WORLDS worlds spread over the
@@ -4238,28 +4404,7 @@ def _hold_hfield_narrowphase(label, m, geom_xpos, geom_xmat) -> float:
     b = collision_driver._hfield_narrowphase(m64, grp, gx.double(),
                                              gm.double())
     scale = max(1.0, float(b[1].abs().max()))
-
-    def off(a):
-      """(W, P) pairs off, (W, P) errors, (W, P) pairs with a candidate
-      and (W, P) pairs with another number of candidates, of a's
-      candidates against b's."""
-      live_a, live_b = a[0] < 1e9, b[0] < 1e9
-      # (..., ka, kb) errors of every candidate of a against every one
-      # of b
-      dd = (a[0].double()[..., :, None] - b[0][..., None, :]).abs()
-      dn = (a[2][..., 0, :].double()[..., :, None, :] -
-            b[2][..., 0, :][..., None, :, :]).abs().amax(-1)
-      dp = a[1].double()[..., :, None, :] - b[1][..., None, :, :]
-      if mpr:
-        dp = (dp * b[2][..., 0, :][..., None, :, :]).sum(-1).abs()
-      else:
-        dp = dp.abs().amax(-1)
-      err = torch.maximum(torch.maximum(dd, dn), dp / scale)
-      err = torch.where(live_b[..., None, :], err, float('inf')).amin(-1)
-      err = torch.where(live_a, err, 0.0).amax(-1)
-      cand = live_a.any(-1) | live_b.any(-1)
-      count = cand & (live_a.sum(-1) != live_b.sum(-1))
-      return cand & ((err > HFIELD_TOL) | count), err, cand, count
+    off = lambda a: _float64_off(a, b, scale, mpr, HFIELD_TOL)
     o, err, cand, count = off(collision_driver._hfield_narrowphase(
         m, grp, gx, gm))
     witness = [int(off(collision_driver._hfield_narrowphase(
@@ -4396,8 +4541,8 @@ def _hfield(card) -> list:
         f'{_pair_counts(m, final)}')
   print(f'  phase (w) so far {time.perf_counter() - t0:.1f} s')
   _compare_step_exact('P19 step', m, d19, TOL_STEP_QACC,
-                      ulps=HFIELD_QPOS_ULPS, hold=lambda label, g_in, dk:
-                      _hold_b3_apollo(label, m, g_in, dict(
+                      ulps=HFIELD_QPOS_ULPS, hold=lambda label, solves, dk:
+                      _hold_b3_apollo(label, m, solves[0][1][1:], dict(
                           nf=dk.nf, nl=dk.nl, ncon=dk.ncon)))
   _replay_against_eager('P19', m, d19, dict(smooth=1, glue=1),
                         HFIELD_PROFILE, card, n=HFIELD_REPLAY)
@@ -4424,6 +4569,350 @@ def _hfield(card) -> list:
           lambda: kg.glue(m, *g_in), lambda: forward.glue(m, *g_in),
           *_glue_cost(m, g_in, g_out, efc['nefc'], 'glue[apollo_hfield]'))
   print(f'phase (w): {time.perf_counter() - t0:.1f} s of wall time ({card})')
+  return records
+
+
+def _kitchen_rich(m, d0, nworld, gen):
+  """kitchen's rich state: d0 tiled to nworld worlds, the joints drawn
+  uniformly across their ranges (doors through doors, handles and legs,
+  cylinders, on boxes and on each other), qvel N(0, KITCHEN_QVEL^2)."""
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  d = mt.make_batch(m, d0, nworld)
+  qpos = d.qpos.clone()
+  lo, hi = m.jnt_range[:, 0], m.jnt_range[:, 1]
+  adr = torch.tensor(m.jnt_qposadr, device=qpos.device)
+  qpos[:, adr] = lo + (hi - lo) * torch.rand((nworld, m.njnt), generator=gen,
+                                             device=qpos.device)
+  qvel = KITCHEN_QVEL * torch.randn((nworld, m.nv), generator=gen,
+                                    device=qpos.device)
+  return d.replace(qpos=qpos, qvel=qvel)
+
+
+def _kitchen_noisy(m, d, gen):
+  """d with N(0, QPOS_NOISE^2) added to each joint's qpos, clipped to
+  its range."""
+  import torch
+  adr = torch.tensor(m.jnt_qposadr, device=d.qpos.device)
+  q = d.qpos.clone()
+  q[:, adr] = torch.clamp(
+      q[:, adr] + QPOS_NOISE * torch.randn(q[:, adr].shape, generator=gen,
+                                           device=q.device),
+      m.jnt_range[:, 0], m.jnt_range[:, 1])
+  return d.replace(qpos=q)
+
+
+def _hold_sap_narrowphase(label, m, geom_xpos, geom_xmat, nconmax) -> float:
+  """Each MPR family's narrowphase of the large-scene broadphase, on the
+  pairs the cull keeps, on the card in float32 against the same code in
+  float64 (`_float64_off`: the point along the normal; KITCHEN_TOL), by
+  P19's witness rule: the witness is the float64 collider again on the
+  float32 frames moved by one ulp up and down, and off pairs may number
+  the larger of the family's KITCHEN_SHARE of the pairs with a candidate
+  and KITCHEN_FACTOR times the witness's largest count (see
+  KITCHEN_NWORLD). A control, the float32 collider on the frames rounded
+  to float16, must exceed that limit. Returns the largest error of the
+  pairs held."""
+  import torch
+  from mujoco_warp_tpu_torch import collision_driver, collision_sap
+  from mujoco_warp_tpu_torch.types import GeomType
+  gx, gm = geom_xpos, geom_xmat
+  m64 = m.replace(geom_size=m.geom_size.double(),
+                  mesh_hullvert_small=m.mesh_hullvert_small.double())
+  tables = collision_sap.sap_tables(m)
+  cw, hw = collision_sap.world_aabbs(m, gx, gm)
+  nudged = lambda x, to: torch.nextafter(x, torch.full_like(x, to))
+  worst = 0.0
+  for (t1, t2, start, count), fam in zip(m.sap_families, tables['families']):
+    if fam['extra'] != 'hulls+margin':
+      continue
+    kk = collision_sap.family_slots(count, nconmax)
+    sel, valid, _ = collision_sap.cull(cw, hw, fam['g1'], fam['g2'], kk)
+    margin = tables['params']['margin'][start + sel]
+
+    def run(mm, x, r):
+      dist, pos, frame = collision_driver.narrowphase(
+          mm, fam, x, r, margin.to(x.dtype), sel)
+      return torch.where(valid[..., None], dist, 1e10), pos, frame
+    b = run(m64, gx.double(), gm.double())
+    scale = max(1.0, float(b[1].abs().max()))
+    o, err, cand, nslot = _float64_off(run(m, gx, gm), b, scale, True,
+                                       KITCHEN_TOL)
+    # the witness: the float64 collider on the frames moved by one ulp
+    # up and down, against b
+    witness = [int(_float64_off(run(m64, nudged(gx, to).double(),
+                                    nudged(gm, to).double()), b, scale,
+                                True, KITCHEN_TOL)[0].sum())
+               for to in (float('inf'), float('-inf'))]
+    control = int(_float64_off(run(m, gx.half().float(), gm.half().float()),
+                               b, scale, True, KITCHEN_TOL)[0].sum())
+    held = cand & ~o
+    e = float(torch.where(held, err, 0.0).max())
+    worst = max(worst, e)
+    n, ncand = int(o.sum()), int(cand.sum())
+    names = (GeomType(t1).name.lower(), GeomType(t2).name.lower())
+    allowed = max(KITCHEN_SHARE['-'.join(names)] * ncand,
+                  KITCHEN_FACTOR * max(witness))
+    big = int((cand & (err > KITCHEN_TOL)).sum())
+    print(f'  {label} {names}: {kk} of {count} pairs at {gx.shape[0]} '
+          f'worlds, {ncand} with a candidate ({int((b[0] < 1e9).sum())} '
+          f'float64 candidates); float32 against float64: {n} pairs off '
+          f'({n / max(1, ncand):.4f}: {big} over {KITCHEN_TOL:g}, another '
+          f'number of contacts in {int(nslot.sum())}; errors median '
+          f'{float(err[cand].median()):.3e}, largest '
+          f'{float(err[cand].max()):.3e}); the float64 collider after one '
+          f'ulp up and down: {witness} off (allowed {allowed:.1f}); the '
+          f'{int(held.sum())} held: largest error {e:.3e}; the float16 '
+          f'frames\' control: {control} off')
+    if n > allowed:
+      raise RuntimeError(f'{label} {names}: the float32 narrowphase parts '
+                         f'from float64 in {n} pairs (allowed {allowed:.1f})')
+    if control <= allowed:
+      raise RuntimeError(f'{label} {names}: the hold does not see the '
+                         f'collider on float16 frames ({control} off)')
+  return worst
+
+
+def _family_times(label, m, d, nconmax, card, reps: int = 2) -> dict:
+  """The card's time (CUDA events, eager, `reps` calls each) of each SAP
+  family's cull and narrowphase in m's `collision` stage on the state d:
+  {'type1-type2': (cull ms, narrowphase ms)}."""
+  from mujoco_warp_tpu_torch import collision_driver, collision_sap
+  from mujoco_warp_tpu_torch.types import GeomType
+  tables = collision_sap.sap_tables(m)
+  gx, gm = d.geom_xpos, d.geom_xmat
+  cw, hw = collision_sap.world_aabbs(m, gx, gm)
+  out = {}
+  for (t1, t2, start, count), fam in zip(m.sap_families, tables['families']):
+    kk = collision_sap.family_slots(count, nconmax)
+    cull = lambda: collision_sap.cull(cw, hw, fam['g1'], fam['g2'], kk)
+    cull_ms = _cuda_ms(cull, reps)
+    sel = cull()[0]
+    margin = tables['params']['margin'][start + sel]
+    ms = _cuda_ms(lambda: collision_driver.narrowphase(m, fam, gx, gm, margin,
+                                                       sel), reps)
+    names = f'{GeomType(t1).name.lower()}-{GeomType(t2).name.lower()}'
+    out[names] = (cull_ms, ms)
+    print(f'  {label} family {names}: {count} pairs, {kk} kept, cull '
+          f'{cull_ms:.3f} ms, narrowphase {ms:.3f} ms on the card ({card})')
+  return out
+
+
+def _kitchen(card) -> list:
+  """Phase (x) on kitchen (P20): the model, its families, candidate
+  slots, efc layout and stage list (B1, camlight, `collision`,
+  `make_constraint`, the unfused solve's stages with B7, B5 and B7
+  euler; no B2, B3 or B4), B1's block; on the rich state
+  (`_kitchen_rich`) B1, B7 (as fwd_acceleration and as the Euler
+  re-solve call it) and B5 (the Hessian of the solve's first Newton
+  direction) against their plain versions, the MPR families'
+  narrowphase in float32 against float64 (`_hold_sap_narrowphase`);
+  P20, the suite's step from qpos0 (256 worlds, nconmax 64, eager)
+  counted from counts at 0 (B1 once a step, B7 twice, once without the
+  factor, B5 once a Newton direction), timed, its peak memory, one step
+  (from P20's final state with noise on the joints, `_kitchen_noisy`)
+  against the all-plain step (`_compare_step_exact`, its witness B1's
+  outputs moved by one ulp, the solve by `_hold_unfused_solve`), the
+  card's time of each stage and family;
+  returns the records of B1, B7, B7 euler and B5 on kitchen (the rich
+  state's inputs)."""
+  import torch
+  import mujoco_warp_tpu_torch as mt
+  from mujoco_warp_tpu_torch import (batch_linalg, collision_sap, forward,
+                                     models, smooth, solver)
+  from mujoco_warp_tpu_torch.kernels import _build
+  from mujoco_warp_tpu_torch.kernels import batch_linalg as kb
+  from mujoco_warp_tpu_torch.kernels import contact as kc
+  from mujoco_warp_tpu_torch.kernels import smooth as ks
+  from mujoco_warp_tpu_torch.types import GeomType
+  from mujoco_warp_tpu_torch.utils import benchmark as bench
+  t0 = time.perf_counter()
+  m = mt.load_model(models.KITCHEN_NPZ, device='cuda')
+  W, C = KITCHEN_NWORLD, KITCHEN_NCONMAX
+  d0 = mt.make_data(m, nconmax=C)
+  names = [n for n, _ in forward.batched_stages(m, d0)]
+  fams = collision_sap.sap_tables(m)['families']
+  kept = [collision_sap.family_slots(f['n'], C) for f in fams]
+  named = [(GeomType(a).name.lower(), GeomType(b).name.lower(), n)
+           for a, b, _, n in m.sap_families]
+  print(f'model: kitchen nv={m.nv} nbody={m.nbody} ngeom={m.ngeom} '
+        f'nsite={m.nsite}; SAP families {named} '
+        f'({m.nxn_candidates} admissible pairs), {kept} pairs kept a step, '
+        f'{[f["slots"] for f in fams]} slots a pair: '
+        f'{sum(k * f["slots"] for k, f in zip(kept, fams))} candidate slots '
+        f'a world; efc layout (ne, nf, nl, stride, njmax) '
+        f'{mt.efc_layout(m, C)} at nconmax {C}; stages: {" -> ".join(names)}')
+  if names != ['smooth_mega[cuda]', 'camlight', 'collision',
+               'make_constraint', 'transmission', 'velocity_glue', 'passive',
+               'fwd_actuation', 'fwd_acceleration', 'solve', 'euler'] or \
+      forward.replays(m, d0) or kc.supports(m, C) or \
+      forward.uses_glue_kernel(m, d0):
+    raise RuntimeError('kitchen does not take the unfused list with the SAP '
+                       'stages, eagerly')
+  tables = _build.model_tables(m, 'smooth', ks._tables)
+  world_bytes, worlds = ks.block(m)
+  print(f'  B1 on kitchen: {world_bytes} B of shared memory a world, '
+        f'{worlds} worlds a block (the most, up to 4, that fit a block, by '
+        f'csrc/smooth_layout.cuh)')
+  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  rich = _kitchen_rich(m, d0, W, gen)
+
+  # ---- the rich state: contacts, B1, B7, B5 and the narrowphase ----
+  errs = {}
+  sm_in = (rich.qpos, rich.qvel)
+  errs['smooth'] = _compare('B1 kitchen', ks.smooth(m, *sm_in),
+                            smooth.smooth(m, *sm_in), TOL_B1, smooth.OUTPUTS)
+  _check_repeat('B1 kitchen', lambda: ks.smooth(m, *sm_in))
+  _print_warp_shapes('kitchen', ('smooth_stages<63>',), nworld=W)
+  stages = forward.batched_stages(m, rich)
+  pre = rich
+  for _, fn in stages[:names.index('solve')]:
+    pre = fn(pre)
+  post = stages[names.index('solve')][1](pre)
+  con = {k: getattr(pre.contact, k) for k in ('geom', 'dist',
+                                               'includemargin')}
+  pairs = _pair_counts(m, con)
+  print(f'  kitchen rich state: contacts by pair type {pairs}; ncon mean '
+        f'{float(pre.ncon.float().mean()):.3f}, ncollision mean '
+        f'{float(pre.ncollision.float().mean()):.2f}')
+  if not pairs.get('cylinder-cylinder') or not pairs.get('cylinder-box'):
+    raise RuntimeError('kitchen: the rich state lacks cylinder-cylinder or '
+                       'cylinder-box contacts')
+  parent = m.dof_parentid
+  qM, qfs = pre.qM, pre.qfrc_smooth
+  diag = m.opt.timestep * m.dof_damping
+  mask = batch_linalg.packed_mask(parent, qM.device)
+  errs['tree_ldl'] = 0.0
+  for label, b, dg in (('fwd_acceleration', qfs, None),
+                       ('euler', qfs + post.qfrc_constraint, diag)):
+    x, ld = kb.tree_ldl(qM, b, parent, diag=dg, return_factor=True)
+    xr, ldr = batch_linalg.tree_ldl_solve_batched(qM, b, parent, diag=dg,
+                                                  return_factor=True)
+    x64 = batch_linalg.tree_ldl_solve_batched(
+        qM.double(), b.double(), parent,
+        diag=None if dg is None else dg.double())
+    a = qM + (torch.diag(dg) if dg is not None else 0)
+    _compare(f'B7 kitchen {label}', {'LD': ld[:, mask]},
+             {'LD': ldr[:, mask]}, TOL_B1, ['LD'])
+    if bool(ld[:, ~mask].any()):
+      raise RuntimeError('B7 kitchen: nonzero LD outside the packed entries')
+    errs['tree_ldl'] = max(errs['tree_ldl'], _check_solve(
+        f'B7 kitchen {label}', a, b, x, xr, x64))
+    if not torch.equal(kb.tree_ldl(qM, b, parent, diag=dg), x):
+      raise RuntimeError(f'B7 kitchen {label}: x without the factor differs')
+  _print_warp_shapes('kitchen', ('tree_ldl_kernel',), nworld=W)
+  J, D, fl = pre.efc_J, pre.efc_D, pre.efc_frictionloss
+  qacc = pre.qacc_warmstart
+  jaref = torch.einsum('wrn,wn->wr', J, qacc) - pre.efc_aref
+  force, _, quad = solver._update_constraint(
+      jaref, D, fl, fl / torch.clamp(D, min=solver.MINVAL),
+      *solver._row_masks(pre.efc_type))
+  H = qM + torch.bmm((J * (D * quad)[..., None]).transpose(1, 2), J)
+  grad = (torch.einsum('wij,wj->wi', qM, qacc) - qfs -
+          torch.einsum('wrn,wr->wn', J, force))
+  print(f'  B5 kitchen Hessians: {float(quad.sum()) / W:.2f} quadratic rows '
+        f'per world')
+  errs['spd_solve'] = _check_solve(
+      'B5 kitchen', H, grad, kb.spd_solve(H, grad),
+      batch_linalg.spd_solve_batched(H, grad),
+      batch_linalg.spd_solve_batched(H.double(), grad.double()))
+  _check_repeat('B5 kitchen', lambda: dict(x=kb.spd_solve(H, grad)))
+  _print_warp_shapes('kitchen', ('spd_solve_kernel',), nworld=W)
+  _hold_sap_narrowphase('kitchen narrowphase', m, pre.geom_xpos,
+                        pre.geom_xmat, C)
+  b_euler = qfs + post.qfrc_constraint
+  del pre, post
+  print(f'  phase (x) so far {time.perf_counter() - t0:.1f} s')
+
+  # ---- P20: the suite's kitchen step from qpos0, eager ----
+  d = mt.make_batch(m, d0, W)
+  _reset_counts()
+  d20, res = bench.benchmark(m, d, nstep=KITCHEN_NSTEP)
+  steps = bench.total_steps(KITCHEN_NSTEP)
+  if res['dispatch'] != 'eager':
+    raise RuntimeError(f'P20 ran {res["dispatch"]}')
+  _expect_no_entries('P20')
+  solves = solver.counts['solve'] + solver.counts['passes']
+  # B7 twice a step: fwd_acceleration's with the factor, the Euler
+  # re-solve's without it (tree_ldl_euler)
+  counts = dict(_read_counts(), tree_ldl_euler=kb.launches_no_factor)
+  _expect_counts('P20', dict(_zero_counts(), smooth=steps,
+                             tree_ldl=2 * steps, tree_ldl_euler=steps,
+                             spd_solve=solves), counts)
+  if solver.counts['solve'] != steps:
+    raise RuntimeError(f'P20: {solver.counts["solve"]} solves in {steps} '
+                       f'steps')
+  for k in ('qpos', 'qvel', 'qacc', 'efc_force'):
+    if not bool(torch.isfinite(getattr(d20, k)).all()):
+      raise RuntimeError(f'P20: non-finite {k}')
+  peak, before = _peak_step(m, d20)
+  ncoll = float(d20.ncollision.float().mean())
+  print(f'P20: {res["steps_per_sec"]:.1f} steps/s, '
+        f'{res["step_time_us"]:.1f} us/step over {res["nstep"]} timed of '
+        f'{steps} steps at {W} worlds, nconmax {C}; final ncon mean '
+        f'{res["ncon_mean"]:.3f}, ncollision mean {ncoll:.2f}, nefc mean '
+        f'{res["nefc_mean"]:.2f}, solver_niter mean '
+        f'{res["solver_niter_mean"]:.2f} max {res["solver_niter_max"]}; '
+        f'{solver.counts["passes"] / steps:.2f} Newton passes a step after '
+        f'its first direction; {res["converged_worlds"]} worlds without '
+        f'NaN; one eager step\'s peak memory {peak / 2**30:.2f} GiB '
+        f'({(peak - before) / 2**30:.2f} GiB over the {before / 2**30:.2f} '
+        f'GiB held before it); dispatch {res["dispatch"]} ({card})')
+  print(json.dumps({'step_kitchen': dict(
+      res, ncollision_mean=ncoll, peak_memory_gib=peak / 2**30,
+      step_memory_gib=(peak - before) / 2**30,
+      passes_per_step=solver.counts['passes'] / steps, card=card)}))
+  print(f'  phase (x) so far {time.perf_counter() - t0:.1f} s')
+  # P20's worlds are one world 256 times (qpos0, no actuator to take
+  # ctrl noise): the step is held from its final state with seeded noise
+  # on the joints, clipped to their ranges
+  held = _kitchen_noisy(m, d20, gen)
+  _compare_step_exact('P20 step', m, held, TOL_STEP_QACC, gen=gen,
+                      hold=lambda label, solves, dk:
+                      _hold_unfused_solve(label, m, solves, TOL_STEP_QACC))
+  _stage_times('P20', m, d20, card)
+  print(json.dumps({'P20 families ms (cull, narrowphase)': _family_times(
+      'P20', m, d20, C, card), 'card': card}))
+  print(f'  phase (x) so far {time.perf_counter() - t0:.1f} s')
+
+  # ---- times, plain times, bounds: the rich state ----
+  records = []
+  launched = dict(counts, tree_ldl=counts['tree_ldl'] -
+                  counts['tree_ldl_euler'])
+  sm_out = ks.smooth(m, *sm_in)
+  _record(records, 'smooth[kitchen]', launched['smooth'], errs['smooth'],
+          'mujoco_warp_tpu_torch/csrc/smooth.cu',
+          'mujoco_warp_tpu/pallas/smooth_kernels.py:557',
+          lambda: ks.smooth(m, *sm_in), lambda: smooth.smooth(m, *sm_in),
+          _nbytes(sm_in, sm_out, tables), _flops_b1(m, W))
+  lens = [len(r) for r in m.dof_ancestor_rows]
+  nnz, nv = sum(lens), m.nv
+  flops_b7 = W * (2 * sum((n - 1) * n // 2 for n in lens) +
+                  4 * (nnz - nv) + 2 * nv)
+  _record(records, 'tree_ldl[kitchen]', launched['tree_ldl'],
+          errs['tree_ldl'], 'mujoco_warp_tpu_torch/csrc/batch_linalg.cu',
+          'mujoco_warp_tpu/pallas/batch_linalg.py:314',
+          lambda: kb.tree_ldl(qM, qfs, parent, return_factor=True),
+          lambda: batch_linalg.tree_ldl_solve_batched(qM, qfs, parent,
+                                                      return_factor=True),
+          W * 4 * (nnz + 2 * nv + nv * nv), flops_b7)
+  _record(records, 'tree_ldl[kitchen euler]', launched['tree_ldl_euler'],
+          errs['tree_ldl'], 'mujoco_warp_tpu_torch/csrc/batch_linalg.cu',
+          'mujoco_warp_tpu/pallas/batch_linalg.py:314',
+          lambda: kb.tree_ldl(qM, b_euler, parent, diag=diag),
+          lambda: batch_linalg.tree_ldl_solve_batched(qM, b_euler, parent,
+                                                      diag=diag),
+          W * 4 * (nnz + 2 * nv), flops_b7,
+          library=lambda: torch.linalg.solve(qM + torch.diag(diag), b_euler))
+  n = nv
+  _record(records, 'spd_solve[kitchen]', launched['spd_solve'],
+          errs['spd_solve'], 'mujoco_warp_tpu_torch/csrc/batch_linalg.cu',
+          'mujoco_warp_tpu/pallas/batch_linalg.py:103',
+          lambda: kb.spd_solve(H, grad),
+          lambda: batch_linalg.spd_solve_batched(H, grad),
+          W * 4 * (n * (n + 1) // 2 + 2 * n), W * (n ** 3 / 3 + 2 * n * n),
+          library=lambda: torch.linalg.solve(H, grad))
+  print(f'phase (x): {time.perf_counter() - t0:.1f} s of wall time ({card})')
   return records
 
 
@@ -4807,6 +5296,7 @@ def main() -> int:
   records += phase('apollo (s)', lambda: _apollo(card))
   records += phase('terrain (t)', lambda: _terrain(card))
   records += phase('apollo_hfield (w)', lambda: _hfield(card))
+  records += phase('kitchen (x)', lambda: _kitchen(card))
   records += phase('aloha_pot (u)', lambda: _aloha(card))
   records += phase('aloha_sdf (v)', lambda: _aloha_sdf(card))
   records += phase('B9-B12 (p)', lambda: _smooth_entries('', m, d_c))

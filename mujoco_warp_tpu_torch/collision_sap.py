@@ -10,6 +10,11 @@ Mirrors `mujoco_warp_tpu/collision_sap.py` (`collision` :142,
 empty. The JAX package runs these stages as XLA (its contact kernel
 refuses such a model), so here they are torch ops on the card.
 
+A family's narrowphase is the static driver's
+(`collision_driver.narrowphase`): the analytic collider of its pair
+type, or MPR where there is none (cylinder-cylinder, cylinder-box and
+the mesh pairs, `collision_driver.group_collider`).
+
 Each step, each geom's box (`geom_aabb`) becomes a world AABB, center
 cw and half sizes hw widened by the geom's margin. A pair's slack is the
 least over the axes of hw_a + hw_b - |cw_a - cw_b|; it overlaps where the
@@ -33,10 +38,8 @@ from __future__ import annotations
 import torch
 
 from . import collision_driver
-from . import collision_primitive
-from .io import MAX_CONTACTS
 from .kernels import _build
-from .types import Model
+from .types import GeomType, Model
 
 # (world, pair) entries of one chunk of the AABB test: at 8192 worlds,
 # 4096 pairs, each (nworld, chunk, 3) float32 temporary 400 MB
@@ -49,14 +52,28 @@ def family_slots(count: int, nconmax: int) -> int:
 
 
 def sap_tables(m: Model) -> dict:
-  """`collision_driver.pair_params` of every row of sap_pairs, and the
-  rows' geom ids as index tensors, built once per model."""
+  """`collision_driver.pair_params` of every row of sap_pairs, and per
+  family the group table that `collision_driver.narrowphase` takes (its
+  geom and mesh ids as index tensors, collider, slots and extra
+  arguments, `collision_driver.group_collider`: MPR for a pair type
+  without an analytic collider, as `_run_family` :116-140), built once
+  per model."""
   def make(m):
     pairs = m.sap_pairs.cpu().numpy()
     params = collision_driver.pair_params(
         m, pairs[:, 0], pairs[:, 1], m.sap_pairid.cpu().numpy())
-    return dict(params=params, g1=m.sap_pairs[:, 0].long(),
-                g2=m.sap_pairs[:, 1].long())
+    g1, g2 = m.sap_pairs[:, 0].long(), m.sap_pairs[:, 1].long()
+    dataid = torch.as_tensor(m.geom_dataid, dtype=torch.long,
+                             device=m.device)
+    families = []
+    for t1, t2, start, count in m.sap_families:
+      fn, k, extra = collision_driver.group_collider(m, t1, t2)
+      a, b = g1[start:start + count], g2[start:start + count]
+      families.append(dict(
+          g1=a, g2=b, d1=dataid[a], d2=dataid[b], start=start, n=count,
+          fn=fn, slots=k, extra=extra,
+          mesh=(t1 == GeomType.MESH, t2 == GeomType.MESH)))
+    return dict(params=params, families=families)
   return _build.model_tables(m, 'sap', make)
 
 
@@ -99,7 +116,12 @@ def collision(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
               nconmax: int) -> dict:
   """Contact pool of (W, ngeom, 3) geom_xpos and (W, ngeom, 3, 3)
   geom_xmat over sap_pairs (`collision` :142; the pool as
-  `collision_driver.pool`, the dropped overlaps in ncollision)."""
+  `collision_driver.pool`, the dropped overlaps in ncollision). Each
+  family's kept pairs go through `collision_driver.narrowphase` with
+  their per-world ids, mesh sides on the decimated hulls
+  (`mesh_hullvert_small`, JAX `hull_dyn`), MPR and margin-taking
+  colliders given the pair margin; a pair's slots follow each other in
+  the candidates, as JAX `pack` lays them out."""
   W = geom_xpos.shape[0]
   if nconmax == 0:
     return collision_driver.empty_pool(m, W, nconmax)
@@ -108,8 +130,8 @@ def collision(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
   cw, hw = world_aabbs(m, geom_xpos, geom_xmat)
   dropped = torch.zeros(W, dtype=torch.int32, device=geom_xpos.device)
   dists, poss, frames, rows = [], [], [], []
-  for t1, t2, start, count in m.sap_families:
-    g1, g2 = (tables[k][start:start + count] for k in ('g1', 'g2'))
+  for fam in tables['families']:
+    g1, g2, count = fam['g1'], fam['g2'], fam['n']
     kk = family_slots(count, nconmax)
     if kk < count:
       sel, valid, noverlap = cull(cw, hw, g1, g2, kk)
@@ -117,15 +139,10 @@ def collision(m: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
     else:
       sel = torch.arange(count, device=cw.device).expand(W, count)
       valid = slack(cw, hw, g1, g2) >= 0
-    row = start + sel                                    # (W, kk)
-    ga, gb = tables['g1'][row], tables['g2'][row]
-    extra = ((params['margin'][row],)
-             if (t1, t2) in collision_primitive.NEEDS_MARGIN else ())
-    pick = collision_driver.pick
-    dist, pos, frame = collision_primitive.COLLIDERS[(t1, t2)](
-        pick(geom_xpos, ga), pick(geom_xmat, ga), m.geom_size[ga],
-        pick(geom_xpos, gb), pick(geom_xmat, gb), m.geom_size[gb], *extra)
-    k = MAX_CONTACTS[(t1, t2)]
+    row = fam['start'] + sel                             # (W, kk)
+    dist, pos, frame = collision_driver.narrowphase(
+        m, fam, geom_xpos, geom_xmat, params['margin'][row], sel)
+    k = fam['slots']
     n = sel.shape[1]
     dists.append(torch.where(valid[..., None], dist,
                              collision_driver._EMPTY_DIST).reshape(W, n * k))

@@ -16,20 +16,24 @@
 //
 // The design: G lanes per world (Params.lanes: 8, 16 or 32, the fewest
 // that hold the model's widest tree level, kernels/smooth.py), 32 / G
-// worlds a warp, SMOOTH_WORLDS worlds a block; the world's state in
-// shared memory (SmoothLayout: 1,280 words a humanoid world, 3,360 on
-// three_humanoids, where the arrays of the position stages and those of
-// crb and rne share one region); the lanes over the parallel work of
-// each stage: the bodies of one tree level in kinematics and in com_vel
-// with rne's forward pass, level by level with a __syncwarp between
-// levels; bodies for the frames and cinert, geoms and sites G at a time,
-// joints for cdof, one lane per dof down its ancestor chain for qM's
-// packed rows, dofs for qfrc_bias. The tree sums (subtree com, crb,
-// cfrc) run from the deepest level up, one lane per (parent, component),
-// each parent adding its children in descending body index: the order of
-// the one-thread loop `for b = nb - 1 .. 1`, so every sum keeps its
-// order. Level and children tables come from the host (kernels/smooth.py,
-// tree_tables), with qM's table: the packed slot of every dense entry, or
+// worlds a warp, smooth_worlds worlds a block (smooth_layout.cuh: the
+// most, up to SMOOTH_WORLDS, whose layouts fit a block's 232,448 bytes:
+// 3 on kitchen's 328 bodies, where G is 32 so that every warp is whole,
+// 4 on the port's other models; a block's worlds are blockDim.x / G);
+// the world's state in shared memory (SmoothLayout: 1,280 words a
+// humanoid world, 3,360 on three_humanoids, 14,716 on kitchen, where
+// the arrays of the position stages and those of crb and rne share one
+// region); the lanes over the parallel work of each stage: the bodies
+// of one tree level in kinematics and in com_vel with rne's forward
+// pass, level by level with a __syncwarp between levels; bodies for
+// the frames and cinert, geoms and sites G at a time, joints for cdof,
+// one lane per dof down its ancestor chain for qM's packed rows, dofs
+// for qfrc_bias. The tree sums (subtree com, crb, cfrc) run from the
+// deepest level up, one lane per (parent, component), each parent adding
+// its children in descending body index: the order of the one-thread
+// loop `for b = nb - 1 .. 1`, so every sum keeps its order. Level and
+// children tables come from the host (kernels/smooth.py, tree_tables),
+// with qM's table: the packed slot of every dense entry, or
 // none. Each output is stored from shared memory once it is final, a
 // world's rows contiguous in [W, ...], so the stores coalesce; qM is
 // written once, zeros included. The lanes exchange nothing but through
@@ -57,8 +61,7 @@
 // multiply-adds differently, chip_smoke.py checks each time.
 
 #include "common.cuh"
-
-#define SMOOTH_WORLDS 4   // worlds a block
+#include "smooth_layout.cuh"
 
 struct Params {
   const float* qpos;
@@ -148,49 +151,6 @@ DEV void attach(const float* bpos, const float* bquat, const float* pos,
   quat2mat(q, out_mat);
 }
 
-// A world's words of shared memory: cinert and cdof for the whole
-// kernel, then one region that the position stages (qpos .. com and a
-// scratch for G <= 32 geoms or sites) use first and crb with qM's packed
-// rows, then rne's arrays, after them.
-struct SmoothLayout {
-  int cinert, cdof;                                   // kept
-  int qpos, xpos, xquat, xanchor, xaxis, xmat, xipos, ximat, com, scratch;
-  int crb, qmp;                                       // crb stage
-  int cvel, cdot, cacc, cfrc, qvel;                   // velocity stage
-  int words;
-};
-
-__host__ __device__ inline SmoothLayout smooth_layout(const Params& p) {
-  SmoothLayout L;
-  const int nb = p.nbody, nv = p.nv, nj = p.njnt;
-  L.cinert = 0;
-  L.cdof = 10 * nb;
-  const int region = L.cdof + 6 * nv;
-  L.qpos = region;
-  L.xpos = L.qpos + p.nq;
-  L.xquat = L.xpos + 3 * nb;
-  L.xanchor = L.xquat + 4 * nb;
-  L.xaxis = L.xanchor + 3 * nj;
-  L.xmat = L.xaxis + 3 * nj;
-  L.xipos = L.xmat + 9 * nb;
-  L.ximat = L.xipos + 3 * nb;
-  L.com = L.ximat + 9 * nb;
-  L.scratch = L.com + 3 * nb;
-  const int end_pos = L.scratch + 32 * 12;
-  L.crb = region;
-  L.qmp = L.crb + 10 * nb;
-  const int end_crb = L.qmp + p.nnz;
-  L.cvel = region;
-  L.cdot = L.cvel + 6 * nb;
-  L.cacc = L.cdot + 6 * nv;
-  L.cfrc = L.cacc + 6 * nb;
-  L.qvel = L.cfrc + 6 * nb;
-  const int end_vel = L.qvel + nv;
-  const int end = end_pos > end_crb ? end_pos : end_crb;
-  L.words = ((end > end_vel ? end : end_vel) + 3) & ~3;
-  return L;
-}
-
 // a world's lanes' copy of n floats to global memory (coalesced) and from
 // it: lane `sub` of G
 DEV void group_store(float* dst, const float* src, int n, int sub, int G) {
@@ -224,7 +184,7 @@ __global__ void __launch_bounds__(32 * SMOOTH_WORLDS, 4)
   // G lanes per world; lane `sub` of its world's group
   const int G = p.lanes, sub = threadIdx.x & (G - 1);
   const int slot = threadIdx.x / G;
-  const size_t w = (size_t)blockIdx.x * SMOOTH_WORLDS + slot;
+  const size_t w = (size_t)blockIdx.x * (blockDim.x / G) + slot;
   // the lanes of a world past nworld leave; `live` names the rest of the
   // warp, which every __syncwarp waits for
   const unsigned live = __ballot_sync(FULL_MASK, w < (size_t)p.nworld);
@@ -611,7 +571,7 @@ __global__ void __launch_bounds__(32 * SMOOTH_WORLDS, 4)
 // B1; B10 (kinematics), B11 (com_pos), B12 (crb), B9 (smooth_front)
 #define SMOOTH_BYTES (smooth_layout(*p).words * (int)sizeof(float))
 #define SMOOTH_ENTRY(prefix, kernel)                                      \
-  PORT_C_GROUP_ENTRY(prefix, Params, kernel, SMOOTH_WORLDS, p->lanes,     \
+  PORT_C_GROUP_ENTRY(prefix, Params, kernel, smooth_worlds(*p), p->lanes, \
                      SMOOTH_BYTES)
 PORT_C_ERROR_STRING
 SMOOTH_ENTRY(, smooth_stages<kB1>)

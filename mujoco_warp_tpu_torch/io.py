@@ -40,10 +40,15 @@ MAX_CONTACTS = {
     (GeomType.PLANE, GeomType.MESH): 4,
 }
 # pair types without an analytic collider that go through MPR
-# (`collision_convex`; their slots: `collision_convex.manifold_ncon`)
+# (`collision_convex`; their slots: `collision_convex.manifold_ncon`), in
+# the static driver and in the large-scene broadphase alike. The other
+# cylinder pairs (capsule-, sphere-, plane-cylinder, cylinder-mesh) are
+# refused: no scene of the port holds one
 MPR_PAIRS = frozenset({(GeomType.SPHERE, GeomType.MESH),
                        (GeomType.BOX, GeomType.MESH),
-                       (GeomType.MESH, GeomType.MESH)})
+                       (GeomType.MESH, GeomType.MESH),
+                       (GeomType.CYLINDER, GeomType.BOX),
+                       (GeomType.CYLINDER, GeomType.CYLINDER)})
 # the types an SDF geom pairs with (`mujoco_warp_tpu/io.py:395-399`); such
 # a pair runs the SDF narrowphase (`collision_sdf.py`) with
 # Option.sdf_initpoints candidate contacts
@@ -594,8 +599,6 @@ def _sap_precompute(mjm):
   _refuse_unported(present)
   _need(all(a != GeomType.PLANE for a, _ in present),
         'plane pairs under the large-scene broadphase')
-  _need(not set(present) & MPR_PAIRS,
-        'MPR pairs under the large-scene broadphase')
   rows, pids, families = [], [], []
   start = 0
   for a, b in present:

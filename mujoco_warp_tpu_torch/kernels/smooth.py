@@ -28,14 +28,13 @@ and `launches_crb` count B9, B10, B11 and B12.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import smooth as plain
 from ..types import DisableBit, Model
 from . import _build
-
-MAXBODY = 64     # cap of B1, B9 and B11: a world's state sits in shared
-                 # memory (csrc/smooth.cu, SmoothLayout)
 
 launches = 0     # B1's launches since the count was last reset
 launches_front = launches_kin = launches_com = launches_crb = 0   # B9-B12
@@ -107,11 +106,34 @@ def tree_tables(body_parentid, dof_parentid) -> dict:
               nnz=nnz)
 
 
+def block(m: Model) -> tuple:
+  """(a world's bytes of shared memory, worlds a block) of csrc/smooth.cu
+  on m, from the kernel's own layout (csrc/smooth_layout.cuh,
+  `smooth_block`): the most worlds, up to 4, whose layouts fit a block.
+  Raises where one world does not fit."""
+  return _build.model_tables(m, 'smooth', _tables)['block']
+
+
+def _block(lib, m: Model, nnz: int) -> tuple:
+  """`block` from lib's `smooth_block` (the built kernel, or a host
+  build of its header)."""
+  words = ctypes.c_int()
+  worlds = lib.smooth_block(m.nq, m.nv, m.nbody, m.njnt, nnz,
+                            ctypes.byref(words))
+  if worlds < 1:
+    raise ValueError(f'smooth kernel: a world of this model takes '
+                     f'{4 * words.value} bytes of shared memory, more than '
+                     f'a block has')
+  return 4 * words.value, worlds
+
+
 # B1's lanes per world: the fewest of LANES that keep MIN_WARPS warps
 # resident per SM (by the card's occupancy query for the model's shared
-# memory and the entry's registers). On the H100 both models ran fastest
-# at 16 resident warps of the choices: the humanoid at 16 lanes (32
-# worlds a SM), three_humanoids at 32 (16 worlds a SM, by shared memory).
+# memory and the entry's registers), of those that make a block of whole
+# warps (its worlds, `block`, x lanes a multiple of 32); the most, 32,
+# where none does. On the H100 both models ran fastest at 16 resident
+# warps of the choices: the humanoid at 16 lanes (32 worlds a SM),
+# three_humanoids at 32 (16 worlds a SM, by shared memory).
 LANES = (8, 16, 32)
 MIN_WARPS = 16
 
@@ -124,9 +146,9 @@ def lanes(m: Model, entry: str = '') -> int:
 
 def _choose_lanes(values: dict, entry: str) -> int:
   for g in LANES:
-    _, block, _, per_sm = _build.launch_shape('smooth', Params,
-                                              dict(values, lanes=g), entry)
-    if per_sm * block // 32 >= MIN_WARPS:
+    _, threads, _, per_sm = _build.launch_shape('smooth', Params,
+                                                dict(values, lanes=g), entry)
+    if threads % 32 == 0 and per_sm * threads // 32 >= MIN_WARPS:
       return g
   return LANES[-1]
 
@@ -140,6 +162,7 @@ def _tables(m: Model) -> dict:
     t[k] = v if isinstance(v, int) else torch.tensor(
         v, dtype=torch.int32, device=dev)
   t['lanes'] = {}                   # per entry, at its first launch
+  t['block'] = _block(_build.library('smooth'), m, tree['nnz'])
   # 16-bit words, which the kernel reads unsigned
   t['qm_slot'] = torch.tensor(
       [v - 0x10000 if v >= 0x8000 else v for v in tree['qm_slot']],
@@ -172,13 +195,11 @@ def smooth(m: Model, qpos: torch.Tensor, qvel: torch.Tensor) -> dict:
   return _launch(m, qpos, qvel)
 
 
-def _launch_entry(m: Model, entry: str, inputs: dict, outputs,
-                  capped: bool) -> dict:
+def _launch_entry(m: Model, entry: str, inputs: dict, outputs) -> dict:
   """Launch an entry of csrc/smooth.cu on `inputs` (Params fields ->
   tensors) into new tensors for the fields `outputs`; every other pointer
-  of Params is null. An entry `capped` takes at most MAXBODY bodies."""
-  if capped and m.nbody > MAXBODY:
-    raise ValueError(f'smooth kernel: nbody={m.nbody} (cap {MAXBODY})')
+  of Params is null. Raises for a model of which one world does not fit
+  a block (`block`)."""
   W = next(iter(inputs.values())).shape[0]
   dev = m.device
   shapes = dict(output_shapes(m, W), qvel=(W, m.nv))
@@ -201,8 +222,7 @@ def _launch_entry(m: Model, entry: str, inputs: dict, outputs,
 
 def _launch(m: Model, qpos: torch.Tensor, qvel: torch.Tensor) -> dict:
   global launches
-  outs = _launch_entry(m, '', dict(qpos=qpos, qvel=qvel), plain.OUTPUTS,
-                       True)
+  outs = _launch_entry(m, '', dict(qpos=qpos, qvel=qvel), plain.OUTPUTS)
   launches += 1
   return outs
 
@@ -237,7 +257,7 @@ def kinematics(m: Model, qpos: torch.Tensor):
 
 def _launch_kinematics(m: Model, qpos: torch.Tensor):
   global launches_kin
-  outs = _launch_entry(m, 'kin_', dict(qpos=qpos), KINEMATICS, False)
+  outs = _launch_entry(m, 'kin_', dict(qpos=qpos), KINEMATICS)
   launches_kin += 1
   return tuple(outs.values())
 
@@ -255,7 +275,7 @@ def _launch_com_pos(m: Model, xpos, xquat, xanchor, xaxis):
   global launches_com
   outs = _launch_entry(m, 'com_', dict(xpos=xpos, xquat=xquat,
                                        xanchor=xanchor, xaxis=xaxis),
-                       COM_POS, True)
+                       COM_POS)
   launches_com += 1
   return tuple(outs.values())
 
@@ -270,8 +290,7 @@ def crb(m: Model, cinert, cdof):
 
 def _launch_crb(m: Model, cinert, cdof):
   global launches_crb
-  outs = _launch_entry(m, 'crb_', dict(cinert=cinert, cdof=cdof), CRB,
-                       False)
+  outs = _launch_entry(m, 'crb_', dict(cinert=cinert, cdof=cdof), CRB)
   launches_crb += 1
   return tuple(outs.values())
 
@@ -286,6 +305,6 @@ def smooth_front(m: Model, qpos: torch.Tensor) -> dict:
 
 def _launch_smooth_front(m: Model, qpos: torch.Tensor) -> dict:
   global launches_front
-  outs = _launch_entry(m, 'front_', dict(qpos=qpos), FRONT, True)
+  outs = _launch_entry(m, 'front_', dict(qpos=qpos), FRONT)
   launches_front += 1
   return outs

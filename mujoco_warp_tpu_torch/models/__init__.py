@@ -22,7 +22,12 @@ Model holds, and the keyframe names of the `lift_pot` replay) and
 with SDF fingers over a cow, an SDF geom: nv 22; the Model holds the
 hulls and the 23 voxel grids at resolution 48 of the meshes an SDF pair
 reads, 3 sampled from the compiler's octrees and 20 voxelized, which takes
-most of the regeneration's time). They are
+most of the regeneration's time) and `kitchen.npz` of
+`benchmarks/scenes/kitchen/kitchen.xml` (a furnished kitchen: nv 68, 328
+bodies, 1,608 geoms, 235,648 admissible cylinder and box pairs, so the
+Model takes the large-scene broadphase and holds its pair arrays; its
+49 meshes collide with nothing, and their hulls, which the Model holds as
+`put_model` makes them, are read by no pair; 1.3 MB). They are
 committed so that a machine without the `mujoco` bindings can load the
 models (`io.load_model`).
 Regenerate them after a change to the compiler:
@@ -64,3 +69,6 @@ ALOHA_POT_NPZ = os.path.join(_DIR, 'aloha_pot.npz')
 ALOHA_SDF = os.path.join(_ROOT, 'benchmarks', 'scenes', 'aloha_sdf',
                          'scene.xml')
 ALOHA_SDF_NPZ = os.path.join(_DIR, 'aloha_sdf.npz')
+KITCHEN = os.path.join(_ROOT, 'benchmarks', 'scenes', 'kitchen',
+                       'kitchen.xml')
+KITCHEN_NPZ = os.path.join(_DIR, 'kitchen.npz')

@@ -19,7 +19,8 @@ SOURCES = ((models.HUMANOID, models.HUMANOID_NPZ),
            (models.APOLLO_TERRAIN, models.APOLLO_TERRAIN_NPZ),
            (models.APOLLO_HFIELD, models.APOLLO_HFIELD_NPZ),
            (models.ALOHA_POT, models.ALOHA_POT_NPZ),
-           (models.ALOHA_SDF, models.ALOHA_SDF_NPZ))
+           (models.ALOHA_SDF, models.ALOHA_SDF_NPZ),
+           (models.KITCHEN, models.KITCHEN_NPZ))
 
 
 def main():

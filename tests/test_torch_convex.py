@@ -23,6 +23,10 @@ package's and against C MuJoCo.
     which turn about that point, follow. The pairs whose number of
     contacts differs are counted, at most SLOT_SHARE of the pairs
     (measured: 16 of 149 box-mesh pairs in float64, 13 in float32).
+    Cylinder-box and cylinder-cylinder (kitchen's families) too, their
+    float64 held as float32 is: a cylinder's cap and side are flat
+    supports, and its MPR parts after a change of 1e-15 (in float64,
+    cylinder-box: 7 of 91 base contacts off by more than 1e-9).
 * Against C MuJoCo: the mesh cases of tests/test_convex.py (`mesh_plane`,
   `mesh_plane_tilt`, `mesh_box`, `mesh_sphere`), the port's `collision`
   on its own kinematics, at that file's tolerances: deepest dist within
@@ -56,6 +60,10 @@ N = 256
 # contacts (measured 16-18 of 149 box-mesh pairs)
 F32_SHARE = 0.08
 SLOT_SHARE = 0.15
+# pairs with another number of contacts where a cylinder meets a box
+# (measured: 15 of 91 cylinder-box pairs in float32, 9 in float64): both
+# the cap's and the face's supports are flat
+SLOT_SHARE_CYLINDER = 0.2
 
 
 def _hulls():
@@ -154,6 +162,9 @@ _MPR_CASES = {
     'sphere_mesh': (2, 7, [0.1, 0, 0], [0.1, 0.1, 0.1], False, 'cube'),
     'box_mesh': (6, 7, [0.1, 0.15, 0.05], [0.1, 0.1, 0.1], True, 'cube'),
     'mesh_mesh': (7, 7, [0.1, 0.1, 0.1], [0.1, 0.1, 0.1], True, 'wedge'),
+    'cylinder_box': (5, 6, [0.05, 0.1, 0], [0.1, 0.15, 0.05], True, None),
+    'cylinder_cylinder': (5, 5, [0.08, 0.1, 0], [0.1, 0.08, 0], True,
+                          None),
 }
 
 
@@ -162,15 +173,25 @@ def test_mpr_matches_jax(case):
   t1, t2, s1, s2, multi, mesh2 = _MPR_CASES[case]
   cube, wedge = _hulls()
   v1 = cube if t1 == 7 else None
-  v2 = dict(cube=cube, wedge=wedge)[mesh2]
+  v2 = dict(cube=cube, wedge=wedge).get(mesh2)
+  # a cylinder's cap and side are flat supports whose sign() turns on the
+  # last bit of the direction: its MPR takes another path after a change
+  # of 1e-15, in float64 too, and ends within its tolerance elsewhere, so
+  # float64 is held as float32 is (measured, cylinder-box in float64: 7
+  # of 91 base contacts off by more than 1e-9, the points 1.4e-6 apart
+  # along the normal)
+  chaotic = 5 in (t1, t2)
   assert cc.manifold_ncon(t1, t2, 0) == (5 if multi else 1)
   jfn = (jcc.mpr_multi if multi else jcc.mpr)(t1, t2)
   fn = cc.collider(t1, t2, 0)[0]
-  for dt, tol in ((np.float64, TOL64), (np.float32, TOL)):
+  for dt, tol in ((np.float64, TOL if chaotic else TOL64),
+                  (np.float32, TOL)):
     args = [a.astype(dt) for a in _poses(s1, s2, 0.15, 2)]
     with jax.enable_x64(dt == np.float64):
       ref = _jax(jfn, args, v1, v2, margin=True)
     out = _port(fn, args, v1, v2, margin=True)
+    if dt == np.float64:
+      ref64 = ref
     hit = ref[0][:, 0] < 1e9
     np.testing.assert_array_equal(out[0][:, 0] < 1e9, hit)
     assert hit.sum() > N // 4
@@ -186,13 +207,24 @@ def test_mpr_matches_jax(case):
           f'{int(off.sum())} off by more than {tol} in dist or normal, '
           f'{moved} moved along the contact plane; pairs with another '
           f'number of contacts: {slots}')
-    if dt == np.float64:
+    if dt == np.float64 and not chaotic:
       assert not off.any()
       if not multi:                  # no flat support: the same point
         assert moved == 0
     else:
-      assert off.sum() <= F32_SHARE * hit.sum(), off.sum()
-    assert slots <= SLOT_SHARE * hit.sum(), slots
+      allowed = F32_SHARE * hit.sum()
+      if chaotic and dt == np.float32:
+        # float32 MPR between two cylinders parts from float64 by up to
+        # 2.6e-3 in both packages (measured: 13 of 96 base contacts the
+        # port's, 9 JAX's): at most twice JAX's own count
+        both = hit & (ref64[0][:, 0] < 1e9)
+        own = ((np.abs(ref[0][both, 0] - ref64[0][both, 0]) > tol) |
+               (np.abs(ref[2][both, 0, 0] - ref64[2][both, 0, 0]) >
+                tol).any(-1)).sum()
+        allowed = max(allowed, 2 * own)
+      assert off.sum() <= allowed, (off.sum(), allowed)
+    assert slots <= (SLOT_SHARE_CYLINDER if chaotic else
+                     SLOT_SHARE) * hit.sum(), slots
 
 
 MESH_CASES = [c for c in CASES if c[0].startswith('mesh_')]

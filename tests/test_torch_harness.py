@@ -79,6 +79,8 @@ def _path_model(scene, variant):
   if scene == 'aloha_sdf':
     # the voxel grids from the .npz: voxelizing them takes minutes
     return io.load_model(models.ALOHA_SDF_NPZ, device='cpu')
+  if scene == 'kitchen':
+    return io.load_model(models.KITCHEN_NPZ, device='cpu')
   _, _, m = build_sap() if scene == 'sap_grid' else build(scene)
   if variant == 'rk4':
     m = m.replace(opt=m.opt.replace(integrator=int(IntegratorType.RK4)))
@@ -195,6 +197,9 @@ PATHS = [
     ('P17', 'aloha_pot', None, False, True),
     # P18: aloha_sdf's list, the SDF groups' descents in `collision`
     ('P18', 'aloha_sdf', None, False, True),
+    # P20: kitchen's unfused list, the SAP `collision` with its MPR
+    # families (`test_kitchen_collision_makes_no_host_sync`)
+    ('P20', 'kitchen', None, False, False),
 ]
 
 
@@ -214,7 +219,8 @@ def test_replay_predicate_on_the_paths(path, scene, variant, fwd, replayed,
     m = _path_model(scene, variant)
   nconmax = {'humanoid': 24, 'franka_emika_panda': 1,
              'apptronik_apollo_flat': 16, 'sap_grid': 8,
-             'aloha_pot': 24, 'aloha_sdf': 32}.get(scene, 100)
+             'aloha_pot': 24, 'aloha_sdf': 32,
+             'kitchen': 64}.get(scene, 100)
   d = mt.make_data(m, nconmax=nconmax, nworld=2)
   stages = forward.forward_stages(m, d) if fwd else \
       forward.batched_stages(m, d)
@@ -229,6 +235,24 @@ def test_replay_predicate_on_the_paths(path, scene, variant, fwd, replayed,
   with watch:
     run(d)
   assert bool(watch.seen) != replayed, (path, watch.seen)
+
+
+def test_kitchen_collision_makes_no_host_sync(watch):
+  """kitchen steps eagerly (the unfused solve syncs the host), but its
+  `collision` stage, the large-scene broadphase with the MPR families,
+  makes no host sync and builds no tensor from host data once the
+  model's tables are built."""
+  m = _path_model('kitchen', None)
+  d = mt.make_data(m, nconmax=64, nworld=2)
+  stages = forward.batched_stages(m, d)
+  for name, fn in stages[:[n for n, _ in stages].index('collision')]:
+    d = fn(d)
+  collide = dict(stages)['collision']
+  collide(d)                        # builds the model's tables
+  with watch:
+    out = collide(d)
+  assert not watch.seen, watch.seen
+  assert int(out.ncon.min()) == 64
 
 
 def test_a_glue_list_with_cameras_and_lights_makes_no_host_sync(watch):

@@ -13,6 +13,10 @@ it also runs on a machine with the card and without them:
 """
 
 import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
 import types
 
 import pytest
@@ -202,6 +206,82 @@ def test_wrappers_refuse_models_past_their_caps():
                sm['subtree_com'], sm['cdof'], kc.MAXCON + 1)
 
 
+MODELS = dict(
+    humanoid=models.HUMANOID_NPZ, three_humanoids=models.THREE_HUMANOIDS_NPZ,
+    franka_emika_panda=models.FRANKA_NPZ,
+    apptronik_apollo_flat=models.APOLLO_NPZ,
+    apptronik_apollo_terrain=models.APOLLO_TERRAIN_NPZ,
+    apptronik_apollo_hfield=models.APOLLO_HFIELD_NPZ,
+    aloha_pot=models.ALOHA_POT_NPZ, aloha_sdf=models.ALOHA_SDF_NPZ,
+    kitchen=models.KITCHEN_NPZ)
+
+
+# a block's shared memory on the H100 (bytes)
+BLOCK_BYTES = 232_448
+_HOST = {}
+
+
+def smooth_block_host() -> ctypes.CDLL:
+  """csrc/smooth_layout.cuh built by the host's C++ compiler into a
+  library, once a process: its `smooth_block` is the arithmetic that
+  B1's launch and `kernels.smooth.block` use (a world's words, worlds a
+  block)."""
+  if 'lib' not in _HOST:
+    cxx = shutil.which('g++') or shutil.which('c++')
+    if cxx is None:
+      pytest.skip('needs a host C++ compiler')
+    out = os.path.join(tempfile.mkdtemp(), 'smooth_layout.so')
+    subprocess.run([cxx, '-x', 'c++', '-shared', '-fPIC', '-O1', '-o', out,
+                    os.path.join(_build.CSRC, 'smooth_layout.cuh')],
+                   check=True, capture_output=True)
+    _HOST['lib'] = ctypes.CDLL(out)
+  return _HOST['lib']
+
+
+@pytest.mark.parametrize('model', sorted(MODELS))
+def test_smooth_block_holds_the_most_worlds_that_fit(model):
+  """B1's worlds a block, by the kernel's own arithmetic
+  (csrc/smooth_layout.cuh, built on the host) through
+  `kernels.smooth._block`: the most, up to 4, whose layouts fit a
+  block's BLOCK_BYTES: 4 on every committed model but kitchen (14,716
+  words a world: 3)."""
+  m = mt.load_model(MODELS[model], device='cpu')
+  nnz = ks.tree_tables(m.body_parentid, m.dof_parentid)['nnz']
+  nbytes, worlds = ks._block(smooth_block_host(), m, nnz)
+  assert nbytes % 16 == 0
+  assert worlds == (3 if model == 'kitchen' else 4)
+  assert worlds * nbytes <= BLOCK_BYTES
+  assert worlds == 4 or (worlds + 1) * nbytes > BLOCK_BYTES
+  if model == 'kitchen':
+    assert nbytes == 4 * 14716
+
+
+def test_smooth_lanes_keep_whole_warps(monkeypatch):
+  """`_choose_lanes` takes the fewest lanes that keep MIN_WARPS warps
+  resident, of those that make a block of whole warps, by the worlds
+  that the launch shape reports: at 3 worlds a block only 32 lanes (a
+  block of 24 or 48 threads would split a warp); a world past a block
+  is refused (`_block`, on the kernel's own arithmetic)."""
+  asked, worlds = [], [3]
+
+  def shape(name, params, values, entry):
+    g = values['lanes']
+    asked.append((worlds[0], g))
+    return (1, worlds[0] * g, 0, 1 if worlds[0] == 3 else 8)
+  monkeypatch.setattr(ks._build, 'launch_shape', shape)
+  assert ks._choose_lanes({}, '') == 32
+  assert asked == [(3, 8), (3, 16), (3, 32)]
+  worlds[0] = 4
+  assert ks._choose_lanes({}, '') == 16
+  assert asked[3:] == [(4, 8), (4, 16)]
+  worlds[0] = 2
+  assert ks._choose_lanes({}, '') == 32
+  assert asked[5:] == [(2, 8), (2, 16), (2, 32)]
+  big = types.SimpleNamespace(nq=1, nv=1, nbody=2000, njnt=1)
+  with pytest.raises(ValueError):
+    ks._block(smooth_block_host(), big, 1)
+
+
 def _smooth_entries(m, sm):
   """B9-B12 on B1's outputs sm: name -> (wrapper, launch path, count,
   plain version, output names, arguments)."""
@@ -328,6 +408,29 @@ def test_smooth_kernel_matches_plain(cuda):
   torch.cuda.synchronize()
   assert ks.launches == 1
   for name, ref in smooth.smooth(m, d.qpos, d.qvel).items():
+    _close(out[name], ref, name, 2e-5)
+
+
+@pytest.mark.cuda
+def test_smooth_kernel_matches_plain_on_kitchen(cuda):
+  """B1 on kitchen's 328 bodies, 3 worlds a block at 32 lanes, at 256
+  worlds (85 whole blocks and one of 1 world), the joints drawn across
+  their ranges, against its plain version at 2e-5 of scale."""
+  m = mt.load_model(models.KITCHEN_NPZ, device=cuda)
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  W = 256
+  d = mt.make_batch(m, mt.make_data(m, nconmax=64), W)
+  lo, hi = m.jnt_range[:, 0], m.jnt_range[:, 1]
+  qpos = d.qpos.clone()
+  qpos[:, torch.tensor(m.jnt_qposadr, device=cuda)] = lo + (hi - lo) * (
+      torch.rand((W, m.njnt), generator=gen, device=cuda))
+  qvel = 0.1 * torch.randn((W, m.nv), generator=gen, device=cuda)
+  ks.launches = 0
+  out = ks.smooth(m, qpos, qvel)
+  torch.cuda.synchronize()
+  assert ks.launches == 1 and ks.lanes(m) == 32
+  assert _build.shapes[('smooth', '')][:3] == (86, 96, 3 * 4 * 14716)
+  for name, ref in smooth.smooth(m, qpos, qvel).items():
     _close(out[name], ref, name, 2e-5)
 
 

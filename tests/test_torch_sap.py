@@ -394,12 +394,12 @@ def _assert_cull_pool(m, out, new):
 
 
 def test_sap_gate_refuses_unported_families_and_planes():
-  """A SAP family without a port collider (cylinder-box, as kitchen's),
-  plane pairs and MPR pairs (sphere-mesh) under the large-scene
-  broadphase are refused."""
-  cyl = _group_scene(1, 5).replace('type="capsule" size=".01 .02"',
-                                   'type="cylinder" size=".01 .02"')
-  with pytest.raises(NotImplementedError, match=r'\(5, 6\)'):
+  """A SAP family without a port collider (capsule-cylinder) and plane
+  pairs under the large-scene broadphase are refused; an MPR family
+  (sphere-mesh) is admitted, with JAX `put_model`'s families."""
+  cyl = _group_scene(1, 5).replace('type="box" size="0.01 0.01 0.01"',
+                                   'type="cylinder" size=".01 .01"')
+  with pytest.raises(NotImplementedError, match=r'\(3, 5\)'):
     build_sap(cyl, threshold=1)
   plane = _group_scene(1, 5).replace(
       '<worldbody>', '<worldbody><geom type="plane" size="1 1 1"/>')
@@ -410,5 +410,6 @@ def test_sap_gate_refuses_unported_families_and_planes():
       '0 .01 0  0 0 .01"/></asset>').replace(
           'type="capsule" size=".01 .02"', 'type="mesh" mesh="tet"').replace(
               'type="box" size="0.01 0.01 0.01"', 'type="sphere" size=".01"')
-  with pytest.raises(NotImplementedError, match='MPR pairs'):
-    build_sap(mesh, threshold=1)
+  _, jm, m = build_sap(mesh, threshold=1)
+  assert m.sap_families == jm.sap_meta.families == ((2, 7, 0, 5),)
+  np.testing.assert_array_equal(m.sap_pairs.numpy(), np.asarray(jm.sap_pairs))
